@@ -3,21 +3,31 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once, through the entry points a user calls,
+Drives the port's main paths once, through the entry points a user calls,
 and fails (non-zero exit, no result line) on any error:
 
   1. a CUDA card is present; TF32 off; the card's name and power limit;
-  2. the evaluator kernel builds from tpustomp_torch/csrc with nvcc;
-  3. kernel against its plain PyTorch version at the config-4 shape
-     (C = 1024 scenarios x 56 candidates = 57,344 trajectories, T = 102),
-     all rows active and with about a third of the rows inactive, plus
+  2. both evaluator kernels build from tpustomp_torch/csrc with nvcc (one
+     nvcc per source, started together);
+  3. rollout_analytic against its plain PyTorch version at the config-4
+     shape (C = 1024 scenarios x 56 candidates = 57,344 trajectories,
+     T = 102) on the tabletop boxes: time-major input with all rows active
+     and with about a third inactive (K3), the candidate-major [C, T, d]
+     input (K4), and a robot with shuffled bodies and no body_counts (K1);
      kernel and plain times (CUDA events);
+  3g. rollout_grid against the plain version at the same shape on the
+     config-2 tabletop voxelized by the port's signed EDT (64x80x48 at
+     2.5 cm): all rows active and masked (K5 + tail), the grid plus an
+     overlay sphere (CompositeWorld), shuffled bodies (K2); times;
   4. plan_batch on BASELINE config 4 (configs/config4_batch.yaml, tabletop
-     scene, B = 1024, starts/goals jittered as the CLI does): the kernel's
-     launch count over that run, success, and checks on every solved row;
-     and the same slice on a small input against the CPU run (plain
+     boxes, B = 1024, starts/goals jittered as the CLI does): the analytic
+     kernel's launches over that run, success, and checks on every solved
+     row; and the same slice on a small input against the CPU run (plain
      evaluator) under the same noise;
-  5. plan on BASELINE config 2 (configs/config2_tabletop.yaml).
+  4g. the same over the voxel tabletop (grid kernel), with every solved row
+     also checked against the exact box SDF;
+  5. plan on BASELINE config 2 (configs/config2_tabletop.yaml);
+  5g. plan on config 2 over the voxel tabletop, 4 restarts.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -25,6 +35,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -40,6 +51,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # order move the float32 FK chain by about 1 ULP per joint (the JAX
 # package measured up to 4e-6 in body positions at 7 joints).
 Q_ATOL, Q_RTOL, M_ATOL = 1e-5, 1e-5, 1e-6
+TOL = f"q {Q_ATOL}+{Q_RTOL}|q|, margin {M_ATOL}"
 
 
 def say(phase, **kv):
@@ -70,6 +82,219 @@ def tabletop(scene_doc):
                                      for b in scene_doc["boxes"]])
 
 
+def voxel_tabletop(scene_doc):
+    """The scene's own grid spec, voxelized through the port's signed EDT."""
+    from tpustomp_torch.world.edt import occupancy_from_analytic, signed_edt
+
+    g = scene_doc["grid"]
+    occ = occupancy_from_analytic(tabletop(scene_doc), g["origin"],
+                                  tuple(g["shape"]), g["resolution"])
+    return signed_edt(occ, g["resolution"], g["origin"])
+
+
+def shuffled(robot, seed):
+    """robot with its bodies in a random order and no body_counts (the
+    case of the TPU's rolled kernels K1/K2)."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        robot.num_bodies)).to(robot.body_link.device)
+    return dataclasses.replace(
+        robot, body_link=robot.body_link[perm],
+        body_offset=robot.body_offset[perm],
+        body_radius=robot.body_radius[perm], body_counts=None)
+
+
+def check_kernel(label, rollout, robot, world, fulls, dt, clearance,
+                 active=None, time_major=True, plain=None):
+    """The kernel against the plain version on the same inputs; returns the
+    larger of the two max |Δ| over the checked rows."""
+    C = fulls.shape[0]
+    q_p, m_p = plain or rollout.obstacle_cost_batch_plain(
+        robot, world, fulls, dt, clearance)
+    x = fulls.permute(2, 1, 0).contiguous() if time_major else fulls
+    q_k, m_k = rollout.obstacle_cost_batch(robot, world, x, dt, clearance,
+                                           row_active=active,
+                                           time_major=time_major)
+    torch.cuda.synchronize()
+    rows = (torch.ones(C, dtype=torch.bool, device=fulls.device)
+            if active is None else active)
+    dq = (q_k - q_p).abs()[rows]
+    dm = (m_k - m_p).abs()[rows]
+    ok = bool((dq <= Q_ATOL + Q_RTOL * q_p.abs()[rows]).all()
+              and (dm <= M_ATOL).all())
+    finite = bool(torch.isfinite(q_k).all() and torch.isfinite(m_k).all())
+    out = dict(C=C, T=fulls.shape[1], rows_checked=int(rows.sum()),
+               max_abs_dq=float(dq.max()), max_abs_dm=float(dm.max()),
+               max_abs_q=float(q_p.abs().max()), tol=TOL, finite=finite)
+    if active is not None:
+        off = ~active
+        zero_or_plain = bool(
+            (((q_k[off] == 0) | ((q_k[off] - q_p[off]).abs()
+                                 <= Q_ATOL + Q_RTOL * q_p[off].abs())).all())
+            and (((m_k[off] == 0) | ((m_k[off] - m_p[off]).abs()
+                                     <= M_ATOL)).all()))
+        out.update(rows_inactive=int(off.sum()),
+                   inactive_zero_or_plain=zero_or_plain)
+        assert zero_or_plain, out
+    say("kernel_vs_plain:" + label, **out)
+    assert ok and finite, out
+    return max(float(dq.max()), float(dm.max()))
+
+
+def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi):
+    """Phases 3 and 3g for one kernel: time-major with all rows active and
+    masked, candidate-major (the analytic kernel only: K4) and shuffled
+    bodies; then kernel and plain times. Returns (max_err, ms, plain_ms)."""
+    C = fulls.shape[0]
+    dev = fulls.device
+    plain = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
+                                              clearance)
+    blocks = torch.arange(C, device=dev) // 128
+    within = torch.arange(C, device=dev) % 128
+    inactive = (blocks % 3 == 0) | ((blocks % 7 == 1) & (within < 64))
+    unsorted = shuffled(robot, 0)
+    err = max(
+        check_kernel(f"{name}:all_active", rollout, robot, world, fulls, dt,
+                     clearance, plain=plain),
+        check_kernel(f"{name}:masked", rollout, robot, world, fulls, dt,
+                     clearance, active=~inactive, plain=plain),
+        check_kernel(f"{name}:unsorted_bodies", rollout, unsorted, world,
+                     fulls, dt, clearance))
+    tm = fulls.permute(2, 1, 0).contiguous()   # [d, T, C], as the solver hands it
+    kernel_ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch(
+        robot, world, tm, dt, clearance, row_active=None, time_major=True), 20)
+    plain_ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
+        robot, world, fulls, dt, clearance), 5)
+    timing = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
+                  speedup=plain_ms / kernel_ms,
+                  unsorted_bodies_ms=cuda_time_ms(
+                      lambda: rollout.obstacle_cost_batch(
+                          unsorted, world, tm, dt, clearance,
+                          time_major=True), 20),
+                  unsorted_bodies_plain_ms=cuda_time_ms(
+                      lambda: rollout.obstacle_cost_batch_plain(
+                          unsorted, world, fulls, dt, clearance), 5))
+    if name == "rollout_analytic":
+        err = max(err, check_kernel(f"{name}:candidate_major", rollout,
+                                    robot, world, fulls, dt, clearance,
+                                    time_major=False, plain=plain))
+        timing["candidate_major_ms"] = cuda_time_ms(
+            lambda: rollout.obstacle_cost_batch(robot, world, fulls, dt,
+                                                clearance), 20)
+    say(f"kernel_time:{name}", **timing, card=smi)
+    return err, kernel_ms, plain_ms
+
+
+def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
+                     smi, success_floor, exact_world=None):
+    """Phase 4/4g: plan_batch at B = len(q0b), checks on every solved row.
+    Returns the kernel's launches over the run."""
+    from tpustomp_torch import ProblemSpec, plan_batch
+    from tpustomp_torch.engine.trajectory import wrap_goal
+
+    dev = robot.joint_axis.device
+    B, d = q0b.shape
+    T = cfg4.num_timesteps + 2
+    dt, clearance = cfg4.dt, cfg4.collision_clearance
+    # warm-up at a small batch (cuBLAS handles, allocator), not timed
+    plan_batch(robot, world, ProblemSpec(q0=q0b[:16], qN=qNb[:16]), cfg4,
+               device=dev, generator=torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+
+    rollout.reset_launches()
+    t0 = time.perf_counter()
+    sol = plan_batch(robot, world, ProblemSpec(q0=q0b, qN=qNb), cfg4,
+                     device=dev, generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(rollout.LAUNCHES)
+
+    traj, succ, iters = sol.trajectory, sol.success, sol.iterations
+    assert traj.shape == (B, T, d) and succ.shape == (B,), traj.shape
+    assert bool(torch.isfinite(traj).all() and torch.isfinite(sol.cost).all())
+    success_rate = float(succ.float().mean())
+    say(f"plan_batch:{label}", B=B, wall_s=wall, solves_per_s=B / wall,
+        success_rate=success_rate, mean_iterations=float(iters.float().mean()),
+        max_iterations=int(iters.max()), kernel_launches=launches, card=smi)
+    assert launches[kernel] >= int(iters.max()), (launches, int(iters.max()))
+    assert sum(launches.values()) == launches[kernel], launches
+    assert success_rate >= success_floor, success_rate
+    q0t = torch.as_tensor(q0b, device=dev)
+    qNt = wrap_goal(q0t, torch.as_tensor(qNb, device=dev),
+                    robot.joint_limited)
+    solved = traj[succ]
+    assert torch.allclose(solved[:, 0], q0t[succ], atol=1e-5, rtol=0)
+    assert torch.allclose(solved[:, -1], qNt[succ], atol=1e-5, rtol=0)
+    lim = robot.joint_limited
+    inside = ((solved >= robot.joint_lower - 1e-6)
+              & (solved <= robot.joint_upper + 1e-6)) | ~lim
+    assert bool(inside.all()), "joint limits violated"
+    _, margins = rollout.obstacle_cost_batch_plain(robot, world, solved, dt,
+                                                   clearance)
+    assert bool((margins > cfg4.collision_threshold - M_ATOL).all()), \
+        float(margins.min())
+    checks = dict(solved=int(succ.sum()),
+                  min_final_margin=float(margins.min()), endpoints="ok",
+                  joint_limits="ok")
+    if exact_world is not None:
+        # the grid has voxel-scale error: hold solved rows to the exact box
+        # SDF with one voxel of slack, as tests/integration/test_config2.py
+        _, exact = rollout.obstacle_cost_batch_plain(
+            robot, exact_world, solved, dt, clearance)
+        checks["min_exact_margin"] = float(exact.min())
+        assert bool((exact > -0.025).all()), float(exact.min())
+    say(f"plan_batch:{label}:checks", **checks)
+    return launches[kernel]
+
+
+def cuda_vs_cpu_phase(label, robot, world, cfg4, q0b, qNb):
+    """The same slice on a small input: card (kernel) vs CPU (plain version)
+    under the same noise."""
+    from tpustomp_torch import ProblemSpec, plan_batch
+
+    dev = robot.joint_axis.device
+    small = cfg4.replace(max_iterations=10)
+    Bs, K, N = 8, small.num_rollouts, small.num_timesteps
+    z = np.random.default_rng(1).standard_normal(
+        (small.max_iterations, robot.num_joints, Bs, K, N)).astype(np.float32)
+
+    def bank(device):
+        return lambda it, active: torch.from_numpy(z[it]).to(device)
+
+    prob = ProblemSpec(q0=q0b[:Bs], qN=qNb[:Bs])
+    ref = plan_batch(robot.to("cpu"), world.to("cpu"), prob, small,
+                     device="cpu", noise_fn=bank("cpu"))
+    got = plan_batch(robot, world, prob, small, device=dev,
+                     noise_fn=bank(dev)).to("cpu")
+    d_traj = float((got.trajectory - ref.trajectory).abs().max())
+    d_cost = float(((got.cost - ref.cost).abs() / ref.cost.abs()).max())
+    same = (torch.equal(got.success, ref.success)
+            and torch.equal(got.iterations, ref.iterations))
+    say(f"plan_batch:cuda_vs_cpu:{label}", B=Bs, max_abs_dtraj=d_traj,
+        max_rel_dcost=d_cost, success_and_iterations_equal=same)
+    assert same and d_traj <= 1e-4 and d_cost <= 1e-4
+
+
+def plan_phase(label, kernel, rollout, robot, world, cfg2, scene, smi):
+    """Phase 5/5g: one config-2 query through plan; asserts success."""
+    from tpustomp_torch import ProblemSpec, plan
+
+    dev = robot.joint_axis.device
+    q0 = np.asarray(scene["q0"], np.float32)
+    qN = np.asarray(scene["qN"], np.float32)
+    launches0 = rollout.LAUNCHES[kernel]
+    t0 = time.perf_counter()
+    one = plan(robot, world, ProblemSpec(q0=q0, qN=qN), cfg2, device=dev,
+               generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    say(f"plan:{label}", success=bool(one.success),
+        restarts=cfg2.num_restarts, iterations=int(one.iterations),
+        cost=float(one.cost), wall_s=wall,
+        kernel_launches=rollout.LAUNCHES[kernel] - launches0, card=smi)
+    assert bool(one.success), f"{label} plan failed"
+    assert one.trajectory.shape == (cfg2.num_timesteps + 2, 7)
+
+
 def main():
     # --- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -90,16 +315,15 @@ def main():
     sys.path.insert(0, ROOT)
     import yaml
 
-    from tpustomp_torch import ProblemSpec, plan, plan_batch
     from tpustomp_torch.api.config import from_dict
-    from tpustomp_torch.engine.trajectory import wrap_goal
     from tpustomp_torch.kernels import rollout
     from tpustomp_torch.robot.model import arm_7dof
+    from tpustomp_torch.world.sdf import CompositeWorld
 
     # --- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
     rollout.build()
-    say("build", kernel="rollout_analytic",
+    say("build", kernels=sorted(rollout.LAUNCHES),
         seconds=round(time.perf_counter() - t0, 3))
 
     with open(os.path.join(ROOT, "configs", "config4_batch.yaml")) as f:
@@ -107,68 +331,40 @@ def main():
     with open(os.path.join(ROOT, "configs", "config2_tabletop.yaml")) as f:
         doc2 = yaml.safe_load(f)
     cfg4 = from_dict(doc4["planner"])
+    cfg2 = from_dict(doc2["planner"])
     scene = doc2["scene"]             # the default tabletop scene
     robot = arm_7dof().to(dev)
     world = tabletop(scene).to(dev)
+    t0 = time.perf_counter()
+    grid = voxel_tabletop(scene).to(dev)
+    say("voxel_world", shape=list(grid.grid.shape),
+        resolution=float(grid.resolution), edt_seconds=round(
+            time.perf_counter() - t0, 3))
+    composite = CompositeWorld.make(
+        grid, spheres=[((0.35, 0.3, 0.55), 0.12)]).to(dev)
     B = int(doc4["batch"]["scenarios_per_chip"])
     C = B * (1 + cfg4.num_rollouts + cfg4.noise.num_rollouts_reused)
     T = cfg4.num_timesteps + 2
     dt, clearance = cfg4.dt, cfg4.collision_clearance
 
-    # --- 3. kernel against plain at the config-4 shape ------------------------
+    # --- 3 / 3g. kernels against plain at the config-4 shape -----------------
     rng = np.random.default_rng(0)
     lo = robot.joint_lower.cpu().numpy()
     hi = robot.joint_upper.cpu().numpy()
     fulls = torch.as_tensor(rng.uniform(lo, hi, (C, T, 7)).astype(np.float32),
                             device=dev)                       # [C, T, d]
-    tm = fulls.permute(2, 1, 0).contiguous()   # [d, T, C], as the solver hands it
-    q_p, m_p = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
-                                                 clearance)
-    blocks = torch.arange(C, device=dev) // 128
-    within = torch.arange(C, device=dev) % 128
-    inactive = (blocks % 3 == 0) | ((blocks % 7 == 1) & (within < 64))
-    max_err = 0.0
-    for label, active in (("all_active", None), ("masked", ~inactive)):
-        q_k, m_k = rollout.obstacle_cost_batch(robot, world, tm, dt,
-                                               clearance, row_active=active,
-                                               time_major=True)
-        torch.cuda.synchronize()
-        rows = (torch.ones(C, dtype=torch.bool, device=dev) if active is None
-                else active)
-        dq = (q_k - q_p).abs()[rows]
-        dm = (m_k - m_p).abs()[rows]
-        ok_q = bool((dq <= Q_ATOL + Q_RTOL * q_p.abs()[rows]).all())
-        ok_m = bool((dm <= M_ATOL).all())
-        finite = bool(torch.isfinite(q_k).all() and torch.isfinite(m_k).all())
-        out = dict(C=C, T=T, rows_checked=int(rows.sum()),
-                   max_abs_dq=float(dq.max()), max_abs_dm=float(dm.max()),
-                   max_abs_q=float(q_p.abs().max()),
-                   tol=f"q {Q_ATOL}+{Q_RTOL}|q|, margin {M_ATOL}",
-                   finite=finite)
-        if active is not None:
-            off = ~active
-            zero_or_plain = bool(
-                (((q_k[off] == 0) | ((q_k[off] - q_p[off]).abs()
-                                     <= Q_ATOL + Q_RTOL * q_p[off].abs()))
-                 .all())
-                and (((m_k[off] == 0) | ((m_k[off] - m_p[off]).abs()
-                                         <= M_ATOL)).all()))
-            out.update(rows_inactive=int(off.sum()),
-                       inactive_zero_or_plain=zero_or_plain)
-            assert zero_or_plain, out
-        say("kernel_vs_plain:" + label, **out)
-        assert ok_q and ok_m and finite, out
-        max_err = max(max_err, float(dq.max()), float(dm.max()))
-    kernel_ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch(
-        robot, world, tm, dt, clearance, row_active=None, time_major=True), 20)
-    plain_ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
-        robot, world, fulls, dt, clearance), 5)
-    say("kernel_time", kernel_ms=kernel_ms, plain_ms=plain_ms,
-        speedup=plain_ms / kernel_ms, card=smi)
-    del fulls, tm, q_p, m_p
+    table = {}
+    for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
+        table[name] = kernel_phase(name, rollout, robot, w, fulls, dt,
+                                   clearance, smi)
+    err = check_kernel("rollout_grid:composite", rollout, robot, composite,
+                       fulls, dt, clearance)
+    e, k_ms, p_ms = table["rollout_grid"]
+    table["rollout_grid"] = (max(e, err), k_ms, p_ms)
+    del fulls
     torch.cuda.empty_cache()
 
-    # --- 4. plan_batch on config 4 --------------------------------------------
+    # --- 4 / 4g. plan_batch on config 4 -------------------------------------
     q0 = np.asarray(scene["q0"], np.float32)
     qN = np.asarray(scene["qN"], np.float32)
     jitter = float(doc4["batch"]["start_goal_jitter"])
@@ -177,95 +373,38 @@ def main():
            + rng.uniform(-jitter, jitter, (B, 7))).astype(np.float32)
     qNb = (np.tile(qN, (B, 1))
            + rng.uniform(-jitter, jitter, (B, 7))).astype(np.float32)
-    # warm-up at a small batch (cuBLAS handles, allocator), not timed
-    plan_batch(robot, world, ProblemSpec(q0=q0b[:16], qN=qNb[:16]), cfg4,
-               device=dev, generator=torch.Generator(dev).manual_seed(1))
-    torch.cuda.synchronize()
+    launches = {
+        "rollout_analytic": plan_batch_phase(
+            "config4", "rollout_analytic", rollout, robot, world, cfg4, q0b,
+            qNb, smi, success_floor=0.9),
+    }
+    cuda_vs_cpu_phase("config4", robot, world, cfg4, q0b, qNb)
+    launches["rollout_grid"] = plan_batch_phase(
+        "config4_grid", "rollout_grid", rollout, robot, grid, cfg4, q0b, qNb,
+        smi, success_floor=0.5, exact_world=world)
+    cuda_vs_cpu_phase("config4_grid", robot, grid, cfg4, q0b, qNb)
 
-    rollout.LAUNCHES = 0
-    t0 = time.perf_counter()
-    sol = plan_batch(robot, world, ProblemSpec(q0=q0b, qN=qNb), cfg4,
-                     device=dev, generator=torch.Generator(dev).manual_seed(0))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = rollout.LAUNCHES
+    # --- 5 / 5g. plan on config 2 ------------------------------------------
+    plan_phase("config2", "rollout_analytic", rollout, robot, world, cfg2,
+               scene, smi)
+    plan_phase("config2_grid", "rollout_grid", rollout, robot, grid,
+               cfg2.replace(num_restarts=4), scene, smi)
 
-    traj, succ = sol.trajectory, sol.success
-    iters = sol.iterations
-    assert traj.shape == (B, T, 7) and succ.shape == (B,), traj.shape
-    assert bool(torch.isfinite(traj).all() and torch.isfinite(sol.cost).all())
-    success_rate = float(succ.float().mean())
-    say("plan_batch:config4", B=B, wall_s=wall, solves_per_s=B / wall,
-        success_rate=success_rate, mean_iterations=float(iters.float().mean()),
-        max_iterations=int(iters.max()), kernel_launches=launches, card=smi)
-    assert launches >= int(iters.max()), (launches, int(iters.max()))
-    assert success_rate >= 0.9, success_rate
-    q0t = torch.as_tensor(q0b, device=dev)
-    qNt = wrap_goal(q0t, torch.as_tensor(qNb, device=dev),
-                    robot.joint_limited)
-    solved = traj[succ]
-    assert torch.allclose(solved[:, 0], q0t[succ], atol=1e-5, rtol=0)
-    assert torch.allclose(solved[:, -1], qNt[succ], atol=1e-5, rtol=0)
-    lim = robot.joint_limited
-    inside = ((solved >= robot.joint_lower - 1e-6)
-              & (solved <= robot.joint_upper + 1e-6)) | ~lim
-    assert bool(inside.all()), "joint limits violated"
-    _, margins = rollout.obstacle_cost_batch_plain(robot, world, solved, dt,
-                                                   clearance)
-    assert bool((margins > cfg4.collision_threshold - M_ATOL).all()), \
-        float(margins.min())
-    say("plan_batch:checks", solved=int(succ.sum()),
-        min_final_margin=float(margins.min()), endpoints="ok",
-        joint_limits="ok")
-
-    # the same slice on a small input: card (kernel) vs CPU (plain version)
-    small = cfg4.replace(max_iterations=10)
-    Bs, K, N = 8, small.num_rollouts, small.num_timesteps
-    z = np.random.default_rng(1).standard_normal(
-        (small.max_iterations, 7, Bs, K, N)).astype(np.float32)
-
-    def bank(device):
-        return lambda it, active: torch.from_numpy(z[it]).to(device)
-
-    prob = ProblemSpec(q0=q0b[:Bs], qN=qNb[:Bs])
-    ref = plan_batch(robot.to("cpu"), world.to("cpu"), prob, small,
-                     device="cpu", noise_fn=bank("cpu"))
-    got = plan_batch(robot, world, prob, small, device=dev,
-                     noise_fn=bank(dev)).to("cpu")
-    d_traj = float((got.trajectory - ref.trajectory).abs().max())
-    d_cost = float(((got.cost - ref.cost).abs() / ref.cost.abs()).max())
-    same = (torch.equal(got.success, ref.success)
-            and torch.equal(got.iterations, ref.iterations))
-    say("plan_batch:cuda_vs_cpu", B=Bs, max_abs_dtraj=d_traj,
-        max_rel_dcost=d_cost, success_and_iterations_equal=same)
-    assert same and d_traj <= 1e-4 and d_cost <= 1e-4
-
-    # --- 5. plan on config 2 --------------------------------------------------
-    with open(os.path.join(ROOT, "configs", "config2_tabletop.yaml")) as f:
-        cfg2 = from_dict(yaml.safe_load(f)["planner"])
-    launches0 = rollout.LAUNCHES
-    t0 = time.perf_counter()
-    one = plan(robot, world, ProblemSpec(q0=q0, qN=qN), cfg2, device=dev,
-               generator=torch.Generator(dev).manual_seed(0))
-    torch.cuda.synchronize()
-    wall2 = time.perf_counter() - t0
-    say("plan:config2", success=bool(one.success),
-        iterations=int(one.iterations), cost=float(one.cost), wall_s=wall2,
-        kernel_launches=rollout.LAUNCHES - launches0, card=smi)
-    assert bool(one.success), "config-2 plan failed"
-    assert one.trajectory.shape == (cfg2.num_timesteps + 2, 7)
-
+    replaces = {
+        "rollout_analytic": "tpustomp/kernels/rollout_pallas.py:741",
+        "rollout_grid": "tpustomp/kernels/rollout_pallas.py:770",
+    }
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "rollout_analytic",
+        "name": name,
         "route": "cuda",
-        "source": "tpustomp_torch/csrc/rollout_analytic.cu",
-        "replaces": "tpustomp/kernels/rollout_pallas.py:741",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-    }]}), flush=True)
+        "source": f"tpustomp_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": launches[name],
+        "max_abs_err": table[name][0],
+        "ms": table[name][1],
+        "plain_ms": table[name][2],
+    } for name in ("rollout_analytic", "rollout_grid")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
-"""On the card: the CUDA evaluator kernel against its plain PyTorch version
-(mirrors phase 3 of chip_smoke.py) and the whole batched slice on CUDA
-against the CPU run under the same noise.
+"""On the card: the CUDA evaluator kernels (rollout_analytic, rollout_grid)
+against their plain PyTorch version (mirrors the kernel phases of
+chip_smoke.py) and the whole batched slice on CUDA against the CPU run
+under the same noise, over analytic and voxel worlds.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -13,6 +14,8 @@ config-4 shape: max |Δ| 1.3e-6 for q_obs at |q_obs| up to 3.7, 1.5e-7 for
 margin).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +24,8 @@ from tpustomp_torch import NoiseConfig, PlannerConfig, ProblemSpec, plan_batch
 from tpustomp_torch.engine import solver as tsolver
 from tpustomp_torch.kernels import rollout as tr
 from tpustomp_torch.robot import model as tmodel
-from tpustomp_torch.world.sdf import AnalyticWorld
+from tpustomp_torch.world.edt import occupancy_from_analytic, signed_edt
+from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld
 
 Q_TOL = dict(atol=1e-5, rtol=1e-5)
 M_ATOL = 1e-6
@@ -57,9 +61,9 @@ def test_kernel_matches_plain(cuda_device, world_name, C, T):
     robot = tmodel.arm_7dof().to(cuda_device)
     world = AnalyticWorld.make(**_WORLDS[world_name]).to(cuda_device)
     cand = _cands(robot, C, T, C + T, cuda_device)
-    before = tr.LAUNCHES
+    before = tr.LAUNCHES["rollout_analytic"]
     q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 5.0 / 101, 0.05)
-    assert tr.LAUNCHES == before + 1
+    assert tr.LAUNCHES["rollout_analytic"] == before + 1
     q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 5.0 / 101,
                                             0.05)
     torch.cuda.synchronize()
@@ -123,6 +127,99 @@ def test_kernel_rejects_bad_inputs(cuda_device):
                                PlannerConfig(obstacle_backend="xla"), cand)
 
 
+def _voxel_world(kind):
+    """The config-2 tabletop voxelized at its own grid (64x80x48 at 2.5 cm)
+    through the port's signed EDT; "composite" adds an overlay sphere."""
+    origin, shape, res = (-0.2, -1.0, 0.0), (64, 80, 48), 0.025
+    occ = occupancy_from_analytic(AnalyticWorld.make(**_WORLDS["boxes"]),
+                                  origin, shape, res)
+    grid = signed_edt(occ, res, origin)
+    if kind == "grid":
+        return grid
+    return CompositeWorld.make(grid, spheres=[((0.35, 0.3, 0.55), 0.12)])
+
+
+def _shuffled(robot, seed):
+    """robot with its bodies in a random order and no body_counts."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        robot.num_bodies))
+    return dataclasses.replace(
+        robot, body_link=robot.body_link[perm],
+        body_offset=robot.body_offset[perm],
+        body_radius=robot.body_radius[perm], body_counts=None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "composite"])
+@pytest.mark.parametrize("C,T", [(1, 2), (300, 17), (4000, 102)])
+def test_grid_kernel_matches_plain(cuda_device, kind, C, T):
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = _voxel_world(kind).to(cuda_device)
+    cand = _cands(robot, C, T, C + T, cuda_device)
+    before = dict(tr.LAUNCHES)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 5.0 / 101, 0.05)
+    assert tr.LAUNCHES["rollout_grid"] == before["rollout_grid"] + 1
+    assert tr.LAUNCHES["rollout_analytic"] == before["rollout_analytic"]
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 5.0 / 101,
+                                            0.05)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "composite"])
+def test_grid_kernel_row_active(cuda_device, kind):
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = _voxel_world(kind).to(cuda_device)
+    C, T = 1000, 102
+    cand = _cands(robot, C, T, 0, cuda_device)
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[128:256] = False
+    active[::3] = False
+    q_k, m_k = tr.obstacle_cost_batch(
+        robot, world, cand.permute(2, 1, 0).contiguous(), 0.05, 0.05,
+        row_active=active, time_major=True)
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.05, 0.05)
+    torch.testing.assert_close(q_k[active], q_p[active], **Q_TOL)
+    torch.testing.assert_close(m_k[active], m_p[active], atol=M_ATOL, rtol=0)
+    assert bool((q_k[~active] == 0).all()) and bool((m_k[~active] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic", "grid"])
+def test_kernels_take_unsorted_bodies(cuda_device, kind):
+    """Robots with body_counts=None and bodies out of link order (the TPU's
+    rolled kernels K1/K2): the wrapper sorts them on the device."""
+    robot = _shuffled(tmodel.arm_7dof(), 1).to(cuda_device)
+    world = (AnalyticWorld.make(**_WORLDS["boxes"]) if kind == "analytic"
+             else _voxel_world("grid")).to(cuda_device)
+    cand = _cands(robot, 2000, 102, 4, cuda_device)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 0.05, 0.05)
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.05, 0.05)
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_grid_kernel_refusals(cuda_device):
+    robot = tmodel.arm_7dof().to(cuda_device)
+    cand = _cands(robot, 8, 10, 0, cuda_device)
+    grid = _voxel_world("grid")
+    with pytest.raises(ValueError, match="grid tensors are on cpu"):
+        tr.obstacle_cost_batch(robot, grid, cand, 0.05, 0.05)
+    flat = dataclasses.replace(grid, grid=grid.grid[:, :1], packed=None)
+    with pytest.raises(ValueError, match=">= 2"):
+        tr.obstacle_cost_batch(robot, flat.to(cuda_device), cand, 0.05, 0.05)
+    over = AnalyticWorld(
+        sphere_center=torch.zeros(8, 1, 3), sphere_radius=torch.ones(8, 1),
+        box_center=torch.zeros(8, 0, 3), box_half=torch.zeros(8, 0, 3))
+    with pytest.raises(NotImplementedError, match="MPC"):
+        tr.obstacle_cost_batch(
+            robot, CompositeWorld(grid, over).to(cuda_device), cand, 0.05,
+            0.05)
+
+
 class _NoiseBank:
     """noise_fn serving a fixed numpy z block per iteration on `device`, so
     runs on two devices see the same noise."""
@@ -157,10 +254,42 @@ def test_plan_batch_cuda_matches_cpu(cuda_device):
     shape = (7, B, cfg.num_rollouts, cfg.num_timesteps, cfg.max_iterations)
     cpu = plan_batch(robot, world, prob, cfg, device="cpu",
                      noise_fn=_NoiseBank(*shape, "cpu"))
-    before = tr.LAUNCHES
+    before = tr.LAUNCHES["rollout_analytic"]
     gpu = plan_batch(robot, world, prob, cfg, device=cuda_device,
                      noise_fn=_NoiseBank(*shape, cuda_device)).to("cpu")
-    assert tr.LAUNCHES - before >= int(cpu.iterations.max())
+    assert (tr.LAUNCHES["rollout_analytic"] - before
+            >= int(cpu.iterations.max()))
+    assert torch.equal(gpu.success, cpu.success)
+    assert torch.equal(gpu.iterations, cpu.iterations)
+    torch.testing.assert_close(gpu.trajectory, cpu.trajectory, atol=1e-4,
+                               rtol=0)
+    torch.testing.assert_close(gpu.cost, cpu.cost, rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+def test_plan_batch_grid_cuda_matches_cpu(cuda_device):
+    """The slice over the voxel tabletop: card (grid kernel) against CPU
+    (plain evaluator) under the same noise."""
+    cfg = PlannerConfig(num_timesteps=20, num_rollouts=8, pi2_h=20.0,
+                        noise=NoiseConfig(stddev=0.25, decay=1.0,
+                                          num_rollouts_reused=2),
+                        max_iterations=8)
+    robot = tmodel.arm_7dof()
+    world = _voxel_world("grid")
+    q0 = np.array([-0.6, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0], np.float32)
+    qN = np.array([0.4, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0], np.float32)
+    B = 4
+    rng = np.random.default_rng(5)
+    prob = ProblemSpec(q0=(q0 + rng.uniform(-0.03, 0.03, (B, 7))).astype(
+        np.float32), qN=(qN + rng.uniform(-0.03, 0.03, (B, 7))).astype(
+        np.float32))
+    shape = (7, B, cfg.num_rollouts, cfg.num_timesteps, cfg.max_iterations)
+    cpu = plan_batch(robot, world, prob, cfg, device="cpu",
+                     noise_fn=_NoiseBank(*shape, "cpu"))
+    before = tr.LAUNCHES["rollout_grid"]
+    gpu = plan_batch(robot, world, prob, cfg, device=cuda_device,
+                     noise_fn=_NoiseBank(*shape, cuda_device)).to("cpu")
+    assert tr.LAUNCHES["rollout_grid"] - before >= int(cpu.iterations.max())
     assert torch.equal(gpu.success, cpu.success)
     assert torch.equal(gpu.iterations, cpu.iterations)
     torch.testing.assert_close(gpu.trajectory, cpu.trajectory, atol=1e-4,

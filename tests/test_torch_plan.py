@@ -1,22 +1,26 @@
 """The port's public API (``plan_batch``, ``plan``) against the JAX package
-on the whole slice, under the same noise (the replayed JAX key chain of
-tests/test_torch_solver.py).
+on the whole slice, over analytic and voxel worlds, under the same noise
+(the replayed JAX key chain of tests/test_torch_solver.py).
 
 The JAX side runs its production path with the Pallas evaluator in
 interpret mode (obstacle_backend="pallas", pallas_interpret=True); the port
 runs on the CPU, where its evaluator is the plain PyTorch version.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
 
 from tests.test_torch_solver import (_Q0, _QN, _ReplayJaxNoise, _configs,
-                                     _jitter, _scene)
+                                     _fields, _jitter, _scene)
 from tpustomp.api.plan import plan as j_plan
 from tpustomp.api.plan import plan_batch as j_plan_batch
 from tpustomp.api.problem import ProblemSpec as JProblem
-from tpustomp_torch import ProblemSpec, plan, plan_batch
+from tpustomp.world import edt as jedt
+from tpustomp.world.sdf import CompositeWorld as JComposite
+from tpustomp_torch import ProblemSpec, convert, plan, plan_batch
 
 
 def _assert_solutions(got, ref, traj_atol=1e-4, cost_rtol=1e-4):
@@ -67,3 +71,58 @@ def test_plan_matches_jax(restarts):
                                         ct.num_timesteps))
     assert got.trajectory.shape == (22, 7) and got.success.shape == ()
     _assert_solutions(got, ref)
+
+
+def _grid_scene(kind):
+    """The tabletop voxelized coarsely (32x40x24 at 5 cm, the config-2 grid's
+    origin) through the signed EDT, on both sides; "composite" adds the
+    overlay sphere of bench/kernel_parity.py."""
+    jr, jw, robot, _ = _scene()
+    origin, shape, res = (-0.2, -1.0, 0.0), (32, 40, 24), 0.05
+    jg = jedt.signed_edt(jedt.occupancy_from_analytic(jw, origin, shape, res),
+                         res, origin)
+    if kind == "grid":
+        return jr, jg, robot, convert.grid_from_numpy(_fields(jg))
+    jc = JComposite.make(jg, spheres=[((0.35, 0.3, 0.55), 0.12)])
+    return jr, jc, robot, convert.composite_from_numpy(_fields(jc.grid),
+                                                       _fields(jc.overlay))
+
+
+@pytest.mark.parametrize("kind", ["grid", "composite"])
+def test_plan_batch_grid_matches_jax(kind):
+    """The slice over a voxel world: JAX runs grid worlds through its
+    scenario-major batched step (K5 + _grid_finish in interpret mode), the
+    port through the same time-major step as analytic worlds."""
+    cj, ct = _configs()
+    jr, jw, robot, world = _grid_scene(kind)
+    B = 3
+    q0, qN = _jitter(B, 0)
+    keys = jax.random.split(jax.random.PRNGKey(0), B)
+    ref = j_plan_batch(jr, jw, JProblem(q0=q0, qN=qN), cj, keys=keys)
+    got = plan_batch(robot, world, ProblemSpec(q0=q0, qN=qN), ct,
+                     device="cpu",
+                     noise_fn=_ReplayJaxNoise(keys, 7, ct.num_rollouts,
+                                              ct.num_timesteps))
+    _assert_solutions(got, ref)
+
+
+def test_plan_grid_matches_jax():
+    cj, ct = _configs()
+    jr, jw, robot, world = _grid_scene("grid")
+    key = jax.random.PRNGKey(7)
+    ref = j_plan(jr, jw, JProblem(q0=_Q0, qN=_QN), cj, key=key)
+    got = plan(robot, world, ProblemSpec(q0=_Q0, qN=_QN), ct, device="cpu",
+               noise_fn=_ReplayJaxNoise(key[None], 7, ct.num_rollouts,
+                                        ct.num_timesteps))
+    assert bool(got.success)
+    _assert_solutions(got, ref)
+
+
+def test_plan_refuses_per_candidate_overlay():
+    _, _, robot, world = _grid_scene("composite")
+    over = dataclasses.replace(
+        world.overlay, sphere_center=world.overlay.sphere_center[None],
+        sphere_radius=world.overlay.sphere_radius[None])
+    with pytest.raises(NotImplementedError, match="MPC"):
+        plan(robot, dataclasses.replace(world, overlay=over),
+             ProblemSpec(q0=_Q0, qN=_QN), _configs()[1], device="cpu")

@@ -3,8 +3,9 @@ optimization), for NVIDIA Hopper GPUs.
 
 A second package beside the JAX reference ``tpustomp``; it imports torch
 and numpy only. The batched STOMP path (``plan`` / ``plan_batch`` over
-analytic worlds) runs end to end; its fused FK→SDF→cost evaluator is a
-hand-written CUDA kernel (kernels/rollout.py, csrc/rollout_analytic.cu).
+analytic, voxel-grid and grid+overlay worlds) runs end to end; its fused
+FK→SDF→cost evaluator is a hand-written CUDA kernel per world kind
+(kernels/rollout.py, csrc/rollout_analytic.cu, csrc/rollout_grid.cu).
 """
 
 from tpustomp_torch.api.config import (

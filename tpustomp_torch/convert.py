@@ -17,7 +17,7 @@ import torch
 
 from tpustomp_torch.dynamics.device import DeviceOps
 from tpustomp_torch.robot.model import RobotSpec
-from tpustomp_torch.world.sdf import AnalyticWorld
+from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld, GridSDF
 
 _ROBOT_STATIC = ("rot_fixed_identity", "body_counts", "joint_static")
 _INT_FIELDS = ("joint_type", "body_link")
@@ -49,6 +49,25 @@ def world_from_numpy(fields: Mapping, device="cpu") -> AnalyticWorld:
     return AnalyticWorld(**{
         name: _tensor(fields[name], torch.float32, device)
         for name in AnalyticWorld.__dataclass_fields__})
+
+
+def grid_from_numpy(fields: Mapping, device="cpu") -> GridSDF:
+    """GridSDF from the JAX GridSDF's fields (packed may be None)."""
+    packed = fields.get("packed")
+    return GridSDF(
+        grid=_tensor(fields["grid"], torch.float32, device),
+        origin=_tensor(fields["origin"], torch.float32, device),
+        resolution=_tensor(fields["resolution"], torch.float32, device),
+        packed=None if packed is None else _tensor(packed, torch.float32,
+                                                   device))
+
+
+def composite_from_numpy(grid_fields: Mapping, overlay_fields: Mapping,
+                         device="cpu") -> CompositeWorld:
+    """CompositeWorld from the fields of the JAX CompositeWorld's grid and
+    overlay."""
+    return CompositeWorld(grid=grid_from_numpy(grid_fields, device),
+                          overlay=world_from_numpy(overlay_fields, device))
 
 
 def ops_from_numpy(fields: Mapping, device="cpu") -> DeviceOps:

@@ -1,21 +1,29 @@
-"""Fused rollout evaluator: FK → sphere bodies → analytic SDF → potential ×
-workspace speed → per-waypoint cost rows, in one CUDA kernel.
+"""Fused rollout evaluators: FK → sphere bodies → SDF → potential × workspace
+speed → per-waypoint cost rows, one CUDA kernel per world kind.
 
-Port of ``tpustomp/kernels/rollout_pallas.py``'s main-path kernel
-(``build_unrolled_kernel(mode="analytic", time_major=True,
-with_activity=True)``, pallas_call at :741) and of the contract of its
-wrapper ``obstacle_cost_batch_pallas`` for a shared analytic world.
+Port of the evaluation kernels of ``tpustomp/kernels/rollout_pallas.py`` and
+of the contract of their wrapper ``obstacle_cost_batch_pallas`` for a world
+shared by every candidate:
 
-- The kernel is hand-written CUDA C++ for sm_90a
-  (``tpustomp_torch/csrc/rollout_analytic.cu``; its header says what bounds
-  it and how the design answers that). It is compiled with nvcc into a
-  shared library with a plain C interface at first use, into
-  ``tpustomp_torch/_build/``, and called through ctypes.
+- ``rollout_analytic`` (``csrc/rollout_analytic.cu``), for `AnalyticWorld`:
+  K3 (pallas_call :741); K4 (:755, the candidate-major [C, T, d] input,
+  permuted here into the kernel's time-major layout); K1 (:257, robots
+  with ``body_counts=None``, whose bodies are stable-sorted by link here).
+- ``rollout_grid`` (``csrc/rollout_grid.cu``), for `GridSDF` and a
+  `CompositeWorld` with a shared overlay: K5 (:770) together with its XLA
+  tail ``_grid_finish``, as one kernel; K2 (:325), sorted as for K1.
+
+Both are hand-written CUDA C++ for sm_90a around one shared skeleton
+(``csrc/rollout_common.cuh``; each file's header says what bounds it and
+how the design answers that). Each is compiled with nvcc into a shared
+library with a plain C interface at first use, into
+``tpustomp_torch/_build/``, and called through ctypes.
+
 - :func:`obstacle_cost_batch_plain` is the plain PyTorch version
-  (costs/obstacle.py) the kernel is held to.
+  (costs/obstacle.py) the kernels are held to.
 - :func:`obstacle_cost_batch` takes the plain version only for tensors on
-  the CPU. For CUDA tensors it launches the kernel or raises; it never falls
-  back. ``LAUNCHES`` counts kernel launches.
+  the CPU. For CUDA tensors it launches a kernel, or raises; it never falls
+  back. ``LAUNCHES`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -31,23 +40,39 @@ from pathlib import Path
 import torch
 
 from tpustomp_torch.costs.obstacle import obstacle_cost
-from tpustomp_torch.world.sdf import AnalyticWorld
+from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
+                                      check_shared_overlay, grid_clip_hi)
 
-# Kernel launches since import (or since the caller last reset it).
-LAUNCHES = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# kernel name -> argument types of its C entry point <name>_launch
+_KERNELS = {
+    "rollout_analytic": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _F, _I, _I, _P],
+    "rollout_grid": [_P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P,
+                     _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+}
+
+# Kernel launches per kernel since import (or since reset_launches()).
+LAUNCHES = dict.fromkeys(_KERNELS, 0)
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "rollout_analytic.cu"
+_CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # The waypoint axis is cut into chunks until candidates × chunks reaches
 # this many threads (132 SMs × 256). At the config-4 shape C alone exceeds
 # it: one chunk measured 1.52 ms against 1.56 ms for three (H100 SXM, 700 W).
 _TARGET_THREADS = 132 * 256
 _MIN_CHUNK = 8
 
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _nvcc() -> str:
@@ -60,72 +85,138 @@ def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the rollout kernel "
-                       "is compiled from source at first use")
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the rollout kernels "
+                       "are compiled from source at first use")
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library.
+def _sources(name: str) -> list[Path]:
+    """The kernel's .cu file and every csrc file it includes, transitively."""
+    todo, seen = [_CSRC / f"{name}.cu"], []
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return seen
 
-    The library name carries a hash of the source and flags, so an edited
-    source is never served by a stale build.
-    """
-    global _lib
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(_SOURCE.read_bytes()
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"librollout_analytic_{digest}.so"
-    if not out.exists():
+
+def _lib_path(name: str) -> Path:
+    """The library's name carries a hash of the flags and of every source it
+    is built from, so an edited source or header is never served by a
+    stale build."""
+    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for src in _sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(_KERNELS)) -> dict[str, ctypes.CDLL]:
+    """Compile (once per version of the sources) and load the named kernel
+    libraries. Missing builds run at the same time, one nvcc each."""
+    missing = [n for n in names
+               if n not in _libs and not _lib_path(n).exists()]
+    if missing:
         nvcc = _nvcc()
         _BUILD_DIR.mkdir(exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
+        jobs = []
         try:
-            res = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp,
-                                  str(_SOURCE)], capture_output=True,
-                                 text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                                   f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, out)    # atomic: concurrent builds never race
+            for n in missing:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+                os.close(fd)
+                jobs.append((n, tmp, subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{n}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            errors = []
+            for n, tmp, proc in jobs:
+                out, err = proc.communicate()
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed on {n}.cu "
+                                  f"({proc.returncode}):\n{out}\n{err}")
+                else:
+                    os.replace(tmp, _lib_path(n))   # atomic: builds never race
+            if errors:
+                raise RuntimeError("\n".join(errors))
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(out))
-    fn = lib.rollout_analytic_launch
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, i, p, p, p, i, i, i, i, i, i, f, f, i, i, p]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+            for _, tmp, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+    for n in names:
+        if n not in _libs:
+            lib = ctypes.CDLL(str(_lib_path(n)))
+            fn = getattr(lib, f"{n}_launch")
+            fn.argtypes = _KERNELS[n]
+            fn.restype = ctypes.c_int
+            _libs[n] = lib
+    return {n: _libs[n] for n in names}
+
+
+def _world_parts(world):
+    """(grid, primitives) of a world: the GridSDF or None, and the
+    AnalyticWorld of spheres/boxes (the overlay of a composite) or None.
+    Raises on a world kind the evaluators do not take, a per-candidate
+    overlay, or a grid with a dimension below 2."""
+    if isinstance(world, AnalyticWorld):
+        return None, world
+    if isinstance(world, GridSDF):
+        grid, prims = world, None
+    elif isinstance(world, CompositeWorld):
+        check_shared_overlay(world)
+        grid, prims = world.grid, world.overlay
+    else:
+        raise NotImplementedError(
+            f"{type(world).__name__}: the evaluators take AnalyticWorld, "
+            "GridSDF or CompositeWorld")
+    if grid.grid.dim() != 3 or min(grid.grid.shape) < 2:
+        raise ValueError(f"a grid must be [X, Y, Z] with every dimension "
+                         f">= 2, got {tuple(grid.grid.shape)}")
+    return grid, prims
 
 
 def pack_params(robot, world) -> torch.Tensor:
-    """Robot + world parameters as the kernel's packed float32 vector (layout
-    in the header of csrc/rollout_analytic.cu), on the robot's device."""
+    """Robot + world parameters as the kernels' packed float32 vector (layout
+    in the header of csrc/rollout_common.cuh), on the robot's device."""
     d = robot.num_joints
     dev = robot.joint_axis.device
     f32 = torch.float32
+    link = robot.body_link.long()
+    offset, radius = robot.body_offset, robot.body_radius
+    if robot.body_counts is None:
+        # bodies in any order: stable-sort by link on the device, so the
+        # kernel walks one contiguous run per joint (costs are sums and mins
+        # over bodies; only the float summation order moves)
+        order = torch.argsort(link, stable=True)
+        offset, radius = offset[order], radius[order]
     # bodies per joint, counted on the device (a host list would cost a
-    # blocking host-to-device copy per launch); bodies are link-sorted
-    counts = torch.bincount(robot.body_link.long(), minlength=d).to(f32)
+    # blocking host-to-device copy per launch)
+    counts = torch.bincount(link, minlength=d).to(f32)
     joints = torch.cat([
         robot.joint_type.to(f32)[:, None], robot.joint_axis.to(f32),
         robot.joint_offset.to(f32), robot.joint_rot.to(f32).reshape(d, 9)],
         dim=1)                                                  # [d, 16]
-    return torch.cat([
+    parts = [
         robot.base_rot.to(f32).reshape(9), robot.base_pos.to(f32),
         joints.reshape(-1),
         torch.cat([torch.zeros(1, dtype=f32, device=dev),
                    torch.cumsum(counts, 0)]),                  # body_start
-        torch.cat([robot.body_offset.to(f32),
-                   robot.body_radius.to(f32)[:, None]], dim=1).reshape(-1),
-        torch.cat([world.sphere_center.to(f32),
-                   world.sphere_radius.to(f32)[:, None]], dim=1).reshape(-1),
-        torch.cat([world.box_center.to(f32), world.box_half.to(f32)],
-                  dim=1).reshape(-1),
-    ]).contiguous()
+        torch.cat([offset.to(f32), radius.to(f32)[:, None]],
+                  dim=1).reshape(-1)]
+    grid, prims = _world_parts(world)
+    if prims is not None:
+        parts += [
+            torch.cat([prims.sphere_center.to(f32),
+                       prims.sphere_radius.to(f32)[:, None]],
+                      dim=1).reshape(-1),
+            torch.cat([prims.box_center.to(f32), prims.box_half.to(f32)],
+                      dim=1).reshape(-1)]
+    if grid is not None:
+        parts += [grid.origin.to(f32).reshape(3),
+                  grid.resolution.to(f32).reshape(1)]
+    return torch.cat(parts).contiguous()
 
 
 def _t_chunk(C: int, T: int) -> int:
@@ -138,7 +229,7 @@ def _t_chunk(C: int, T: int) -> int:
 def obstacle_cost_batch_plain(robot, world, full_trajs: torch.Tensor,
                               dt: float, clearance: float,
                               time_major: bool = False):
-    """The plain PyTorch version of the kernel: body_positions_traj → sdf →
+    """The plain PyTorch version of the kernels: body_positions_traj → sdf →
     potential × speed (costs/obstacle.py). full_trajs [C, T, d], or
     [d, T, C] with time_major=True -> (q_obs [C, T], margin [C])."""
     fulls = full_trajs.permute(2, 1, 0) if time_major else full_trajs
@@ -149,36 +240,40 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
                         clearance: float, row_active=None,
                         time_major: bool = False):
     """Batched obstacle cost, the contract of the JAX package's
-    ``obstacle_cost_batch_pallas`` for a shared analytic world.
+    ``obstacle_cost_batch_pallas`` for a world shared by every candidate:
+    an AnalyticWorld, a GridSDF, or a CompositeWorld whose overlay has no
+    candidate axis.
 
     full_trajs: [C, T, d], or the time-major [d, T, C] with time_major=True
-    (the layout the kernel reads; the batched solver builds it directly).
+    (the layout the kernels read; the batched solver builds it directly).
     Returns (q_obs [C, T], margin [C]).
 
     row_active: optional [C] bool. Rows whose flag is False MAY come back as
-    zeros (the kernel skips them); callers must discard them.
+    zeros (the kernels skip them); callers must discard them.
 
-    CPU tensors take the plain version. CUDA tensors launch the kernel, or
-    raise — there is no fallback.
+    CPU tensors take the plain version. CUDA tensors launch the kernel of
+    the world's kind, or raise — there is no fallback.
     """
-    if full_trajs.device.type == "cpu":
+    dev = full_trajs.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    grid, prims = _world_parts(world)
+    for name, t in (("robot", robot.joint_axis),
+                    ("grid", None if grid is None else grid.grid),
+                    ("world", None if prims is None else prims.box_half)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} tensors are on {t.device}, "
+                             f"trajectories on {dev}")
+    if dev.type == "cpu":
         return obstacle_cost_batch_plain(robot, world, full_trajs, dt,
                                          clearance, time_major=time_major)
-    if full_trajs.device.type != "cuda":
-        raise ValueError(f"unsupported device {full_trajs.device}")
-    return _launch(robot, world, full_trajs, dt, clearance, row_active,
-                   time_major)
+    return _launch(robot, world, grid, prims, full_trajs, dt, clearance,
+                   row_active, time_major)
 
 
-def _launch(robot, world, full_trajs, dt, clearance, row_active, time_major):
-    global LAUNCHES
-    if not isinstance(world, AnalyticWorld):
-        raise NotImplementedError(
-            f"the CUDA evaluator takes an AnalyticWorld, got "
-            f"{type(world).__name__}")
-    if robot.body_counts is None:
-        raise ValueError("robot.body_counts is None: the kernel needs "
-                         "link-sorted bodies (build robots with model._spec)")
+def _launch(robot, world, grid, prims, full_trajs, dt, clearance,
+            row_active, time_major):
+    name = "rollout_analytic" if grid is None else "rollout_grid"
     if full_trajs.dtype != torch.float32 or full_trajs.dim() != 3:
         raise ValueError(f"trajectories must be a 3-D float32 tensor, got "
                          f"{full_trajs.dtype} {tuple(full_trajs.shape)}")
@@ -191,11 +286,6 @@ def _launch(robot, world, full_trajs, dt, clearance, row_active, time_major):
     if T < 2:
         raise ValueError("need at least 2 waypoints (workspace speed)")
     dev = cand.device
-    for name, t in (("robot", robot.joint_axis),
-                    ("world", world.box_half)):
-        if t.device != dev:
-            raise ValueError(f"{name} tensors are on {t.device}, "
-                             f"trajectories on {dev}")
     params = pack_params(robot, world)
     active = None
     if row_active is not None:
@@ -206,18 +296,30 @@ def _launch(robot, world, full_trajs, dt, clearance, row_active, time_major):
     n_chunks = -(-T // t_chunk)
     q_obs = torch.empty((T, C), dtype=torch.float32, device=dev)
     margin_part = torch.empty((n_chunks, C), dtype=torch.float32, device=dev)
-    lib = build()
+    ns = 0 if prims is None else prims.sphere_radius.shape[0]
+    nx = 0 if prims is None else prims.box_half.shape[0]
+    tail = (None if active is None else active.data_ptr(),
+            q_obs.data_ptr(), margin_part.data_ptr(), C, T, d,
+            robot.num_bodies, ns, nx, float(dt), float(clearance),
+            int(bool(robot.rot_fixed_identity)), t_chunk)
+    lib = build((name,))[name]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rollout_analytic_launch(
-            cand.data_ptr(), params.data_ptr(), params.numel(),
-            None if active is None else active.data_ptr(),
-            q_obs.data_ptr(), margin_part.data_ptr(), C, T, d,
-            robot.num_bodies, world.sphere_radius.shape[0],
-            world.box_half.shape[0], float(dt), float(clearance),
-            int(bool(robot.rot_fixed_identity)), t_chunk, stream)
+        if grid is None:
+            err = lib.rollout_analytic_launch(
+                cand.data_ptr(), params.data_ptr(), params.numel(), *tail,
+                stream)
+        else:
+            g = grid.grid.to(torch.float32).contiguous()
+            if g.numel() >= 2**31:
+                raise ValueError(f"grid of {g.numel()} voxels: the kernel "
+                                 "indexes it with 32-bit ints")
+            hi = grid_clip_hi(g.shape)
+            err = lib.rollout_grid_launch(
+                cand.data_ptr(), params.data_ptr(), params.numel(),
+                g.data_ptr(), *g.shape, *map(float, hi),
+                int(isinstance(world, CompositeWorld)), *tail, stream)
     if err != 0:
-        raise RuntimeError(f"rollout_analytic kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
     return q_obs.t(), margin_part.amin(dim=0)
