@@ -19,6 +19,14 @@ and fails (non-zero exit, no result line) on any error:
      config-2 tabletop voxelized by the port's signed EDT (64x80x48 at
      2.5 cm): all rows active and masked (K5 + tail), the grid plus an
      overlay sphere (CompositeWorld), shuffled bodies (K2); times;
+  3m. the per-row-world variants (rollout_analytic:per_cand_world,
+     rollout_grid:per_cand_overlay) against the plain version at the
+     config-5 shape (B = 10,000 scenarios x 21 candidates = 210,000
+     trajectories, T = 52): one moving sphere per scenario plus the
+     tabletop boxes, and the voxel tabletop plus a per-row overlay sphere;
+     all rows active, masked rows, the per-candidate form against the
+     grouped one (bitwise), every row equal against the shared-world kernel
+     (bitwise); kernel and plain times;
   4. plan_batch on BASELINE config 4 (configs/config4_batch.yaml, tabletop
      boxes, B = 1024, starts/goals jittered as the CLI does): the analytic
      kernel's launches over that run, success, and checks on every solved
@@ -27,7 +35,14 @@ and fails (non-zero exit, no result line) on any error:
   4g. the same over the voxel tabletop (grid kernel), with every solved row
      also checked against the exact box SDF;
   5. plan on BASELINE config 2 (configs/config2_tabletop.yaml);
-  5g. plan on config 2 over the voxel tabletop, 4 restarts.
+  5g. plan on config 2 over the voxel tabletop, 4 restarts;
+  6. run_mpc_batch on BASELINE config 5 (configs/config5_mpc.yaml: 10,000
+     scenarios, 100 ticks) over the tabletop boxes, states seeded as
+     bench/mpc_bench.py: replans/s, collision, reached and ticks to goal,
+     the variant's launches, and checks of the final state;
+  6g. the same over the voxel tabletop (CompositeWorld per tick);
+  6c. batched MPC on the card against the CPU run, B = 8, 4 ticks, under
+     the same noise, over both static worlds.
 
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -104,16 +119,17 @@ def shuffled(robot, seed):
 
 
 def check_kernel(label, rollout, robot, world, fulls, dt, clearance,
-                 active=None, time_major=True, plain=None):
+                 active=None, time_major=True, plain=None, cands_per_row=None):
     """The kernel against the plain version on the same inputs; returns the
     larger of the two max |Δ| over the checked rows."""
     C = fulls.shape[0]
     q_p, m_p = plain or rollout.obstacle_cost_batch_plain(
-        robot, world, fulls, dt, clearance)
+        robot, world, fulls, dt, clearance, cands_per_row=cands_per_row)
     x = fulls.permute(2, 1, 0).contiguous() if time_major else fulls
     q_k, m_k = rollout.obstacle_cost_batch(robot, world, x, dt, clearance,
                                            row_active=active,
-                                           time_major=time_major)
+                                           time_major=time_major,
+                                           cands_per_row=cands_per_row)
     torch.cuda.synchronize()
     rows = (torch.ones(C, dtype=torch.bool, device=fulls.device)
             if active is None else active)
@@ -140,17 +156,21 @@ def check_kernel(label, rollout, robot, world, fulls, dt, clearance,
     return max(float(dq.max()), float(dm.max()))
 
 
+def inactive_rows(C, dev):
+    """About a third of the rows, in whole and partial 128-row runs."""
+    blocks = torch.arange(C, device=dev) // 128
+    within = torch.arange(C, device=dev) % 128
+    return (blocks % 3 == 0) | ((blocks % 7 == 1) & (within < 64))
+
+
 def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi):
     """Phases 3 and 3g for one kernel: time-major with all rows active and
     masked, candidate-major (the analytic kernel only: K4) and shuffled
     bodies; then kernel and plain times. Returns (max_err, ms, plain_ms)."""
     C = fulls.shape[0]
-    dev = fulls.device
     plain = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
                                               clearance)
-    blocks = torch.arange(C, device=dev) // 128
-    within = torch.arange(C, device=dev) % 128
-    inactive = (blocks % 3 == 0) | ((blocks % 7 == 1) & (within < 64))
+    inactive = inactive_rows(C, fulls.device)
     unsorted = shuffled(robot, 0)
     err = max(
         check_kernel(f"{name}:all_active", rollout, robot, world, fulls, dt,
@@ -295,6 +315,168 @@ def plan_phase(label, kernel, rollout, robot, world, cfg2, scene, smi):
     assert one.trajectory.shape == (cfg2.num_timesteps + 2, 7)
 
 
+def config5_states(robot, cfg5, B, q0, qN, speed, seed=0):
+    """Scenarios seeded as bench/mpc_bench.py:64-85: start and goal jittered
+    by +-0.03 rad, one sphere starting outside the arm's envelope and moving
+    at `speed` in a random direction."""
+    from tpustomp_torch.engine.mpc import init_mpc
+
+    rng = np.random.default_rng(seed)
+    Q0 = np.tile(q0, (B, 1)) + rng.uniform(-0.03, 0.03, (B, 7))
+    QN = np.tile(qN, (B, 1)) + rng.uniform(-0.03, 0.03, (B, 7))
+    centers = np.stack([rng.uniform(0.9, 1.2, B), rng.uniform(-0.6, 0.6, B),
+                        rng.uniform(0.3, 0.8, B)], axis=1)[:, None, :]
+    dirs = rng.normal(size=(B, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True) + 1e-9
+    vels = (-dirs * speed)[:, None, :]
+    return init_mpc(robot, cfg5, Q0, QN, centers, vels)
+
+
+def shared_row(world):
+    """Row 0 of a world with a row axis, as a world shared by every
+    candidate."""
+    from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld
+
+    over = world.overlay if isinstance(world, CompositeWorld) else world
+    row = AnalyticWorld(**{f: getattr(over, f)[0]
+                           for f in AnalyticWorld.__dataclass_fields__})
+    return (CompositeWorld(grid=world.grid, overlay=row)
+            if isinstance(world, CompositeWorld) else row)
+
+
+def percand_phase(name, rollout, robot, static, centers, radius, fulls, per,
+                  dt, clearance, smi):
+    """Phase 3m for one variant: the tick's world of config 5 (one row per
+    scenario, `per` candidates each) against the plain version, all rows
+    active and masked; the per-candidate form (every candidate its own row)
+    and every row equal against the shared-world kernel, both bitwise;
+    kernel and plain times. Returns (max_err, ms, plain_ms)."""
+    from tpustomp_torch.engine.mpc import _tick_world_batch
+
+    C = fulls.shape[0]
+    world = _tick_world_batch(centers, radius, static)
+    plain = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
+                                              clearance, cands_per_row=per)
+    err = max(
+        check_kernel(f"{name}:all_active", rollout, robot, world, fulls, dt,
+                     clearance, plain=plain, cands_per_row=per),
+        check_kernel(f"{name}:masked", rollout, robot, world, fulls, dt,
+                     clearance, active=~inactive_rows(C, fulls.device),
+                     plain=plain, cands_per_row=per))
+    del plain
+    tm = fulls.permute(2, 1, 0).contiguous()
+
+    def run(w, per_row=None):
+        return rollout.obstacle_cost_batch(robot, w, tm, dt, clearance,
+                                           time_major=True,
+                                           cands_per_row=per_row)
+
+    q_g, m_g = run(world, per)
+    q_c, m_c = run(_tick_world_batch(centers.repeat_interleave(per, 0),
+                                     radius, static))
+    contract = bool(torch.equal(q_c, q_g) and torch.equal(m_c, m_g))
+    say(f"kernel_vs_kernel:{name}:per_candidate_vs_grouped",
+        rows=C, bitwise_equal=contract)
+    same = _tick_world_batch(centers[:1].expand_as(centers), radius, static)
+    q_r, m_r = run(same, per)
+    q_s, m_s = run(shared_row(same))
+    vs_shared = bool(torch.equal(q_r, q_s) and torch.equal(m_r, m_s))
+    say(f"kernel_vs_kernel:{name}:every_row_equal_vs_shared",
+        rows=C // per, bitwise_equal=vs_shared)
+    assert contract and vs_shared
+    kernel_ms = cuda_time_ms(lambda: run(world, per), 20)
+    timing = dict(
+        C=C, T=fulls.shape[1], cands_per_row=per, kernel_ms=kernel_ms,
+        shared_world_kernel_ms=cuda_time_ms(lambda: run(shared_row(same)),
+                                            20),
+        plain_ms=cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
+            robot, world, fulls, dt, clearance, cands_per_row=per), 5))
+    timing["speedup"] = timing["plain_ms"] / kernel_ms
+    say(f"kernel_time:{name}", **timing, card=smi)
+    return err, kernel_ms, timing["plain_ms"]
+
+
+def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
+              ticks, smi):
+    """Phase 6/6g: run_mpc_batch over every scenario of `states` for
+    `ticks` ticks after a small warm-up; reports and checks the episode.
+    Returns the variant's launches over the run and the collision rate."""
+    from tpustomp_torch._tensors import map_tensors
+    from tpustomp_torch.engine.mpc import run_mpc_batch
+
+    dev = robot.joint_axis.device
+    B = states.q.shape[0]
+    world_dt = float(spec["world_dt"])
+    radius = [0.12]
+    run_mpc_batch(robot, cfg5, map_tensors(states, lambda v: v[:16]), radius,
+                  2, world_dt, static_world=static, device=dev,
+                  generator=torch.Generator(dev).manual_seed(1))
+    torch.cuda.synchronize()
+
+    rollout.reset_launches()
+    t0 = time.perf_counter()
+    out = run_mpc_batch(robot, cfg5, states, radius, ticks, world_dt,
+                        static_world=static, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(rollout.LAUNCHES)
+    out = out.to("cpu")
+    reached = out.reached_tick.numpy()
+    collision_rate = float(out.collided.float().mean())
+    drift = float((out.sphere_center - (states.sphere_center + ticks * world_dt
+                                        * states.sphere_vel)).abs().max())
+    finite = all(bool(torch.isfinite(getattr(out, f)).all())
+                 for f in ("q", "qN", "theta", "sphere_center", "sphere_vel"))
+    say(f"mpc:{label}", B=B, ticks=ticks, wall_s=wall,
+        replans_per_s=B * ticks / wall, ms_per_tick=1e3 * wall / ticks,
+        collision_rate=collision_rate,
+        reached_rate=float((reached >= 0).mean()),
+        median_ticks_to_goal=(float(np.median(reached[reached >= 0]))
+                              if (reached >= 0).any() else None),
+        mean_goal_distance=float((out.q - out.qN).norm(dim=1).mean()),
+        kernel_launches=launches, launches_per_tick=launches[variant] / ticks,
+        max_obstacle_drift=drift, finite=finite, card=smi)
+    assert out.steps.tolist() == [ticks] * B, "steps != ticks"
+    assert drift <= 1e-4, drift
+    assert finite
+    assert launches[variant] >= ticks, launches
+    assert sum(launches.values()) == launches[variant], launches
+    return launches[variant], collision_rate
+
+
+def mpc_cuda_vs_cpu_phase(label, robot, cfg5, static, states, ticks=4):
+    """Phase 6c: batched MPC on the card against the CPU run under the same
+    numpy noise bank."""
+    from tpustomp_torch.engine.mpc import run_mpc_batch
+
+    dev = robot.joint_axis.device
+    B, d = states.q.shape
+    z = np.random.default_rng(2).standard_normal(
+        (ticks, cfg5.max_iterations, d, B, cfg5.num_rollouts,
+         cfg5.num_timesteps)).astype(np.float32)
+
+    def bank(device):
+        return lambda tick, it, active: torch.from_numpy(
+            z[tick, it]).to(device)
+
+    cpu_static = None if static is None else static.to("cpu")
+    ref = run_mpc_batch(robot.to("cpu"), cfg5, states, [0.12], ticks, 0.1,
+                        static_world=cpu_static, device="cpu",
+                        noise_fn=bank("cpu"))
+    got = run_mpc_batch(robot, cfg5, states, [0.12], ticks, 0.1,
+                        static_world=static, device=dev,
+                        noise_fn=bank(dev)).to("cpu")
+    d_q = float((got.q - ref.q).abs().max())
+    d_theta = float((got.theta - ref.theta).abs().max())
+    same = (torch.equal(got.collided, ref.collided)
+            and torch.equal(got.reached_tick, ref.reached_tick)
+            and torch.equal(got.steps, ref.steps))
+    say(f"mpc:cuda_vs_cpu:{label}", B=B, ticks=ticks, max_abs_dq=d_q,
+        max_abs_dtheta=d_theta, collided_reached_steps_equal=same)
+    assert same and d_q <= 1e-4 and d_theta <= 1e-4
+
+
 def main():
     # --- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -315,6 +497,7 @@ def main():
     sys.path.insert(0, ROOT)
     import yaml
 
+    from tpustomp_torch._tensors import map_tensors
     from tpustomp_torch.api.config import from_dict
     from tpustomp_torch.kernels import rollout
     from tpustomp_torch.robot.model import arm_7dof
@@ -330,8 +513,11 @@ def main():
         doc4 = yaml.safe_load(f)
     with open(os.path.join(ROOT, "configs", "config2_tabletop.yaml")) as f:
         doc2 = yaml.safe_load(f)
+    with open(os.path.join(ROOT, "configs", "config5_mpc.yaml")) as f:
+        doc5 = yaml.safe_load(f)
     cfg4 = from_dict(doc4["planner"])
     cfg2 = from_dict(doc2["planner"])
+    cfg5, spec5 = from_dict(doc5["planner"]), doc5["mpc"]
     scene = doc2["scene"]             # the default tabletop scene
     robot = arm_7dof().to(dev)
     world = tabletop(scene).to(dev)
@@ -364,9 +550,26 @@ def main():
     del fulls
     torch.cuda.empty_cache()
 
-    # --- 4 / 4g. plan_batch on config 4 -------------------------------------
+    # --- 3m. the per-row-world variants at the config-5 shape ---------------
     q0 = np.asarray(scene["q0"], np.float32)
     qN = np.asarray(scene["qN"], np.float32)
+    B5 = int(spec5["scenarios"])
+    per5 = 1 + cfg5.num_rollouts + cfg5.noise.num_rollouts_reused
+    states5 = config5_states(robot, cfg5, B5, q0, qN,
+                             float(spec5["obstacle_speed"]))
+    fulls = torch.as_tensor(np.random.default_rng(5).uniform(
+        lo, hi, (B5 * per5, cfg5.num_timesteps + 2, 7)).astype(np.float32),
+        device=dev)
+    for name, static in (("rollout_analytic:per_cand_world", world),
+                         ("rollout_grid:per_cand_overlay", grid)):
+        table[name] = percand_phase(
+            name, rollout, robot, static, states5.sphere_center.to(dev),
+            torch.tensor([0.12], device=dev), fulls, per5, cfg5.dt,
+            cfg5.collision_clearance, smi)
+    del fulls
+    torch.cuda.empty_cache()
+
+    # --- 4 / 4g. plan_batch on config 4 -------------------------------------
     jitter = float(doc4["batch"]["start_goal_jitter"])
     rng = np.random.default_rng(0)                 # as the CLI's --seed 0
     q0b = (np.tile(q0, (B, 1))
@@ -390,21 +593,39 @@ def main():
     plan_phase("config2_grid", "rollout_grid", rollout, robot, grid,
                cfg2.replace(num_restarts=4), scene, smi)
 
+    # --- 6 / 6g / 6c. run_mpc_batch on config 5 -----------------------------
+    ticks5 = int(spec5["ticks"])
+    name = "rollout_analytic:per_cand_world"
+    launches[name], rate = mpc_phase("config5", name, rollout, robot, cfg5,
+                                     spec5, world, states5, ticks5, smi)
+    assert rate <= 0.15, rate     # the JAX package: 0.062 at B=1024 x 120
+    name = "rollout_grid:per_cand_overlay"
+    launches[name], rate = mpc_phase("config5_grid", name, rollout, robot,
+                                     cfg5, spec5, grid, states5, ticks5, smi)
+    assert rate < 0.5, rate       # the CLI's pass line (tpustomp/cli.py:266)
+    eight = map_tensors(states5, lambda v: v[:8])
+    mpc_cuda_vs_cpu_phase("config5", robot, cfg5, world, eight)
+    mpc_cuda_vs_cpu_phase("config5_grid", robot, cfg5, grid, eight)
+
+    pallas = "tpustomp/kernels/rollout_pallas.py"
     replaces = {
-        "rollout_analytic": "tpustomp/kernels/rollout_pallas.py:741",
-        "rollout_grid": "tpustomp/kernels/rollout_pallas.py:770",
+        "rollout_analytic": f"{pallas}:741",
+        "rollout_grid": f"{pallas}:770",
+        "rollout_analytic:per_cand_world": f"{pallas}:741 (per_cand_world)",
+        "rollout_grid:per_cand_overlay":
+            f"{pallas}:770 + _grid_finish per_cand (:818-829)",
     }
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": f"tpustomp_torch/csrc/{name}.cu",
+        "source": f"tpustomp_torch/csrc/{name.split(':')[0]}.cu",
         "replaces": replaces[name],
         "launches": launches[name],
         "max_abs_err": table[name][0],
         "ms": table[name][1],
         "plain_ms": table[name][2],
-    } for name in ("rollout_analytic", "rollout_grid")]}), flush=True)
+    } for name in replaces]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

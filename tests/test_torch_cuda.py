@@ -1,7 +1,9 @@
-"""On the card: the CUDA evaluator kernels (rollout_analytic, rollout_grid)
-against their plain PyTorch version (mirrors the kernel phases of
-chip_smoke.py) and the whole batched slice on CUDA against the CPU run
-under the same noise, over analytic and voxel worlds.
+"""On the card: the CUDA evaluator kernels (rollout_analytic, rollout_grid,
+and their per-row-world variants rollout_analytic:per_cand_world and
+rollout_grid:per_cand_overlay) against their plain PyTorch version
+(mirrors the kernel phases of chip_smoke.py), and the batched slice and
+batched MPC on CUDA against the CPU run under the same noise, over analytic
+and voxel worlds.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -21,6 +23,7 @@ import pytest
 import torch
 
 from tpustomp_torch import NoiseConfig, PlannerConfig, ProblemSpec, plan_batch
+from tpustomp_torch.engine import mpc as tmpc
 from tpustomp_torch.engine import solver as tsolver
 from tpustomp_torch.kernels import rollout as tr
 from tpustomp_torch.robot import model as tmodel
@@ -212,9 +215,9 @@ def test_grid_kernel_refusals(cuda_device):
     with pytest.raises(ValueError, match=">= 2"):
         tr.obstacle_cost_batch(robot, flat.to(cuda_device), cand, 0.05, 0.05)
     over = AnalyticWorld(
-        sphere_center=torch.zeros(8, 1, 3), sphere_radius=torch.ones(8, 1),
-        box_center=torch.zeros(8, 0, 3), box_half=torch.zeros(8, 0, 3))
-    with pytest.raises(NotImplementedError, match="MPC"):
+        sphere_center=torch.zeros(5, 1, 3), sphere_radius=torch.ones(5, 1),
+        box_center=torch.zeros(5, 0, 3), box_half=torch.zeros(5, 0, 3))
+    with pytest.raises(ValueError, match="5 rows"):     # 5 rows, 8 candidates
         tr.obstacle_cost_batch(
             robot, CompositeWorld(grid, over).to(cuda_device), cand, 0.05,
             0.05)
@@ -295,3 +298,170 @@ def test_plan_batch_grid_cuda_matches_cpu(cuda_device):
     torch.testing.assert_close(gpu.trajectory, cpu.trajectory, atol=1e-4,
                                rtol=0)
     torch.testing.assert_close(gpu.cost, cpu.cost, rtol=1e-4, atol=0)
+
+
+_VARIANT = {"analytic": "rollout_analytic:per_cand_world",
+            "composite": "rollout_grid:per_cand_overlay"}
+
+
+def _row_world(kind, R, seed, ns=2, nx=2):
+    """A world with R rows: random spheres and boxes per row (analytic), or
+    the voxel tabletop with per-row overlay spheres (composite)."""
+    rng = np.random.default_rng(seed)
+    if kind == "composite":
+        nx = 0
+    rows = AnalyticWorld(
+        sphere_center=torch.from_numpy(rng.uniform(
+            -0.8, 0.8, (R, ns, 3)).astype(np.float32)),
+        sphere_radius=torch.from_numpy(rng.uniform(
+            0.05, 0.3, (R, ns)).astype(np.float32)),
+        box_center=torch.from_numpy(rng.uniform(
+            -0.8, 0.8, (R, nx, 3)).astype(np.float32)),
+        box_half=torch.from_numpy(rng.uniform(
+            0.05, 0.4, (R, nx, 3)).astype(np.float32)))
+    if kind == "analytic":
+        return rows
+    return CompositeWorld(grid=_voxel_world("grid"), overlay=rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic", "composite"])
+@pytest.mark.parametrize("C,T,per", [(1, 2, 1), (300, 17, 1), (300, 17, 3),
+                                     (4200, 52, 21)])
+def test_row_world_kernels_match_plain(cuda_device, kind, C, T, per):
+    """The per-row-world variants against the plain version, grouped
+    (cands_per_row = per) and with a row_active mask: masked rows are
+    zeros, active rows unchanged."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = _row_world(kind, C // per, C + T).to(cuda_device)
+    cand = _cands(robot, C, T, C + T, cuda_device)
+    before = dict(tr.LAUNCHES)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 5.0 / 51, 0.05,
+                                      cands_per_row=per)
+    after = dict(tr.LAUNCHES)
+    assert after[_VARIANT[kind]] == before[_VARIANT[kind]] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 5.0 / 51,
+                                            0.05, cands_per_row=per)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[::3] = False
+    q_a, m_a = tr.obstacle_cost_batch(
+        robot, world, cand.permute(2, 1, 0).contiguous(), 5.0 / 51, 0.05,
+        row_active=active, time_major=True, cands_per_row=per)
+    assert torch.equal(q_a[active], q_k[active])
+    assert torch.equal(m_a[active], m_k[active])
+    assert bool((q_a[~active] == 0).all()) and bool((m_a[~active] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns,nx", [(1, 0), (0, 2), (0, 0)])
+def test_row_world_kernel_empty_families(cuda_device, ns, nx):
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = _row_world("analytic", 500, 3, ns, nx).to(cuda_device)
+    cand = _cands(robot, 500, 30, 2, cuda_device)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 0.05, 0.05)
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.05, 0.05)
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic", "composite"])
+def test_row_world_kernels_equal_shared_bitwise(cuda_device, kind):
+    """Every row holding the same world: the per-row variant equals the
+    shared-world kernel bit for bit (one primitives_dist, the row's base
+    pointer), and the per-candidate form equals the grouped one."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    C, T, per = 2100, 52, 21
+    shared = (AnalyticWorld.make(**_WORLDS["spheres_boxes"])
+              if kind == "analytic" else _voxel_world("composite"))
+    over = shared if kind == "analytic" else shared.overlay
+
+    def rows(R):
+        return AnalyticWorld(**{
+            f: getattr(over, f).expand((R,) + getattr(over, f).shape)
+            for f in AnalyticWorld.__dataclass_fields__})
+
+    def wrap(o):
+        return o if kind == "analytic" else CompositeWorld(shared.grid, o)
+
+    cand = _cands(robot, C, T, 8, cuda_device).permute(2, 1, 0).contiguous()
+    run = lambda w, **kw: tr.obstacle_cost_batch(
+        robot, w.to(cuda_device), cand, 0.06, 0.05, time_major=True, **kw)
+    q_s, m_s = run(shared)
+    q_g, m_g = run(wrap(rows(C // per)), cands_per_row=per)
+    q_c, m_c = run(wrap(rows(C)))
+    for q, m in ((q_g, m_g), (q_c, m_c)):
+        assert torch.equal(q, q_s) and torch.equal(m, m_s)
+
+
+class _MPCNoiseBank:
+    """noise_fn(tick, iteration, active) serving a fixed numpy z block."""
+
+    def __init__(self, ticks, iters, d, B, K, N, device, seed=0):
+        rng = np.random.default_rng(seed)
+        self.z = rng.standard_normal((ticks, iters, d, B, K, N)).astype(
+            np.float32)
+        self.device = device
+
+    def __call__(self, tick, iteration, active):
+        return torch.from_numpy(self.z[tick, iteration]).to(self.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", ["none", "analytic", "grid"])
+def test_run_mpc_batch_cuda_matches_cpu(cuda_device, static):
+    """Batched MPC on the card (per-row-world kernels) against the CPU run
+    (plain evaluator) under the same noise: B=8, 4 ticks, arm_7dof over the
+    tabletop (boxes, voxelized, or none) with one moving sphere each."""
+    cfg = PlannerConfig(num_timesteps=20, num_rollouts=8, pi2_h=20.0,
+                        noise=NoiseConfig(stddev=0.25, decay=1.0,
+                                          num_rollouts_reused=2),
+                        max_iterations=8, record_metrics=False)
+    robot = tmodel.arm_7dof()
+    static_world = {"none": None,
+                    "analytic": AnalyticWorld.make(**_WORLDS["boxes"]),
+                    "grid": _voxel_world("grid")}[static]
+    B, ticks = 8, 4
+    rng = np.random.default_rng(6)
+    q0 = np.array([-0.6, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0], np.float32)
+    qN = np.array([0.4, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0], np.float32)
+    centers = np.stack([rng.uniform(0.4, 0.7, B), rng.uniform(-0.4, 0.4, B),
+                        rng.uniform(0.4, 0.7, B)], 1)[:, None]
+    state = tmpc.init_mpc(robot, cfg, q0 + rng.uniform(-0.03, 0.03, (B, 7)),
+                          np.tile(qN, (B, 1)), centers,
+                          rng.normal(0, 0.2, (B, 1, 3)))
+    shape = (ticks, cfg.max_iterations, 7, B, cfg.num_rollouts,
+             cfg.num_timesteps)
+    kw = dict(static_world=static_world)
+    cpu = tmpc.run_mpc_batch(robot, cfg, state, [0.12], ticks, 0.1,
+                             device="cpu", noise_fn=_MPCNoiseBank(
+                                 *shape, "cpu"), **kw)
+    variant = _VARIANT["composite" if static == "grid" else "analytic"]
+    before = tr.LAUNCHES[variant]
+    gpu = tmpc.run_mpc_batch(robot, cfg, state, [0.12], ticks, 0.1,
+                             device=cuda_device, noise_fn=_MPCNoiseBank(
+                                 *shape, cuda_device), **kw).to("cpu")
+    assert tr.LAUNCHES[variant] - before >= ticks
+    for f in ("collided", "reached_tick", "steps"):
+        assert torch.equal(getattr(gpu, f), getattr(cpu, f)), f
+    for f in ("q", "theta", "sphere_center"):
+        torch.testing.assert_close(getattr(gpu, f), getattr(cpu, f),
+                                   atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_run_mpc_batch_refuses_xla_backend_on_cuda(cuda_device):
+    """obstacle_backend="xla" names the plain evaluator: MPC on the card
+    refuses it instead of running the plain path there."""
+    cfg = PlannerConfig(num_timesteps=6, num_rollouts=3, max_iterations=2,
+                        obstacle_backend="xla")
+    robot = tmodel.planar_2r()
+    state = tmpc.init_mpc(robot, cfg, np.zeros((2, 2)), np.ones((2, 2)),
+                          np.full((2, 1, 3), 3.0), np.zeros((2, 1, 3)))
+    with pytest.raises(ValueError, match="xla"):
+        tmpc.run_mpc_batch(robot, cfg, state, [0.1], 1, 0.1,
+                           device=cuda_device)

@@ -185,9 +185,9 @@ def test_wrapper_refuses_unsupported_grids():
         tr.obstacle_cost_batch(robot, flat, cand, 0.05, 0.05)
     _, grid = _worlds("grid")
     over = tsdf.AnalyticWorld(
-        sphere_center=torch.zeros(4, 1, 3), sphere_radius=torch.ones(4, 1),
-        box_center=torch.zeros(4, 0, 3), box_half=torch.zeros(4, 0, 3))
-    with pytest.raises(NotImplementedError, match="MPC"):
+        sphere_center=torch.zeros(3, 1, 3), sphere_radius=torch.ones(3, 1),
+        box_center=torch.zeros(3, 0, 3), box_half=torch.zeros(3, 0, 3))
+    with pytest.raises(ValueError, match="3 rows"):    # 3 rows, 4 candidates
         tr.obstacle_cost_batch(robot, tsdf.CompositeWorld(grid, over), cand,
                                0.05, 0.05)
     with pytest.raises(ValueError, match="grid tensors are on meta"):
@@ -199,21 +199,26 @@ def test_wrapper_refuses_unsupported_grids():
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """Each kernel library's name hashes its .cu and every csrc header it
     includes: an edited header gets a new build."""
-    for name in tr._KERNELS:
+    for name in tr._SOURCES:
         srcs = {p.name for p in tr._sources(name)}
         assert srcs == {f"{name}.cu", "rollout_common.cuh"}, srcs
     for src in tr._CSRC.iterdir():
         (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(tr, "_CSRC", tmp_path)
-    before = {n: tr._lib_path(n) for n in tr._KERNELS}
+    before = {n: tr._lib_path(n) for n in tr._SOURCES}
     header = tmp_path / "rollout_common.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    for n in tr._KERNELS:
+    for n in tr._SOURCES:
         assert tr._lib_path(n) != before[n]
     assert tr._lib_path("rollout_grid") != tr._lib_path("rollout_analytic")
 
 
 def test_reset_launches():
     tr.LAUNCHES["rollout_grid"] += 2
+    tr.LAUNCHES["rollout_analytic:per_cand_world"] += 1
     tr.reset_launches()
-    assert tr.LAUNCHES == {"rollout_analytic": 0, "rollout_grid": 0}
+    assert tr.LAUNCHES == {"rollout_analytic": 0, "rollout_grid": 0,
+                           "rollout_analytic:per_cand_world": 0,
+                           "rollout_grid:per_cand_overlay": 0}
+    # every variant is an entry point of one of the two sources
+    assert {src for src, _, _ in tr._ENTRIES.values()} == set(tr._SOURCES)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from tpustomp.world import decompose as jdec
@@ -186,10 +187,31 @@ def test_worlds_move_with_fields():
 
 
 def test_per_candidate_overlay_raises():
-    _, tg = _grids()
+    """A CompositeWorld whose overlay has a row axis (one set of spheres
+    per scenario; the grid shared): sdf over points [R, ..., 3] equals the
+    JAX package's vmap(sdf) over the overlay rows (_grid_finish :821-829),
+    and points without the matching row axis raise."""
+    jg, tg = _grids()
+    rng = np.random.default_rng(4)
+    R = 4
+    centers = rng.uniform(-0.2, 0.8, (R, 2, 3)).astype(np.float32)
+    radii = rng.uniform(0.05, 0.2, (R, 2)).astype(np.float32)
+    box_c = rng.uniform(0.0, 0.6, (R, 1, 3)).astype(np.float32)
+    box_h = rng.uniform(0.05, 0.2, (R, 1, 3)).astype(np.float32)
+    pts = np.stack([_points(s) for s in range(R)])
+    jover = jsdf.AnalyticWorld(
+        sphere_center=jnp.asarray(centers), sphere_radius=jnp.asarray(radii),
+        box_center=jnp.asarray(box_c), box_half=jnp.asarray(box_h))
+    ref = jsdf.sdf(jg, jnp.asarray(pts))
+    ref = jnp.minimum(ref, jax.vmap(jsdf.sdf)(jover, jnp.asarray(pts)))
     over = tsdf.AnalyticWorld(
-        sphere_center=torch.zeros(4, 1, 3), sphere_radius=torch.ones(4, 1),
-        box_center=torch.zeros(4, 0, 3), box_half=torch.zeros(4, 0, 3))
-    with pytest.raises(NotImplementedError, match="MPC"):
-        tsdf.sdf(tsdf.CompositeWorld(grid=tg, overlay=over),
-                 torch.zeros(4, 3))
+        sphere_center=torch.from_numpy(centers),
+        sphere_radius=torch.from_numpy(radii),
+        box_center=torch.from_numpy(box_c), box_half=torch.from_numpy(box_h))
+    world = tsdf.CompositeWorld(grid=tg, overlay=over)
+    assert tsdf.world_rows(world) == R
+    got = tsdf.sdf(world, torch.from_numpy(pts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
+    with pytest.raises(ValueError, match="4 rows"):
+        tsdf.sdf(world, torch.zeros(3, 3))

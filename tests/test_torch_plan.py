@@ -119,10 +119,20 @@ def test_plan_grid_matches_jax():
 
 
 def test_plan_refuses_per_candidate_overlay():
-    _, _, robot, world = _grid_scene("composite")
-    over = dataclasses.replace(
-        world.overlay, sphere_center=world.overlay.sphere_center[None],
-        sphere_radius=world.overlay.sphere_radius[None])
-    with pytest.raises(NotImplementedError, match="MPC"):
+    """A composite whose overlay has a row axis is a per-scenario world
+    (solve_batch with world_batched=True, as MPC runs it; held to JAX in
+    tests/test_torch_mpc.py). `plan` takes one world shared by every
+    candidate, and both packages refuse the row form there: the JAX
+    package on the row/candidate mismatch, the port up front."""
+    cj, ct = _configs()
+    jr, jw, robot, world = _grid_scene("composite")
+    with pytest.raises(ValueError, match="inconsistent sizes"):
+        j_plan(jr, JComposite(grid=jw.grid, overlay=jax.tree.map(
+            lambda x: x[None], jw.overlay)), JProblem(q0=_Q0, qN=_QN), cj,
+               key=jax.random.PRNGKey(0))
+    over = dataclasses.replace(world.overlay, **{
+        f.name: getattr(world.overlay, f.name)[None]
+        for f in dataclasses.fields(world.overlay)})
+    with pytest.raises(ValueError, match="world_batched"):
         plan(robot, dataclasses.replace(world, overlay=over),
-             ProblemSpec(q0=_Q0, qN=_QN), _configs()[1], device="cpu")
+             ProblemSpec(q0=_Q0, qN=_QN), ct, device="cpu")

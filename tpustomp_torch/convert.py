@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from tpustomp_torch.dynamics.device import DeviceOps
+from tpustomp_torch.engine.mpc import MPCState
 from tpustomp_torch.robot.model import RobotSpec
 from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld, GridSDF
 
@@ -45,7 +46,8 @@ def robot_from_numpy(fields: Mapping, device="cpu") -> RobotSpec:
 
 
 def world_from_numpy(fields: Mapping, device="cpu") -> AnalyticWorld:
-    """AnalyticWorld from the JAX AnalyticWorld's fields."""
+    """AnalyticWorld from the JAX AnalyticWorld's fields (a leading row
+    axis, one world per scenario, is kept)."""
     return AnalyticWorld(**{
         name: _tensor(fields[name], torch.float32, device)
         for name in AnalyticWorld.__dataclass_fields__})
@@ -65,7 +67,7 @@ def grid_from_numpy(fields: Mapping, device="cpu") -> GridSDF:
 def composite_from_numpy(grid_fields: Mapping, overlay_fields: Mapping,
                          device="cpu") -> CompositeWorld:
     """CompositeWorld from the fields of the JAX CompositeWorld's grid and
-    overlay."""
+    overlay (the overlay's row axis, if any, is kept)."""
     return CompositeWorld(grid=grid_from_numpy(grid_fields, device),
                           overlay=world_from_numpy(overlay_fields, device))
 
@@ -75,3 +77,16 @@ def ops_from_numpy(fields: Mapping, device="cpu") -> DeviceOps:
     kw = {name: _tensor(fields[name], torch.float32, device)
           for name in DeviceOps.__dataclass_fields__ if name != "cov_scale"}
     return DeviceOps(cov_scale=float(fields["cov_scale"]), **kw)
+
+
+_MPC_DTYPES = {"steps": torch.int32, "reached_tick": torch.int32,
+               "collided": torch.bool}
+
+
+def mpc_state_from_numpy(fields: Mapping, device="cpu") -> MPCState:
+    """MPCState from the JAX MPCState's fields (its PRNG key is dropped: the
+    port takes noise as an argument)."""
+    return MPCState(**{
+        name: _tensor(fields[name], _MPC_DTYPES.get(name, torch.float32),
+                      device)
+        for name in MPCState.__dataclass_fields__})

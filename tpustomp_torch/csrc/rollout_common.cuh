@@ -30,6 +30,11 @@
 //     threads touch consecutive candidates, so loads and stores coalesce.
 //   * Robot and world parameters (a few hundred floats) are staged once per
 //     block in shared memory and read as warp-uniform broadcasts.
+//   * Per-row worlds (one set of spheres/boxes per scenario, batched MPC)
+//     cannot be staged that way: their primitives stay in global memory as
+//     [rows, ns, 4] and [rows, nx, 6], and candidate c reads row
+//     c / cands_per_row through the read-only path (RowPrims below). The
+//     same primitives_dist does the arithmetic for both.
 //   * Inactive rows (finished scenarios) write zeros and skip all work.
 // Joint type and axis are read at run time; bodies must be link-sorted (the
 // wrapper sorts robots that are not, on the device).
@@ -44,7 +49,8 @@
 //   PB + d + 1 + 4*b  body b: offset[3], radius
 //   W = PB + d + 1 + 4*nb: the world section, read by the World policy:
 //     4 per sphere (center[3], radius), then 6 per box (center[3], half[3]),
-//     then for grid worlds the grid origin[3] and resolution.
+//     then for grid worlds the grid origin[3] and resolution. A per-row
+//     world holds no primitives here (ns = nx = 0 in this section).
 
 #pragma once
 
@@ -131,21 +137,36 @@ __device__ __forceinline__ void fk_bodies(
   }
 }
 
-// Min signed distance to ns spheres and nx boxes (the world section W:
-// spheres first, then boxes); kBig when there are none.
+struct SharedLoad {
+  __device__ __forceinline__ float operator()(const float* p) const {
+    return *p;
+  }
+};
+struct ReadOnlyLoad {   // global memory through the read-only (L1) path
+  __device__ __forceinline__ float operator()(const float* p) const {
+    return __ldg(p);
+  }
+};
+
+// Min signed distance to ns spheres (S: 4 floats each, center[3] and
+// radius) and nx boxes (X: 6 floats each, center[3] and half[3]); kBig
+// when there are none. Load says how S and X are read; the arithmetic is
+// the same for shared and per-row worlds.
+template <class Load>
 __device__ __forceinline__ float primitives_dist(
-    const float* W, int ns, int nx, float x0, float x1, float x2) {
+    Load ld, const float* S, int ns, const float* X, int nx, float x0,
+    float x1, float x2) {
   float dist = kBig;
   for (int s = 0; s < ns; ++s) {
-    const float* S = W + 4 * s;
-    const float r0 = x0 - S[0], r1 = x1 - S[1], r2 = x2 - S[2];
-    dist = fminf(dist, sqrtf(r0 * r0 + r1 * r1 + r2 * r2) - S[3]);
+    const float* P = S + 4 * s;
+    const float r0 = x0 - ld(P), r1 = x1 - ld(P + 1), r2 = x2 - ld(P + 2);
+    dist = fminf(dist, sqrtf(r0 * r0 + r1 * r1 + r2 * r2) - ld(P + 3));
   }
   for (int k = 0; k < nx; ++k) {
-    const float* X = W + 4 * ns + 6 * k;
-    const float q0 = fabsf(x0 - X[0]) - X[3];
-    const float q1 = fabsf(x1 - X[1]) - X[4];
-    const float q2 = fabsf(x2 - X[2]) - X[5];
+    const float* B = X + 6 * k;
+    const float q0 = fabsf(x0 - ld(B)) - ld(B + 3);
+    const float q1 = fabsf(x1 - ld(B + 1)) - ld(B + 4);
+    const float q2 = fabsf(x2 - ld(B + 2)) - ld(B + 5);
     const float w0 = fmaxf(q0, 0.0f), w1 = fmaxf(q1, 0.0f),
                 w2 = fmaxf(q2, 0.0f);
     const float outside = sqrtf(w0 * w0 + w1 * w1 + w2 * w2);
@@ -155,10 +176,43 @@ __device__ __forceinline__ float primitives_dist(
   return dist;
 }
 
+// One thread's view of a primitive set: a callable distance.
+template <class Load>
+struct Prims {
+  const float* S;
+  int ns;
+  const float* X;
+  int nx;
+  __device__ __forceinline__ float operator()(float x0, float x1,
+                                              float x2) const {
+    return primitives_dist(Load{}, S, ns, X, nx, x0, x1, x2);
+  }
+};
+
+// The shared primitive set in the world section W of the staged parameters.
+__device__ __forceinline__ Prims<SharedLoad> shared_prims(const float* W,
+                                                          int ns, int nx) {
+  return Prims<SharedLoad>{W, ns, W + 4 * ns, nx};
+}
+
+// Per-row primitive sets in global memory: spheres [rows, ns, 4], boxes
+// [rows, nx, 6]; candidate c reads row c / per_row.
+struct RowPrims {
+  const float* spheres;
+  const float* boxes;
+  int ns, nx, per_row;
+  __device__ __forceinline__ Prims<ReadOnlyLoad> at(int c) const {
+    const size_t r = (size_t)(c / per_row);
+    return Prims<ReadOnlyLoad>{spheres + r * 4 * ns, ns, boxes + r * 6 * nx,
+                               nx};
+  }
+};
+
 // The kernel body. World is a policy with
-//   __device__ float operator()(const float* W, float x0, float x1, float x2) const
-// returning the signed distance at a body center (W: the world section of
-// the shared-memory parameters).
+//   __device__ Dist at(const float* W, int c) const
+// binding candidate c's distance once per thread: Dist is callable as
+// dist(x0, x1, x2), the signed distance at a body center (W: the world
+// section of the shared-memory parameters).
 template <class World>
 __device__ __forceinline__ void evaluate(
     const World& world, const float* __restrict__ cand,   // [d, T, C]
@@ -188,6 +242,7 @@ __device__ __forceinline__ void evaluate(
 
   const int body_base = 12 + 17 * d + 1;
   const float* W = P + body_base + 4 * nb;
+  const auto dist_at = world.at(W, c);
   const int slot_stride = nb * 3 * kBlock;
   float* my_win = win + threadIdx.x;
   const float inv_dt = 1.0f / dt;
@@ -224,7 +279,7 @@ __device__ __forceinline__ void evaluate(
         v2 = (nxt[o + 2 * kBlock] - prv[o + 2 * kBlock]) * inv_2dt;
       }
       const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
-      const float dist = world(W, x0, x1, x2);
+      const float dist = dist_at(x0, x1, x2);
       const float radius = P[body_base + 4 * b + 3];
       const float d_sig = dist - radius - clearance;
       float pot;

@@ -8,7 +8,13 @@
 //       XLA tail _grid_finish (:807-862: trilinear gather, potential,
 //       reductions);
 //   K2  build_kinematics_kernel, pallas_call at :325 — the same for robots
-//       whose bodies are not link-sorted (the wrapper sorts them).
+//       whose bodies are not link-sorted (the wrapper sorts them);
+//   K5 followed by _grid_finish's per_cand branch (:818-829; the wrapper
+//       pads the overlay at :949-954) — a CompositeWorld whose overlay has
+//       one set of spheres/boxes per scenario (batched MPC over a voxel
+//       scene): rollout_grid_rows_launch below. Its overlay rows are read
+//       as rollout_analytic.cu's per-row worlds are (rollout_common.cuh
+//       RowPrims); the grid stays shared.
 // The TPU split exists only because Mosaic has no arbitrary gather; here the
 // trilinear sample sits inside the fused loop of rollout_common.cuh, and no
 // [B, 4, C, T] intermediate exists.
@@ -33,16 +39,15 @@
 
 namespace {
 
-struct GridDist {
+// Trilinear sample of the shared grid; G points at origin[3], resolution.
+struct GridSample {
   const float* grid;                // [X, Y, Z] row-major, on the device
   int X, Y, Z;
   float hi0, hi1, hi2;              // shape - 1.000001, in float32
-  int ns, nx;                       // overlay primitives (0, 0 for a grid)
-  int composite;
+  const float* G;
 
-  __device__ __forceinline__ float operator()(const float* W, float x0,
-                                              float x1, float x2) const {
-    const float* G = W + 4 * ns + 6 * nx;        // origin[3], resolution
+  __device__ __forceinline__ float operator()(float x0, float x1,
+                                              float x2) const {
     float g0 = (x0 - G[0]) / G[3];
     float g1 = (x1 - G[1]) / G[3];
     float g2 = (x2 - G[2]) / G[3];
@@ -71,14 +76,59 @@ struct GridDist {
     const float c11 = c110 * (1.0f - fz) + c111 * fz;
     const float c0 = c00 * (1.0f - fy) + c01 * fy;
     const float c1 = c10 * (1.0f - fy) + c11 * fy;
-    const float dist = c0 * (1.0f - fx) + c1 * fx;
-    if (!composite) return dist;
-    return fminf(dist, rollout::primitives_dist(W, ns, nx, x0, x1, x2));
+    return c0 * (1.0f - fx) + c1 * fx;
   }
 };
 
+struct GridDims {
+  const float* grid;
+  int X, Y, Z;
+  float hi0, hi1, hi2;
+  __device__ __forceinline__ GridSample at(const float* G) const {
+    return GridSample{grid, X, Y, Z, hi0, hi1, hi2, G};
+  }
+};
+
+// One thread's distance: the grid sample, min-composed with the overlay
+// for a composite world.
+template <class Overlay>
+struct GridPoint {
+  GridSample sample;
+  Overlay overlay;
+  int composite;
+  __device__ __forceinline__ float operator()(float x0, float x1,
+                                              float x2) const {
+    const float dist = sample(x0, x1, x2);
+    if (!composite) return dist;
+    return fminf(dist, overlay(x0, x1, x2));
+  }
+};
+
+// A GridSDF, or a CompositeWorld whose overlay is in params (shared).
+struct GridDist {
+  GridDims dims;
+  int ns, nx;                       // overlay primitives (0, 0 for a grid)
+  int composite;
+  __device__ __forceinline__ GridPoint<rollout::Prims<rollout::SharedLoad>>
+  at(const float* W, int) const {
+    return {dims.at(W + 4 * ns + 6 * nx), rollout::shared_prims(W, ns, nx),
+            composite};
+  }
+};
+
+// A CompositeWorld with one overlay per row; params hold no primitives.
+struct GridRowDist {
+  GridDims dims;
+  rollout::RowPrims rows;
+  __device__ __forceinline__ GridPoint<rollout::Prims<rollout::ReadOnlyLoad>>
+  at(const float* W, int c) const {
+    return {dims.at(W), rows.at(c), 1};
+  }
+};
+
+template <class World>
 __global__ void __launch_bounds__(rollout::kBlock) rollout_grid_kernel(
-    GridDist world, const float* __restrict__ cand,
+    World world, const float* __restrict__ cand,
     const float* __restrict__ params, int n_params,
     const uint8_t* __restrict__ active, float* __restrict__ q_obs,
     float* __restrict__ margin_part, int C, int T, int d, int nb, float dt,
@@ -86,6 +136,24 @@ __global__ void __launch_bounds__(rollout::kBlock) rollout_grid_kernel(
   rollout::evaluate(world, cand, params, n_params, active, q_obs,
                     margin_part, C, T, d, nb, dt, clearance, skip_rotf,
                     t_chunk);
+}
+
+template <class World>
+int launch(const World& world, const float* cand, const float* params,
+           int n_params, const uint8_t* active, float* q_obs,
+           float* margin_part, int C, int T, int d, int nb, float dt,
+           float clearance, int skip_rotf, int t_chunk, void* stream) {
+  if (C <= 0) return 0;
+  const int n_chunks = (T + t_chunk - 1) / t_chunk;
+  const size_t smem = rollout::smem_bytes(n_params, nb);
+  const int err = rollout::allow_smem(rollout_grid_kernel<World>, smem);
+  if (err != 0) return err;
+  dim3 blocks((C + rollout::kBlock - 1) / rollout::kBlock, n_chunks);
+  rollout_grid_kernel<World><<<blocks, rollout::kBlock, smem,
+                               (cudaStream_t)stream>>>(
+      world, cand, params, n_params, active, q_obs, margin_part, C, T, d, nb,
+      dt, clearance, skip_rotf, t_chunk);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -96,16 +164,23 @@ extern "C" int rollout_grid_launch(
     const uint8_t* active, float* q_obs, float* margin_part, int C, int T,
     int d, int nb, int ns, int nx, float dt, float clearance, int skip_rotf,
     int t_chunk, void* stream) {
-  if (C <= 0) return 0;
-  const int n_chunks = (T + t_chunk - 1) / t_chunk;
-  const size_t smem = rollout::smem_bytes(n_params, nb);
-  const int err = rollout::allow_smem(rollout_grid_kernel, smem);
-  if (err != 0) return err;
-  const GridDist world{grid, X, Y, Z, hi0, hi1, hi2, ns, nx, composite};
-  dim3 blocks((C + rollout::kBlock - 1) / rollout::kBlock, n_chunks);
-  rollout_grid_kernel<<<blocks, rollout::kBlock, smem,
-                        (cudaStream_t)stream>>>(
-      world, cand, params, n_params, active, q_obs, margin_part, C, T, d, nb,
-      dt, clearance, skip_rotf, t_chunk);
-  return (int)cudaGetLastError();
+  const GridDist world{GridDims{grid, X, Y, Z, hi0, hi1, hi2}, ns, nx,
+                       composite};
+  return launch(world, cand, params, n_params, active, q_obs, margin_part, C,
+                T, d, nb, dt, clearance, skip_rotf, t_chunk, stream);
+}
+
+// Overlay rows: spheres [C / cands_per_row, ns, 4], boxes [.., nx, 6].
+extern "C" int rollout_grid_rows_launch(
+    const float* cand, const float* params, int n_params, const float* grid,
+    int X, int Y, int Z, float hi0, float hi1, float hi2,
+    const float* spheres, const float* boxes, int cands_per_row,
+    const uint8_t* active, float* q_obs, float* margin_part, int C, int T,
+    int d, int nb, int ns, int nx, float dt, float clearance, int skip_rotf,
+    int t_chunk, void* stream) {
+  const GridRowDist world{GridDims{grid, X, Y, Z, hi0, hi1, hi2},
+                          rollout::RowPrims{spheres, boxes, ns, nx,
+                                            cands_per_row}};
+  return launch(world, cand, params, n_params, active, q_obs, margin_part, C,
+                T, d, nb, dt, clearance, skip_rotf, t_chunk, stream);
 }

@@ -20,6 +20,9 @@ Differences from the JAX package, by design:
   - Finished scenarios' candidate rows are skipped inside the evaluator
     kernel (row_active) and their state is frozen by the same select as the
     reference (solver.py:734-738).
+  - Per-scenario worlds (world_batched=True, batched MPC) reach the
+    evaluator as B world rows with cands_per_row = C, where the reference
+    repeats each scenario's world C times (solver.py:507-526).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from tpustomp_torch.engine.trajectory import (full_trajectory, min_jerk_init,
                                               wrap_goal)
 from tpustomp_torch.kernels.rollout import obstacle_cost_batch
 from tpustomp_torch.robot.model import RobotSpec
+from tpustomp_torch.world.sdf import world_rows
 
 # noise_fn(iteration, active [B] bool) -> z [d, B, K, N] standard normals
 NoiseFn = Callable[[int, torch.Tensor], torch.Tensor]
@@ -78,7 +82,7 @@ def _check_fp32_matmul(device: torch.device) -> None:
 
 
 def _obstacle_rows(robot, world, cfg: PlannerConfig, fulls, row_active=None,
-                   time_major: bool = False):
+                   time_major: bool = False, cands_per_row=None):
     """The evaluator (kernels/rollout.obstacle_cost_batch: the CUDA kernel
     for CUDA tensors, its plain version on the CPU). obstacle_backend="xla"
     names the plain path, so it is refused off the CPU: the card never
@@ -89,16 +93,23 @@ def _obstacle_rows(robot, world, cfg: PlannerConfig, fulls, row_active=None,
                          "on CUDA")
     return obstacle_cost_batch(robot, world, fulls, cfg.dt,
                                cfg.collision_clearance,
-                               row_active=row_active, time_major=time_major)
+                               row_active=row_active, time_major=time_major,
+                               cands_per_row=cands_per_row)
 
 
 def init_state(robot: RobotSpec, cfg: PlannerConfig, q0: torch.Tensor,
-               qN: torch.Tensor) -> SolverState:
-    """Initial state for q0/qN [B, d]: the min-jerk trajectory (A.1)."""
+               qN: torch.Tensor, theta0: torch.Tensor | None = None
+               ) -> SolverState:
+    """Initial state for q0/qN [B, d]: the warm start theta0 [B, N, d]
+    (MPC replanning) or, by default, the min-jerk trajectory (A.1)."""
     N = cfg.num_timesteps
     B, d = q0.shape
     dev = q0.device
-    theta0 = min_jerk_init(q0, qN, N)
+    if theta0 is None:
+        theta0 = min_jerk_init(q0, qN, N)
+    elif theta0.shape != (B, N, d):
+        raise ValueError(f"theta0 must be [{B}, {N}, {d}], got "
+                         f"{tuple(theta0.shape)}")
     n_m = cfg.max_iterations if cfg.record_metrics else 0
     zeros_m = torch.zeros((B, n_m), dtype=torch.float32, device=dev)
     zero_i = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -150,10 +161,11 @@ def _freeze(done: torch.Tensor, old: SolverState,
 
 def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
                        ops: DeviceOps, Q0: torch.Tensor, QN: torch.Tensor,
-                       noise_fn: NoiseFn):
+                       noise_fn: NoiseFn, world_batched: bool = False):
     """One STOMP iteration over B scenarios (Q0/QN [B, d]) in the
     evaluator's time-major layout. Returns step(state, iteration) -> state;
-    `iteration` is the batch loop's count, handed to noise_fn."""
+    `iteration` is the batch loop's count, handed to noise_fn.
+    world_batched: the world has one row per scenario (world_rows == B)."""
     B, d = Q0.shape
     N = cfg.num_timesteps
     K = cfg.num_rollouts
@@ -202,7 +214,7 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
         q_obs, margins = _obstacle_rows(
             robot, world, cfg, full,
             row_active=active[:, None].expand(B, C).reshape(B * C),
-            time_major=True)
+            time_major=True, cands_per_row=C if world_batched else None)
         q_obs = q_obs.reshape(B, C, T)
         margins = margins.reshape(B, C)
         ctrl_all = smoothness_cost_per_timestep_tm(ops, cand_tm, Q0, QN)
@@ -255,17 +267,18 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
     return step
 
 
-def _init_batch(robot: RobotSpec, cfg: PlannerConfig, Q0, QN):
+def _init_batch(robot: RobotSpec, cfg: PlannerConfig, Q0, QN, theta0=None):
     """Wrap goals + build the initial batched state. Returns (QN, state)."""
     QN = wrap_goal(Q0, QN, robot.joint_limited)
-    return QN, init_state(robot, cfg, Q0, QN)
+    return QN, init_state(robot, cfg, Q0, QN, theta0)
 
 
 def finalize(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
              Q0, QN, state: SolverState) -> Solution:
     """Assemble the batched Solution: per scenario the best collision-free
     trajectory if one was found, else the final iterate with success=False.
-    The returned trajectory is re-evaluated (one evaluator call, B rows)."""
+    The returned trajectory is re-evaluated (one evaluator call, B rows; a
+    world with B rows evaluates each row against its own world)."""
     ret_theta = torch.where(state.found_cf[:, None, None], state.best_theta,
                             state.theta)
     fulls = full_trajectory(ret_theta, Q0, QN)                    # [B, T, d]
@@ -292,18 +305,31 @@ def finalize(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
 
 
 def solve_batch(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
-                Q0: torch.Tensor, QN: torch.Tensor,
-                noise_fn: NoiseFn) -> Solution:
+                Q0: torch.Tensor, QN: torch.Tensor, noise_fn: NoiseFn,
+                theta0: torch.Tensor | None = None,
+                world_batched: bool = False) -> Solution:
     """Batched planning (BASELINE config 4): B scenarios to termination.
 
     Q0/QN [B, d] on the device everything runs on (robot, world and ops
     must be there too). Runs until every scenario is done; each iteration
     launches the evaluator once over all B·C candidates.
+
+    theta0: optional warm start [B, N, d] (MPC replanning).
+    world_batched=True: the world's spheres/boxes (a composite's overlay)
+    carry a leading [B] scenario axis — each scenario plans in its own
+    world (MPC moving obstacles); a composite's grid stays shared.
     """
     check_supported(cfg)
     _check_fp32_matmul(Q0.device)
-    QN, state = _init_batch(robot, cfg, Q0, QN)
-    step = make_step_batch_tm(robot, world, cfg, ops, Q0, QN, noise_fn)
+    rows = world_rows(world)
+    if world_batched != (rows is not None) or rows not in (None, Q0.shape[0]):
+        raise ValueError(
+            f"world_batched={world_batched} needs a world with one row per "
+            f"scenario ({Q0.shape[0]}) exactly when True; the world has "
+            f"{'no row axis' if rows is None else f'{rows} rows'}")
+    QN, state = _init_batch(robot, cfg, Q0, QN, theta0)
+    step = make_step_batch_tm(robot, world, cfg, ops, Q0, QN, noise_fn,
+                              world_batched)
     iteration = 0
     while not bool(state.done.all()):        # the one host sync per iteration
         state = step(state, iteration)

@@ -2,28 +2,38 @@
 speed → per-waypoint cost rows, one CUDA kernel per world kind.
 
 Port of the evaluation kernels of ``tpustomp/kernels/rollout_pallas.py`` and
-of the contract of their wrapper ``obstacle_cost_batch_pallas`` for a world
-shared by every candidate:
+of the contract of their wrapper ``obstacle_cost_batch_pallas``:
 
 - ``rollout_analytic`` (``csrc/rollout_analytic.cu``), for `AnalyticWorld`:
   K3 (pallas_call :741); K4 (:755, the candidate-major [C, T, d] input,
   permuted here into the kernel's time-major layout); K1 (:257, robots
   with ``body_counts=None``, whose bodies are stable-sorted by link here).
-- ``rollout_grid`` (``csrc/rollout_grid.cu``), for `GridSDF` and a
-  `CompositeWorld` with a shared overlay: K5 (:770) together with its XLA
-  tail ``_grid_finish``, as one kernel; K2 (:325), sorted as for K1.
+  Its variant ``rollout_analytic:per_cand_world`` is K3 with
+  ``per_cand_world=True``: one set of spheres/boxes per row of candidates.
+- ``rollout_grid`` (``csrc/rollout_grid.cu``), for `GridSDF` and
+  `CompositeWorld`: K5 (:770) together with its XLA tail ``_grid_finish``,
+  as one kernel; K2 (:325), sorted as for K1. Its variant
+  ``rollout_grid:per_cand_overlay`` takes a composite whose overlay has one
+  set of spheres/boxes per row (``_grid_finish``'s per_cand branch).
 
-Both are hand-written CUDA C++ for sm_90a around one shared skeleton
+Worlds with a row axis (world/sdf.py ``world_rows``; batched MPC's
+per-scenario worlds) come in a grouped form: R rows and ``cands_per_row``,
+candidate c reading row c // cands_per_row. The JAX package's
+per-candidate contract is the grouped form with cands_per_row = 1; the
+solver passes rows of scenarios with cands_per_row = candidates per
+scenario, and nothing is repeated per candidate.
+
+Both kernels are hand-written CUDA C++ for sm_90a around one shared skeleton
 (``csrc/rollout_common.cuh``; each file's header says what bounds it and
-how the design answers that). Each is compiled with nvcc into a shared
-library with a plain C interface at first use, into
+how the design answers that). Each source is compiled with nvcc into a
+shared library with a plain C interface at first use, into
 ``tpustomp_torch/_build/``, and called through ctypes.
 
 - :func:`obstacle_cost_batch_plain` is the plain PyTorch version
   (costs/obstacle.py) the kernels are held to.
 - :func:`obstacle_cost_batch` takes the plain version only for tensors on
   the CPU. For CUDA tensors it launches a kernel, or raises; it never falls
-  back. ``LAUNCHES`` counts each kernel's launches.
+  back. ``LAUNCHES`` counts each kernel variant's launches.
 """
 
 from __future__ import annotations
@@ -41,19 +51,32 @@ import torch
 
 from tpustomp_torch.costs.obstacle import obstacle_cost
 from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
-                                      check_shared_overlay, grid_clip_hi)
+                                      grid_clip_hi, world_rows)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# kernel name -> argument types of its C entry point <name>_launch
-_KERNELS = {
-    "rollout_analytic": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                         _F, _I, _I, _P],
-    "rollout_grid": [_P, _P, _I, _P, _I, _I, _I, _F, _F, _F, _I, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P],
+# (active, q_obs, margin_part, C, T, d, nb, ns, nx, dt, clearance, skip_rotf,
+#  t_chunk, stream): the arguments every entry point ends with
+_TAIL = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
+_GRID = [_P, _I, _I, _I, _F, _F, _F]          # grid, X, Y, Z, hi[3]
+_ROWS = [_P, _P, _I]                          # spheres, boxes, cands_per_row
+# kernel variant -> (source in csrc/, C entry point, its argument types)
+_ENTRIES = {
+    "rollout_analytic": (
+        "rollout_analytic", "rollout_analytic_launch", [_P, _P, _I] + _TAIL),
+    "rollout_analytic:per_cand_world": (
+        "rollout_analytic", "rollout_analytic_rows_launch",
+        [_P, _P, _I] + _ROWS + _TAIL),
+    "rollout_grid": (
+        "rollout_grid", "rollout_grid_launch",
+        [_P, _P, _I] + _GRID + [_I] + _TAIL),
+    "rollout_grid:per_cand_overlay": (
+        "rollout_grid", "rollout_grid_rows_launch",
+        [_P, _P, _I] + _GRID + _ROWS + _TAIL),
 }
+_SOURCES = ("rollout_analytic", "rollout_grid")
 
-# Kernel launches per kernel since import (or since reset_launches()).
-LAUNCHES = dict.fromkeys(_KERNELS, 0)
+# Kernel launches per kernel variant since import (or reset_launches()).
+LAUNCHES = dict.fromkeys(_ENTRIES, 0)
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -111,9 +134,10 @@ def _lib_path(name: str) -> Path:
     return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=tuple(_KERNELS)) -> dict[str, ctypes.CDLL]:
+def build(names=_SOURCES) -> dict[str, ctypes.CDLL]:
     """Compile (once per version of the sources) and load the named kernel
-    libraries. Missing builds run at the same time, one nvcc each."""
+    libraries (sources in csrc/). Missing builds run at the same time, one
+    nvcc each."""
     missing = [n for n in names
                if n not in _libs and not _lib_path(n).exists()]
     if missing:
@@ -148,9 +172,11 @@ def build(names=tuple(_KERNELS)) -> dict[str, ctypes.CDLL]:
     for n in names:
         if n not in _libs:
             lib = ctypes.CDLL(str(_lib_path(n)))
-            fn = getattr(lib, f"{n}_launch")
-            fn.argtypes = _KERNELS[n]
-            fn.restype = ctypes.c_int
+            for source, entry, argtypes in _ENTRIES.values():
+                if source == n:
+                    fn = getattr(lib, entry)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
             _libs[n] = lib
     return {n: _libs[n] for n in names}
 
@@ -158,14 +184,13 @@ def build(names=tuple(_KERNELS)) -> dict[str, ctypes.CDLL]:
 def _world_parts(world):
     """(grid, primitives) of a world: the GridSDF or None, and the
     AnalyticWorld of spheres/boxes (the overlay of a composite) or None.
-    Raises on a world kind the evaluators do not take, a per-candidate
-    overlay, or a grid with a dimension below 2."""
+    Raises on a world kind the evaluators do not take, or a grid with a
+    dimension below 2."""
     if isinstance(world, AnalyticWorld):
         return None, world
     if isinstance(world, GridSDF):
         grid, prims = world, None
     elif isinstance(world, CompositeWorld):
-        check_shared_overlay(world)
         grid, prims = world.grid, world.overlay
     else:
         raise NotImplementedError(
@@ -179,7 +204,9 @@ def _world_parts(world):
 
 def pack_params(robot, world) -> torch.Tensor:
     """Robot + world parameters as the kernels' packed float32 vector (layout
-    in the header of csrc/rollout_common.cuh), on the robot's device."""
+    in the header of csrc/rollout_common.cuh), on the robot's device. A
+    world with a row axis contributes only its grid's origin and resolution:
+    its primitives go to the kernel as their own arrays (_prim_arrays)."""
     d = robot.num_joints
     dev = robot.joint_axis.device
     f32 = torch.float32
@@ -206,13 +233,8 @@ def pack_params(robot, world) -> torch.Tensor:
         torch.cat([offset.to(f32), radius.to(f32)[:, None]],
                   dim=1).reshape(-1)]
     grid, prims = _world_parts(world)
-    if prims is not None:
-        parts += [
-            torch.cat([prims.sphere_center.to(f32),
-                       prims.sphere_radius.to(f32)[:, None]],
-                      dim=1).reshape(-1),
-            torch.cat([prims.box_center.to(f32), prims.box_half.to(f32)],
-                      dim=1).reshape(-1)]
+    if prims is not None and world_rows(world) is None:
+        parts += [x.reshape(-1) for x in _prim_arrays(prims)]
     if grid is not None:
         parts += [grid.origin.to(f32).reshape(3),
                   grid.resolution.to(f32).reshape(1)]
@@ -226,27 +248,55 @@ def _t_chunk(C: int, T: int) -> int:
     return -(-T // n_chunks)
 
 
+def _cands_per_row(world, C: int, cands_per_row):
+    """Candidates per world row, or None for a shared world. A world with
+    R rows takes C = R * cands_per_row candidates (default 1: one row per
+    candidate, the per-candidate contract)."""
+    rows = world_rows(world)
+    if rows is None:
+        if cands_per_row is not None:
+            raise ValueError("cands_per_row is for a world with a row axis; "
+                             "this world is shared by every candidate")
+        return None
+    per = 1 if cands_per_row is None else int(cands_per_row)
+    if per < 1 or rows * per != C:
+        raise ValueError(f"a world with {rows} rows and cands_per_row={per} "
+                         f"takes {rows} x {per} candidates, got {C}")
+    return per
+
+
 def obstacle_cost_batch_plain(robot, world, full_trajs: torch.Tensor,
                               dt: float, clearance: float,
-                              time_major: bool = False):
+                              time_major: bool = False, cands_per_row=None):
     """The plain PyTorch version of the kernels: body_positions_traj → sdf →
     potential × speed (costs/obstacle.py). full_trajs [C, T, d], or
-    [d, T, C] with time_major=True -> (q_obs [C, T], margin [C])."""
+    [d, T, C] with time_major=True -> (q_obs [C, T], margin [C]). A world
+    with R rows is broadcast over its rows' candidates, not repeated."""
     fulls = full_trajs.permute(2, 1, 0) if time_major else full_trajs
-    return obstacle_cost(robot, world, fulls, dt, clearance)
+    C, T, d = fulls.shape
+    per = _cands_per_row(world, C, cands_per_row)
+    if per is None:
+        return obstacle_cost(robot, world, fulls, dt, clearance)
+    q, m = obstacle_cost(robot, world, fulls.reshape(C // per, per, T, d),
+                         dt, clearance)
+    return q.reshape(C, T), m.reshape(C)
 
 
 def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
                         clearance: float, row_active=None,
-                        time_major: bool = False):
+                        time_major: bool = False, cands_per_row=None):
     """Batched obstacle cost, the contract of the JAX package's
-    ``obstacle_cost_batch_pallas`` for a world shared by every candidate:
-    an AnalyticWorld, a GridSDF, or a CompositeWorld whose overlay has no
-    candidate axis.
+    ``obstacle_cost_batch_pallas``: an AnalyticWorld, a GridSDF or a
+    CompositeWorld, shared by every candidate or with a row axis on its
+    spheres/boxes (the overlay's for a composite).
 
     full_trajs: [C, T, d], or the time-major [d, T, C] with time_major=True
     (the layout the kernels read; the batched solver builds it directly).
     Returns (q_obs [C, T], margin [C]).
+
+    A world with R rows evaluates candidate c against row
+    c // cands_per_row; R * cands_per_row must be C. cands_per_row=None is
+    1: every candidate its own world.
 
     row_active: optional [C] bool. Rows whose flag is False MAY come back as
     zeros (the kernels skip them); callers must discard them.
@@ -258,6 +308,8 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     grid, prims = _world_parts(world)
+    C = full_trajs.shape[-1 if time_major else 0]
+    per = _cands_per_row(world, C, cands_per_row)
     for name, t in (("robot", robot.joint_axis),
                     ("grid", None if grid is None else grid.grid),
                     ("world", None if prims is None else prims.box_half)):
@@ -266,14 +318,30 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
                              f"trajectories on {dev}")
     if dev.type == "cpu":
         return obstacle_cost_batch_plain(robot, world, full_trajs, dt,
-                                         clearance, time_major=time_major)
-    return _launch(robot, world, grid, prims, full_trajs, dt, clearance,
+                                         clearance, time_major=time_major,
+                                         cands_per_row=per)
+    return _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
                    row_active, time_major)
 
 
-def _launch(robot, world, grid, prims, full_trajs, dt, clearance,
+def _prim_arrays(prims):
+    """Spheres and boxes as the kernels read them: spheres [..., S, 4]
+    (center, radius) and boxes [..., X, 6] (center, half), with a world's
+    row axis, if any, in front."""
+    f32 = torch.float32
+    spheres = torch.cat([prims.sphere_center.to(f32),
+                         prims.sphere_radius.to(f32)[..., None]], dim=-1)
+    boxes = torch.cat([prims.box_center.to(f32), prims.box_half.to(f32)],
+                      dim=-1)
+    return spheres.contiguous(), boxes.contiguous()
+
+
+def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             row_active, time_major):
-    name = "rollout_analytic" if grid is None else "rollout_grid"
+    source = "rollout_analytic" if grid is None else "rollout_grid"
+    name = source
+    if per is not None:
+        name += (":per_cand_world" if grid is None else ":per_cand_overlay")
     if full_trajs.dtype != torch.float32 or full_trajs.dim() != 3:
         raise ValueError(f"trajectories must be a 3-D float32 tensor, got "
                          f"{full_trajs.dtype} {tuple(full_trajs.shape)}")
@@ -296,29 +364,32 @@ def _launch(robot, world, grid, prims, full_trajs, dt, clearance,
     n_chunks = -(-T // t_chunk)
     q_obs = torch.empty((T, C), dtype=torch.float32, device=dev)
     margin_part = torch.empty((n_chunks, C), dtype=torch.float32, device=dev)
-    ns = 0 if prims is None else prims.sphere_radius.shape[0]
-    nx = 0 if prims is None else prims.box_half.shape[0]
+    ns = 0 if prims is None else prims.sphere_radius.shape[-1]
+    nx = 0 if prims is None else prims.box_half.shape[-2]
     tail = (None if active is None else active.data_ptr(),
             q_obs.data_ptr(), margin_part.data_ptr(), C, T, d,
             robot.num_bodies, ns, nx, float(dt), float(clearance),
             int(bool(robot.rot_fixed_identity)), t_chunk)
-    lib = build((name,))[name]
+    head = (cand.data_ptr(), params.data_ptr(), params.numel())
+    rows = ()
+    if per is not None:
+        spheres, boxes = _prim_arrays(prims)
+        rows = (spheres.data_ptr(), boxes.data_ptr(), per)
+    lib = build((source,))[source]
+    entry = getattr(lib, _ENTRIES[name][1])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if grid is None:
-            err = lib.rollout_analytic_launch(
-                cand.data_ptr(), params.data_ptr(), params.numel(), *tail,
-                stream)
+            err = entry(*head, *rows, *tail, stream)
         else:
             g = grid.grid.to(torch.float32).contiguous()
             if g.numel() >= 2**31:
                 raise ValueError(f"grid of {g.numel()} voxels: the kernel "
                                  "indexes it with 32-bit ints")
-            hi = grid_clip_hi(g.shape)
-            err = lib.rollout_grid_launch(
-                cand.data_ptr(), params.data_ptr(), params.numel(),
-                g.data_ptr(), *g.shape, *map(float, hi),
-                int(isinstance(world, CompositeWorld)), *tail, stream)
+            grid_args = (g.data_ptr(), *g.shape,
+                         *map(float, grid_clip_hi(g.shape)))
+            mid = rows or (int(isinstance(world, CompositeWorld)),)
+            err = entry(*head, *grid_args, *mid, *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

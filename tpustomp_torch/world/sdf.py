@@ -6,8 +6,11 @@
   (world/edt.py builds these).
 - `CompositeWorld`: a static grid plus an analytic overlay, min-composed.
 
-`sdf(world, p)` takes any of the three. The gradient (``sdf_grad``) is not
-ported yet; it lands with CHOMP.
+`sdf(world, p)` takes any of the three. An AnalyticWorld (or a composite's
+overlay) may carry a leading row axis on every leaf — one set of spheres
+and boxes per row, the per-scenario worlds of batched MPC — and then
+`p` carries the same leading axis (`world_rows`). The gradient
+(``sdf_grad``) is not ported yet; it lands with CHOMP.
 """
 
 from __future__ import annotations
@@ -27,12 +30,13 @@ def _f32(x, shape=None) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class AnalyticWorld:
-    """Union of spheres and axis-aligned boxes (min-composed SDF)."""
+    """Union of spheres and axis-aligned boxes (min-composed SDF). Every
+    leaf may carry a leading row axis [R, ...]: one world per row."""
 
-    sphere_center: torch.Tensor  # [S, 3]
-    sphere_radius: torch.Tensor  # [S]
-    box_center: torch.Tensor     # [X, 3]
-    box_half: torch.Tensor       # [X, 3]
+    sphere_center: torch.Tensor  # [S, 3] or [R, S, 3]
+    sphere_radius: torch.Tensor  # [S] or [R, S]
+    box_center: torch.Tensor     # [X, 3] or [R, X, 3]
+    box_half: torch.Tensor       # [X, 3] or [R, X, 3]
 
     @staticmethod
     def make(spheres=(), boxes=()) -> "AnalyticWorld":
@@ -88,8 +92,8 @@ class GridSDF:
 class CompositeWorld:
     """A static voxel grid plus an analytic overlay, min-composed (exact for
     unions). The overlay is the part that changes per control tick (MPC);
-    its leaves are shared by every candidate. A leading candidate axis on
-    the overlay (the JAX package's MPC form) is not ported yet."""
+    it may carry a leading row axis (one overlay per scenario) while the
+    grid stays shared."""
 
     grid: GridSDF
     overlay: AnalyticWorld
@@ -103,12 +107,27 @@ class CompositeWorld:
         return to_device(self, device)
 
 
-def check_shared_overlay(world: CompositeWorld) -> None:
-    """Refuse a per-candidate overlay (sphere_center [C, S, 3])."""
-    if world.overlay.sphere_center.dim() == 3:
-        raise NotImplementedError(
-            "CompositeWorld with a per-candidate overlay (the MPC form) is "
-            "not ported yet; it lands with the MPC slice")
+def world_rows(world) -> int | None:
+    """The leading row axis R of a world whose spheres and boxes (a
+    composite's overlay) come one set per row — sphere_center [R, S, 3] —
+    or None for a world shared by every point. Raises when the leaves
+    disagree."""
+    prims = world.overlay if isinstance(world, CompositeWorld) else world
+    if not isinstance(prims, AnalyticWorld) or prims.sphere_center.dim() == 2:
+        return None
+    R = prims.sphere_center.shape[0]
+    dims = (prims.sphere_center.dim(), prims.sphere_radius.dim(),
+            prims.box_center.dim(), prims.box_half.dim())
+    lead = {prims.sphere_center.shape[0], prims.sphere_radius.shape[0],
+            prims.box_center.shape[0], prims.box_half.shape[0]}
+    if dims != (3, 2, 3, 3) or lead != {R}:
+        shapes = [tuple(getattr(prims, f).shape)
+                  for f in AnalyticWorld.__dataclass_fields__]
+        raise ValueError(
+            "a world with a row axis needs sphere_center [R, S, 3], "
+            "sphere_radius [R, S], box_center and box_half [R, X, 3]; got "
+            f"{shapes}")
+    return R
 
 
 _BIG = 1e6
@@ -123,14 +142,28 @@ def safe_norm(x: torch.Tensor, dim=-1) -> torch.Tensor:
 
 
 def _analytic_sdf(world: AnalyticWorld, p: torch.Tensor) -> torch.Tensor:
-    """p: [..., 3] -> signed distance [...]."""
+    """p: [..., 3] -> signed distance [...]; p: [R, ..., 3] for a world
+    with R rows (row r's points against row r's primitives)."""
+    rows = world_rows(world)
+    if rows is not None and (p.dim() < 2 or p.shape[0] != rows):
+        raise ValueError(f"a world with {rows} rows takes points "
+                         f"[{rows}, ..., 3], got {tuple(p.shape)}")
+
+    def lift(x):
+        """Row leaves [R, n, ...] -> [R, 1, ..., 1, n, ...], broadcasting
+        against p's middle axes."""
+        if rows is None:
+            return x
+        return x.reshape(x.shape[:1] + (1,) * (p.dim() - 2) + x.shape[1:])
+
     d = torch.full(p.shape[:-1], _BIG, dtype=p.dtype, device=p.device)
-    if world.sphere_radius.shape[0]:
-        rel = p[..., None, :] - world.sphere_center           # [..., S, 3]
-        ds = safe_norm(rel) - world.sphere_radius
+    if world.sphere_radius.shape[-1]:
+        rel = p[..., None, :] - lift(world.sphere_center)     # [..., S, 3]
+        ds = safe_norm(rel) - lift(world.sphere_radius)
         d = torch.minimum(d, ds.amin(dim=-1))
-    if world.box_half.shape[0]:
-        q = torch.abs(p[..., None, :] - world.box_center) - world.box_half
+    if world.box_half.shape[-2]:
+        q = (torch.abs(p[..., None, :] - lift(world.box_center))
+             - lift(world.box_half))
         outside = safe_norm(torch.clamp(q, min=0.0))
         inside = torch.clamp(q.amax(dim=-1), max=0.0)
         d = torch.minimum(d, (outside + inside).amin(dim=-1))
@@ -182,13 +215,13 @@ def _grid_sample(world: GridSDF, p: torch.Tensor) -> torch.Tensor:
 
 
 def sdf(world, p: torch.Tensor) -> torch.Tensor:
-    """Signed distance at world points p [..., 3] (any world kind)."""
+    """Signed distance at world points p [..., 3] (any world kind); for a
+    world with R rows, p is [R, ..., 3]."""
     if isinstance(world, AnalyticWorld):
         return _analytic_sdf(world, p)
     if isinstance(world, GridSDF):
         return _grid_sample(world, p)
     if isinstance(world, CompositeWorld):
-        check_shared_overlay(world)
         return torch.minimum(_grid_sample(world.grid, p),
                              _analytic_sdf(world.overlay, p))
     raise NotImplementedError(
