@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Compare the port's evaluator kernels with another version of the package
+on one NVIDIA GPU.
+
+    git archive <commit> tpustomp_torch | tar -x -C _scratch/other
+    python3 chip_compare.py --against _scratch/other [--phases ...]
+
+DIR (--against) holds another ``tpustomp_torch``, for example the parent
+commit's, unpacked under the git-ignored ``_scratch/``; it builds its
+kernels into its own ``_build/``. Only each version's public surface is
+used: its ``csrc/*.cu`` sources, ``kernels/rollout.py``'s ``build`` and
+``obstacle_cost_batch``, and ``engine.mpc.run_mpc_batch``. Phases (all by
+default):
+
+  build     nvcc -Xptxas -v of both versions' csrc/*.cu for sm_90a:
+            registers, spill bytes and stack frame per kernel; the loops
+            of this tree's per-row kernels in their SASS (cuobjdump);
+  kernels   both versions' kernel wrappers loaded side by side (each with
+            its own kernels, both on this tree's other modules), on the
+            inputs of chip_smoke.py's kernel phases: the config-5 shape
+            (C = 210,000, T = 52: per-row worlds on uniform random and on
+            solver-like candidates, masked, :ee, the grid with and without
+            its packed corner table, the shared world of equal rows) and
+            the config-4 shape (C = 57,344, T = 102: K3, K4, K1, K5, K2,
+            composite, :ee). Median ms of 20 launches by CUDA events, in
+            the order other, this, this, other; each side's spread;
+            max |this - other|; one launch's registers, shared memory and
+            estimated occupancy from the profiler's CUDA activity record;
+  episodes  run_mpc_batch on config 5 (10,000 scenarios x 100 ticks, as
+            chip_smoke.py) over the box and the voxel tabletop, each
+            version in a process of its own (the package is picked by
+            sys.path), in the order other, this, this, other: replans/s,
+            collision and reached rates; then a torch.profiler window of 3
+            ticks after 30: the evaluator's ms per launch and share of the
+            device's kernel time.
+
+Imports nothing of JAX. Prints one JSON object per result, tagged
+``[compare:<phase>]``, and the card's name and power limit first and last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PHASES = ("build", "kernels", "episodes")
+# the package's own nvcc target (tpustomp_torch/kernels/rollout.py)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
+cs = None   # chip_smoke, imported once the package's root is on sys.path
+
+
+def say(phase, **kv):
+    print(f"[compare:{phase}] " + json.dumps(kv), flush=True)
+
+
+def cuda_tool(name):
+    found = shutil.which(name)
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", name)
+
+
+def demangle(names):
+    try:
+        out = subprocess.run([cuda_tool("cu++filt")], input="\n".join(names),
+                             capture_output=True, text=True, check=True)
+        return out.stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+
+
+def signature_name(demangled):
+    """A demangled kernel signature without its parameter list (template
+    arguments such as (int)1 stay)."""
+    name = demangled.replace("(anonymous namespace)", "<unnamed>")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            return name[:i]
+    return name
+
+
+def build_phase(label, pkg, tmp, loops_of=()):
+    """nvcc -Xptxas -v of every csrc/*.cu of the package at pkg into cubins
+    under tmp, all at once; prints registers, spills and stack per kernel,
+    and the SASS loops of the kernels whose name holds a string of
+    loops_of."""
+    csrc = os.path.join(pkg, "csrc")
+    procs = {}
+    for cu in sorted(f for f in os.listdir(csrc) if f.endswith(".cu")):
+        out = os.path.join(tmp, label + "_" + cu.replace(".cu", ".cubin"))
+        procs[out] = subprocess.Popen(
+            [cuda_tool("nvcc"), *ARCH, "-cubin", "-Xptxas", "-v", "-o", out,
+             os.path.join(csrc, cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for cubin, p in procs.items():
+        text, _ = p.communicate()
+        assert p.returncode == 0, text
+        kernels, fn = {}, None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = m.group(1)
+                kernels[fn] = {}
+            elif fn and "spill" in line:
+                kernels[fn].update(
+                    stack=int(re.search(r"(\d+) bytes stack frame", line)[1]),
+                    **{f"spill_{k}": int(v) for v, k in re.findall(
+                        r"(\d+) bytes spill (stores|loads)", line)})
+            elif fn and "Used" in line:
+                kernels[fn]["registers"] = int(
+                    re.search(r"Used (\d+) reg", line)[1])
+        for name, info in zip(demangle(kernels), kernels.values()):
+            say("build", version=label, kernel=signature_name(name), **info)
+        if loops_of:
+            sass_loops(cubin, loops_of)
+
+
+def sass_loops(cubin, loops_of):
+    """Backward branches of the kernels whose mangled name holds one of
+    loops_of: (loop start, branch address, instructions)."""
+    sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", cubin],
+                          capture_output=True, text=True, check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if not any(m in name for m in loops_of):
+            continue
+        ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)
+        loops = []
+        for a, text in ins:
+            tgt = re.search(r"BRA\s+(?:.*?)0x([0-9a-f]+)", text)
+            if tgt and int(tgt[1], 16) < int(a, 16):
+                loops.append((hex(int(tgt[1], 16)), hex(int(a, 16)),
+                              (int(a, 16) - int(tgt[1], 16)) // 16 + 1))
+        say("build", kernel=signature_name(demangle([name])[0]),
+            instructions=len(ins), loops=loops)
+
+
+def load_wrapper(pkg, name):
+    """kernels/rollout.py of the package at pkg as module `name`."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "kernels", "rollout.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def launch_info(fn):
+    """Registers, shared memory, block and estimated occupancy of the
+    rollout kernel fn() launches, from the profiler's CUDA activity
+    record (None where the record lacks them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    for e in events:
+        if e.get("cat") == "kernel" and "rollout_" in e.get("name", ""):
+            a = e.get("args", {})
+            return {k: a.get(k) for k in (
+                "registers per thread", "shared memory", "block",
+                "est. achieved occupancy %")}
+    return None
+
+
+class Bench:
+    """The inputs of chip_smoke.py's kernel and MPC phases, on the card."""
+
+    def __init__(self, dev):
+        import yaml
+
+        from tpustomp_torch.api.config import from_dict
+        from tpustomp_torch.engine.mpc import _tick_world_batch
+        from tpustomp_torch.robot.model import arm_7dof
+        from tpustomp_torch.world.sdf import CompositeWorld
+
+        def doc(name):
+            with open(os.path.join(ROOT, "configs", name)) as f:
+                return yaml.safe_load(f)
+
+        doc5, doc4 = doc("config5_mpc.yaml"), doc("config4_batch.yaml")
+        scene = doc("config2_tabletop.yaml")["scene"]
+        self.cfg5, self.spec5 = from_dict(doc5["planner"]), doc5["mpc"]
+        self.cfg4 = from_dict(doc4["planner"])
+        self.B4 = int(doc4["batch"]["scenarios_per_chip"])
+        self.robot = arm_7dof().to(dev)
+        self.world = cs.tabletop(scene).to(dev)
+        self.grid = cs.voxel_tabletop(scene).to(dev)
+        self.composite = CompositeWorld.make(
+            self.grid, spheres=[((0.35, 0.3, 0.55), 0.12)]).to(dev)
+        q0 = np.asarray(scene["q0"], np.float32)
+        qN = np.asarray(scene["qN"], np.float32)
+        self.B5 = int(self.spec5["scenarios"])
+        self.per5 = (1 + self.cfg5.num_rollouts
+                     + self.cfg5.noise.num_rollouts_reused)
+        self.states5 = cs.config5_states(self.robot, self.cfg5, self.B5, q0,
+                                         qN, float(self.spec5["obstacle_speed"]))
+        self.lo = self.robot.joint_lower.cpu().numpy()
+        self.hi = self.robot.joint_upper.cpu().numpy()
+        centers = self.states5.sphere_center.to(dev)
+        radius = torch.tensor([0.12], device=dev)
+        self.row_world = {
+            w: _tick_world_batch(centers, radius, s)
+            for w, s in (("box", self.world), ("voxel", self.grid),
+                         ("voxel_dense", cs.dense_twin(self.grid)))}
+        self.same_rows = _tick_world_batch(centers[:1].expand_as(centers),
+                                           radius, self.world)
+
+    def uniform(self, C, T, seed):
+        return torch.as_tensor(np.random.default_rng(seed).uniform(
+            self.lo, self.hi, (C, T, 7)).astype(np.float32),
+            device=self.robot.joint_axis.device)
+
+
+def kernel_cases(b):
+    """(label, robot, world, x, dt, clearance, kwargs) of the kernels
+    phase."""
+    dev = b.robot.joint_axis.device
+    cfg5, cfg4 = b.cfg5, b.cfg4
+    tm5 = b.uniform(b.B5 * b.per5, cfg5.num_timesteps + 2, 5).permute(
+        2, 1, 0).contiguous()
+    sm5 = cs.solver_like(b.robot, cfg5, b.states5, b.per5).permute(
+        2, 1, 0).contiguous()
+    C4 = b.B4 * (1 + cfg4.num_rollouts + cfg4.noise.num_rollouts_reused)
+    fulls4 = b.uniform(C4, cfg4.num_timesteps + 2, 0)
+    tm4 = fulls4.permute(2, 1, 0).contiguous()
+    k5 = dict(time_major=True, cands_per_row=b.per5)
+    c5 = (cfg5.dt, cfg5.collision_clearance)
+    c4 = (cfg4.dt, cfg4.collision_clearance)
+    tmk = dict(time_major=True)
+    unsorted = cs.shuffled(b.robot, 0)
+    pcw, pco = b.row_world["box"], b.row_world["voxel"]
+    return [
+        ("pcw random", b.robot, pcw, tm5, *c5, k5),
+        ("pcw solver_like", b.robot, pcw, sm5, *c5, k5),
+        ("pco random", b.robot, pco, tm5, *c5, k5),
+        ("pco solver_like", b.robot, pco, sm5, *c5, k5),
+        ("K3 config4", b.robot, b.world, tm4, *c4, tmk),
+        ("K5 config4", b.robot, b.grid, tm4, *c4, tmk),
+        ("pco dense_grid random", b.robot, b.row_world["voxel_dense"], tm5,
+         *c5, k5),
+        ("pco dense_grid solver_like", b.robot, b.row_world["voxel_dense"],
+         sm5, *c5, k5),
+        ("pcw masked_third", b.robot, pcw, tm5, *c5,
+         dict(k5, row_active=~cs.inactive_rows(tm5.shape[-1], dev))),
+        ("pcw every_row_equal", b.robot, b.same_rows, tm5, *c5, k5),
+        ("pcw shared_world", b.robot, cs.shared_row(b.same_rows), tm5, *c5,
+         tmk),
+        ("pcw:ee random", b.robot, pcw, tm5, *c5, dict(k5, want_ee=True)),
+        ("pco:ee random", b.robot, pco, tm5, *c5, dict(k5, want_ee=True)),
+        ("K4 config4 candidate_major", b.robot, b.world, fulls4, *c4, {}),
+        ("K1 config4 unsorted", unsorted, b.world, tm4, *c4, tmk),
+        ("K3 config4 masked_third", b.robot, b.world, tm4, *c4,
+         dict(tmk, row_active=~cs.inactive_rows(C4, dev))),
+        ("K5 config4 dense_grid", b.robot, cs.dense_twin(b.grid), tm4, *c4,
+         tmk),
+        ("K2 config4 unsorted", unsorted, b.grid, tm4, *c4, tmk),
+        ("K5 config4 composite", b.robot, b.composite, tm4, *c4, tmk),
+        ("K3:ee config4", b.robot, b.world, tm4, *c4,
+         dict(tmk, want_ee=True)),
+        ("K5:ee config4", b.robot, b.grid, tm4, *c4,
+         dict(tmk, want_ee=True)),
+    ]
+
+
+def kernels_phase(this, other, cases):
+    for label, robot, world, x, dt, clearance, kw in cases:
+        f_o, f_t = (lambda m=m: m.obstacle_cost_batch(robot, world, x, dt,
+                                                      clearance, **kw)
+                    for m in (other, this))
+        o1 = cs.cuda_time_ms(f_o, 20)
+        t1 = cs.cuda_time_ms(f_t, 20)
+        t2 = cs.cuda_time_ms(f_t, 20)
+        o2 = cs.cuda_time_ms(f_o, 20)
+        a, b = f_o(), f_t()
+        o_ms, t_ms = (o1 + o2) / 2, (t1 + t2) / 2
+        say("kernels", case=label, other_ms=[o1, o2], this_ms=[t1, t2],
+            speedup=o_ms / t_ms, other_spread_pct=100 * abs(o1 - o2) / o_ms,
+            this_spread_pct=100 * abs(t1 - t2) / t_ms,
+            max_abs_this_vs_other=max(float((u - v).abs().max())
+                                      for u, v in zip(a, b)),
+            bitwise_equal=all(torch.equal(u, v) for u, v in zip(a, b)),
+            this_launch=launch_info(f_t), other_launch=launch_info(f_o))
+
+
+def episode(b, static, ticks, state=None):
+    from tpustomp_torch.engine.mpc import run_mpc_batch
+
+    dev = b.robot.joint_axis.device
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_mpc_batch(b.robot, b.cfg5, b.states5 if state is None
+                        else state, [0.12], ticks,
+                        float(b.spec5["world_dt"]), static_world=static,
+                        device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def episodes_worker(label):
+    """One version's episodes and profile windows, in this process's
+    package."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import tpustomp_torch
+
+    b = Bench(torch.device("cuda"))
+    ticks = int(b.spec5["ticks"])
+    for world, static in (("box", b.world), ("voxel", b.grid)):
+        episode(b, static, 2)                       # build and warm up
+        out, wall = episode(b, static, ticks)
+        say("episodes", world=world, version=label, wall_s=wall,
+            replans_per_s=b.B5 * ticks / wall,
+            collision_rate=float(out.collided.float().mean()),
+            reached_rate=float((out.reached_tick >= 0).float().mean()),
+            package=os.path.dirname(tpustomp_torch.__file__))
+        mid, _ = episode(b, static, 30)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = episode(b, static, 3, mid)
+        busy = ev = 0.0
+        n_ev = n_k = 0
+        top = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            busy += us
+            n_k += e.count
+            top.append((us / 1e3, e.count, e.key[:60]))
+            if "rollout_" in e.key:
+                ev += us
+                n_ev += e.count
+        say("episodes", world=world, version=label, profiled_ticks=3,
+            wall_ms=1e3 * wall, device_kernel_ms=busy / 1e3,
+            idle_pct=100 * (1 - busy / 1e6 / wall), kernels=n_k,
+            evaluator_launches=n_ev,
+            evaluator_ms_per_launch=ev / 1e3 / max(n_ev, 1),
+            evaluator_pct_of_kernel_time=100 * ev / max(busy, 1e-9),
+            top_kernels_ms_count=sorted(top, reverse=True)[:6])
+
+
+def main():
+    global cs
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", required=True,
+                    help="directory holding the other tpustomp_torch")
+    ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--worker", choices=("this", "other"),
+                    help="run the episodes of one version in this process")
+    args = ap.parse_args()
+    roots = {"this": ROOT, "other": os.path.abspath(args.against)}
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_compare: needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.worker:
+        sys.path.insert(0, roots[args.worker])
+        import chip_smoke
+        cs = chip_smoke
+        episodes_worker(args.worker)
+        return
+    import chip_smoke
+    cs = chip_smoke
+    phases = args.phases.split(",")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip()
+    print(smi, flush=True)
+    if "build" in phases:
+        with tempfile.TemporaryDirectory() as tmp:
+            build_phase("other", os.path.join(roots["other"],
+                                              "tpustomp_torch"), tmp)
+            build_phase("this", os.path.join(ROOT, "tpustomp_torch"), tmp,
+                        loops_of=("RowPrims", "GridRowDist"))
+    if "kernels" in phases:
+        from tpustomp_torch.kernels import rollout as this
+
+        other = load_wrapper(os.path.join(roots["other"], "tpustomp_torch"),
+                             "rollout_other")
+        t0 = time.perf_counter()
+        this.build()
+        other.build()
+        say("kernels", build_seconds_both=time.perf_counter() - t0)
+        kernels_phase(this, other, kernel_cases(Bench(torch.device("cuda"))))
+        torch.cuda.empty_cache()
+    if "episodes" in phases:
+        for side in ("other", "this", "this", "other"):
+            subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--against", roots["other"], "--worker", side],
+                           check=True)
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()

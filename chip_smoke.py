@@ -18,7 +18,8 @@ and fails (non-zero exit, no result line) on any error:
   3g. rollout_grid against the plain version at the same shape on the
      config-2 tabletop voxelized by the port's signed EDT (64x80x48 at
      2.5 cm): all rows active and masked (K5 + tail), the grid plus an
-     overlay sphere (CompositeWorld), shuffled bodies (K2); times;
+     overlay sphere (CompositeWorld), shuffled bodies (K2), the packed
+     corner table against the dense grid (bitwise); times;
   3m. the per-row-world variants (rollout_analytic:per_cand_world,
      rollout_grid:per_cand_overlay) against the plain version at the
      config-5 shape (B = 10,000 scenarios x 21 candidates = 210,000
@@ -26,7 +27,11 @@ and fails (non-zero exit, no result line) on any error:
      tabletop boxes, and the voxel tabletop plus a per-row overlay sphere;
      all rows active, masked rows, the per-candidate form against the
      grouped one (bitwise), every row equal against the shared-world kernel
-     (bitwise); kernel and plain times;
+     (bitwise), the grid's packed corner table against its dense grid
+     (bitwise); kernel and plain times on uniform random waypoints, and
+     kernel times on solver-like candidates (the min-jerk plan between each
+     scenario's start and goal plus sigma L z at the config's sigma: the
+     grid gather's locality depends on smooth paths);
   4. plan_batch on BASELINE config 4 (configs/config4_batch.yaml, tabletop
      boxes, B = 1024, starts/goals jittered as the CLI does): the analytic
      kernel's launches over that run, success, and checks on every solved
@@ -64,8 +69,9 @@ and fails (non-zero exit, no result line) on any error:
 
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
-and plain ms, and the least time the card could take for the same work:
-bound_ms, bound_by); the last line is {"ok": true, "device": {...}}.
+and plain ms, the least time the card could take for the same work:
+bound_ms, bound_by; ms_smooth on solver-like candidates where measured);
+the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 
@@ -216,6 +222,35 @@ def inactive_rows(C, dev):
     return (blocks % 3 == 0) | ((blocks % 7 == 1) & (within < 64))
 
 
+def dense_twin(world):
+    """The same world with its grid's packed corner table dropped: the
+    grid kernel then reads the dense grid."""
+    from tpustomp_torch.world.sdf import CompositeWorld
+
+    if isinstance(world, CompositeWorld):
+        return dataclasses.replace(world, grid=dense_twin(world.grid))
+    assert world.packed is not None, "the grid has no packed table"
+    return dataclasses.replace(world, packed=None)
+
+
+def packed_vs_dense(label, rollout, robot, world, tm, dt, clearance,
+                    **kw):
+    """The grid kernel through the packed corner table against the dense
+    grid, on the same time-major input: bitwise equal (same corner values,
+    same arithmetic). Returns the dense route's ms."""
+    dense = dense_twin(world)
+    q_p, m_p = rollout.obstacle_cost_batch(robot, world, tm, dt, clearance,
+                                           time_major=True, **kw)
+    q_d, m_d = rollout.obstacle_cost_batch(robot, dense, tm, dt, clearance,
+                                           time_major=True, **kw)
+    same = bool(torch.equal(q_p, q_d) and torch.equal(m_p, m_d))
+    say(f"kernel_vs_kernel:{label}:packed_vs_dense", rows=tm.shape[-1],
+        bitwise_equal=same)
+    assert same
+    return cuda_time_ms(lambda: rollout.obstacle_cost_batch(
+        robot, dense, tm, dt, clearance, time_major=True, **kw), 20)
+
+
 def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi):
     """Phases 3 and 3g for one kernel: time-major with all rows active and
     masked, candidate-major (the analytic kernel only: K4) and shuffled
@@ -246,6 +281,9 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi):
                   unsorted_bodies_plain_ms=cuda_time_ms(
                       lambda: rollout.obstacle_cost_batch_plain(
                           unsorted, world, fulls, dt, clearance), 5))
+    if name == "rollout_grid":
+        timing["dense_grid_ms"] = packed_vs_dense(name, rollout, robot,
+                                                  world, tm, dt, clearance)
     if name == "rollout_analytic":
         err = max(err, check_kernel(f"{name}:candidate_major", rollout,
                                     robot, world, fulls, dt, clearance,
@@ -399,6 +437,31 @@ def config5_states(robot, cfg5, B, q0, qN, speed, seed=0):
     return init_mpc(robot, cfg5, Q0, QN, centers, vels)
 
 
+def solver_like(robot, cfg5, states, per, seed=5):
+    """Config-5 candidates as the solver draws them: each scenario's
+    min-jerk plan between its start and goal plus sigma L z (the config's
+    sigma, the sampling factor L, z from a seeded generator on the card),
+    clipped to the joint limits, with the endpoints: [B * per, N + 2, d]."""
+    from tpustomp_torch.dynamics.device import device_ops
+    from tpustomp_torch.engine.sampling import sample_noise_tm
+    from tpustomp_torch.engine.trajectory import full_trajectory, min_jerk_init
+
+    dev = robot.joint_axis.device
+    q0, qN = states.q.to(dev), states.qN.to(dev)
+    B, d = q0.shape
+    N = cfg5.num_timesteps
+    L = device_ops(N, cfg5.dt, cfg5.smoothness, dev).L_sample
+    z = torch.randn((d, B, per, N), generator=torch.Generator(
+        dev).manual_seed(seed), device=dev)
+    sigma = torch.full((B, d), cfg5.noise.stddev, device=dev)
+    eps = sample_noise_tm(z, L, sigma).permute(2, 3, 0, 1)   # [B, per, N, d]
+    theta = min_jerk_init(q0, qN, N)[:, None] + eps
+    theta = torch.where(robot.joint_limited, torch.clamp(
+        theta, robot.joint_lower, robot.joint_upper), theta)
+    ends = [x[:, None].expand(B, per, d) for x in (q0, qN)]
+    return full_trajectory(theta, *ends).reshape(B * per, N + 2, d)
+
+
 def shared_row(world):
     """Row 0 of a world with a row axis, as a world shared by every
     candidate."""
@@ -411,13 +474,15 @@ def shared_row(world):
             if isinstance(world, CompositeWorld) else row)
 
 
-def percand_phase(name, rollout, robot, static, centers, radius, fulls, per,
-                  dt, clearance, smi):
+def percand_phase(name, rollout, robot, static, centers, radius, fulls,
+                  smooth, per, dt, clearance, smi):
     """Phase 3m for one variant: the tick's world of config 5 (one row per
     scenario, `per` candidates each) against the plain version, all rows
-    active and masked; the per-candidate form (every candidate its own row)
-    and every row equal against the shared-world kernel, both bitwise;
-    kernel and plain times. Returns (max_err, ms, plain_ms)."""
+    active and masked, and on solver-like candidates (`smooth`); the
+    per-candidate form (every candidate its own row) and every row equal
+    against the shared-world kernel, both bitwise, and for the grid the
+    packed corner table against the dense grid; kernel and plain times.
+    Returns (max_err, ms, plain_ms, ms_smooth)."""
     from tpustomp_torch.engine.mpc import _tick_world_batch
 
     C = fulls.shape[0]
@@ -431,6 +496,8 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls, per,
                      clearance, active=~inactive_rows(C, fulls.device),
                      plain=plain, cands_per_row=per))
     del plain
+    err = max(err, check_kernel(f"{name}:solver_like", rollout, robot, world,
+                                smooth, dt, clearance, cands_per_row=per))
     tm = fulls.permute(2, 1, 0).contiguous()
 
     def run(w, per_row=None):
@@ -452,15 +519,23 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls, per,
         rows=C // per, bitwise_equal=vs_shared)
     assert contract and vs_shared
     kernel_ms = cuda_time_ms(lambda: run(world, per), 20)
+    tm_smooth = smooth.permute(2, 1, 0).contiguous()
     timing = dict(
         C=C, T=fulls.shape[1], cands_per_row=per, kernel_ms=kernel_ms,
+        kernel_ms_smooth=cuda_time_ms(lambda: rollout.obstacle_cost_batch(
+            robot, world, tm_smooth, dt, clearance, time_major=True,
+            cands_per_row=per), 20),
         shared_world_kernel_ms=cuda_time_ms(lambda: run(shared_row(same)),
                                             20),
         plain_ms=cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
             robot, world, fulls, dt, clearance, cands_per_row=per), 5))
+    if name.startswith("rollout_grid"):
+        timing["dense_grid_ms"] = packed_vs_dense(
+            name, rollout, robot, world, tm, dt, clearance,
+            cands_per_row=per)
     timing["speedup"] = timing["plain_ms"] / kernel_ms
     say(f"kernel_time:{name}", **timing, card=smi)
-    return err, kernel_ms, timing["plain_ms"]
+    return err, kernel_ms, timing["plain_ms"], timing["kernel_ms_smooth"]
 
 
 def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
@@ -773,6 +848,8 @@ def main():
                                    clearance, smi)
     err = check_kernel("rollout_grid:composite", rollout, robot, composite,
                        fulls, dt, clearance)
+    packed_vs_dense("rollout_grid:composite", rollout, robot, composite,
+                    fulls.permute(2, 1, 0).contiguous(), dt, clearance)
     e, k_ms, p_ms = table["rollout_grid"]
     table["rollout_grid"] = (max(e, err), k_ms, p_ms)
     # --- 7. the :ee forms at the config-4 shape -------------------------------
@@ -792,12 +869,15 @@ def main():
     fulls = torch.as_tensor(np.random.default_rng(5).uniform(
         lo, hi, (B5 * per5, cfg5.num_timesteps + 2, 7)).astype(np.float32),
         device=dev)
+    smooth = solver_like(robot, cfg5, states5, per5)
+    smooth_ms = {}
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
-        table[name] = percand_phase(
+        *table[name], smooth_ms[name] = percand_phase(
             name, rollout, robot, static, states5.sphere_center.to(dev),
-            torch.tensor([0.12], device=dev), fulls, per5, cfg5.dt,
+            torch.tensor([0.12], device=dev), fulls, smooth, per5, cfg5.dt,
             cfg5.collision_clearance, smi)
+    del smooth
     # --- 7. the :ee forms of the per-row variants at the config-5 shape ----
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
@@ -948,6 +1028,8 @@ def main():
             "bound_by": bound_by,
             "library_ms": None,   # no single PyTorch call computes FK→SDF→cost
         })
+        if name in smooth_ms:
+            rows[-1]["ms_smooth"] = smooth_ms[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

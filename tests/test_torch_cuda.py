@@ -2,9 +2,13 @@
 their per-row-world variants rollout_analytic:per_cand_world and
 rollout_grid:per_cand_overlay, and the ``:ee`` form of all four) against
 their plain PyTorch version (mirrors the kernel phases of chip_smoke.py),
-and the batched slice (STOMP, constrained STOMP, CHOMP, HMC) and batched
-MPC on CUDA against the CPU run under the same noise, over analytic and
-voxel worlds.
+including the edges of the skeleton's segment plan (waypoint counts around
+30 a warp, ragged candidate tiles, rows of 1/3/21 candidates, masked warps,
+shared and per-row worlds within and above the kernels' register budget),
+the grid's packed corner table against its dense grid (bitwise) and a
+planar 2-joint robot; and the batched slice
+(STOMP, constrained STOMP, CHOMP, HMC) and batched MPC on CUDA against the
+CPU run under the same noise, over analytic and voxel worlds.
 
 Imports no JAX, so it also runs where only the port is installed:
 
@@ -400,6 +404,42 @@ def test_row_world_kernels_equal_shared_bitwise(cuda_device, kind):
         assert torch.equal(q, q_s) and torch.equal(m, m_s)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic", "composite"])
+def test_worlds_above_the_register_budget(cuda_device, kind):
+    """3 spheres and 3 boxes (30 floats), more than either kernel holds in
+    registers: the instantiation that reads them from memory, shared and
+    per-row, against the plain version, and every row equal to the shared
+    world bit for bit."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    C, T, per = 2100, 52, 21
+    rng = np.random.default_rng(11)
+    over = AnalyticWorld.make(
+        spheres=[(tuple(rng.uniform(-0.8, 0.8, 3)), rng.uniform(0.05, 0.3))
+                 for _ in range(3)],
+        boxes=[(tuple(rng.uniform(-0.8, 0.8, 3)),
+                tuple(rng.uniform(0.05, 0.4, 3))) for _ in range(3)])
+    rows = AnalyticWorld(**{
+        f: getattr(over, f).expand((C // per,) + getattr(over, f).shape)
+        for f in AnalyticWorld.__dataclass_fields__})
+    if kind == "composite":
+        grid = _voxel_world("grid")
+        over, rows = CompositeWorld(grid, over), CompositeWorld(grid, rows)
+    cand = _cands(robot, C, T, 12, cuda_device).permute(2, 1, 0).contiguous()
+    got = []
+    for world, kw in ((over, {}), (rows, dict(cands_per_row=per))):
+        world = world.to(cuda_device)
+        q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 0.06, 0.05,
+                                          time_major=True, **kw)
+        q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.06,
+                                                0.05, time_major=True, **kw)
+        torch.testing.assert_close(q_k, q_p, **Q_TOL)
+        torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+        got.append((q_k, m_k))
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+
+
 _EE_WORLDS = {"rollout_analytic": "analytic",
               "rollout_analytic:per_cand_world": "analytic",
               "rollout_grid": "composite",
@@ -580,3 +620,113 @@ def test_run_mpc_batch_refuses_xla_backend_on_cuda(cuda_device):
     with pytest.raises(ValueError, match="xla"):
         tmpc.run_mpc_batch(robot, cfg, state, [0.1], 1, 0.1,
                            device=cuda_device)
+
+
+def _edge_world(kind, R, seed):
+    """The world kinds the skeleton instantiates differently: per-row
+    worlds (1 sphere + 2 boxes analytic, 1 sphere over the voxel grid),
+    and shared worlds (the tabletop boxes, the voxel grid)."""
+    if kind == "analytic_rows":
+        return _row_world("analytic", R, seed, ns=1, nx=2)
+    if kind == "composite_rows":
+        return _row_world("composite", R, seed, ns=1)
+    if kind == "analytic_shared":
+        return AnalyticWorld.make(**_WORLDS["boxes"])
+    return _voxel_world("grid")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic_rows", "composite_rows",
+                                  "analytic_shared", "grid_shared"])
+@pytest.mark.parametrize("T", [2, 3, 17, 31, 32, 33, 52, 102])
+def test_segment_edges_match_plain(cuda_device, kind, T):
+    """Waypoint counts around the segment edges (30 owned waypoints per
+    warp) with a ragged candidate tile (C = 273, not a multiple of the 8
+    candidates a block takes): q_obs, margin and ee against the plain
+    version; masked warps (every third scenario and single candidates)
+    write zeros and leave the other rows bit for bit unchanged."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    C, per = 273, 21
+    rows = kind.endswith("_rows")
+    world = _edge_world(kind, C // per, T).to(cuda_device)
+    per = per if rows else None
+    cand = _cands(robot, C, T, T, cuda_device)
+    dt = 5.0 / max(T - 1, 1)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, dt, 0.05,
+                                      cands_per_row=per)
+    q_p, m_p, ee_p = tr.obstacle_cost_batch_plain(
+        robot, world, cand, dt, 0.05, cands_per_row=per, want_ee=True)
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[(torch.arange(C, device=cuda_device) // 21) % 3 == 1] = False
+    active[[0, 8, 100, 272]] = False
+    q_a, m_a, ee = tr.obstacle_cost_batch(
+        robot, world, cand.permute(2, 1, 0).contiguous(), dt, 0.05,
+        row_active=active, time_major=True, cands_per_row=per, want_ee=True)
+    assert torch.equal(q_a[active], q_k[active])
+    assert torch.equal(m_a[active], m_k[active])
+    assert bool((q_a[~active] == 0).all()) and bool((m_a[~active] == 0).all())
+    torch.testing.assert_close(ee[:, :, active], ee_p[:, :, active],
+                               rtol=1e-5, atol=2e-5)
+    assert bool((ee[:, :, ~active] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic", "composite"])
+@pytest.mark.parametrize("per", [1, 3, 21])
+def test_cands_per_row_match_plain(cuda_device, kind, per):
+    """Rows of 1, 3 and 21 candidates (a warp's row is its candidate's;
+    rows straddle the 8-candidate blocks) against the plain version."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    C, T = 273, 52
+    world = _row_world(kind, C // per, per, ns=1, nx=2).to(cuda_device)
+    cand = _cands(robot, C, T, per, cuda_device)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 0.06, 0.05,
+                                      cands_per_row=per)
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.06, 0.05,
+                                            cands_per_row=per)
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["grid", "composite", "composite_rows"])
+def test_packed_table_equals_dense_grid(cuda_device, kind):
+    """The grid kernel through the packed corner table and through the
+    dense grid (pack=False): the same corner values and arithmetic, so
+    q_obs, margin and ee agree bit for bit."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    C, T, per = 2100, 52, None
+    if kind == "composite_rows":
+        world, per = _row_world("composite", C // 21, 4, ns=1), 21
+    else:
+        world = _voxel_world(kind)
+    grid = world if kind == "grid" else world.grid
+    assert grid.packed is not None
+    dense_grid = dataclasses.replace(grid, packed=None)
+    dense = (dense_grid if kind == "grid"
+             else dataclasses.replace(world, grid=dense_grid))
+    tm = _cands(robot, C, T, 6, cuda_device).permute(2, 1, 0).contiguous()
+    got = [tr.obstacle_cost_batch(robot, w.to(cuda_device), tm, 0.06, 0.05,
+                                  time_major=True, cands_per_row=per,
+                                  want_ee=True) for w in (world, dense)]
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic", "grid"])
+def test_planar_2r_matches_plain(cuda_device, kind):
+    """A 2-joint robot (one body per link, no fixed rotations) through
+    both kernels."""
+    robot = tmodel.planar_2r(bodies_per_link=3).to(cuda_device)
+    world = (AnalyticWorld.make(spheres=[((1.0, 0.8, 0.0), 0.3)],
+                                boxes=[((-0.5, -1.0, 0.0),
+                                        (0.4, 0.3, 0.5))])
+             if kind == "analytic" else _voxel_world("grid")).to(cuda_device)
+    cand = _cands(robot, 999, 40, 2, cuda_device)
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 0.05, 0.05)
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.05, 0.05)
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)

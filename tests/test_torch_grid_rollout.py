@@ -196,6 +196,37 @@ def test_wrapper_refuses_unsupported_grids():
         tr.obstacle_cost_batch(robot, object(), cand, 0.05, 0.05)
 
 
+def test_packed_table_as_the_grid_kernel_reads_it():
+    """The packed corner table the grid kernel reads as two float4 per
+    sample: row base holds c000 c001 c010 c011 | c100 c101 c110 c111 of the
+    dense grid (dz fastest), equal to the JAX package's table; 32-byte
+    aligned rows (a misaligned view is copied); None for pack=False (the
+    kernel then reads the dense grid); a misshapen table is refused."""
+    g = np.random.default_rng(4).normal(size=(5, 6, 4)).astype(np.float32)
+    grid = tsdf.GridSDF.make(g, (0.1, -0.2, 0.0), 0.05)
+    dense = grid.grid.contiguous()
+    table = tr._packed_table(grid, dense)
+    assert table.dtype == torch.float32 and table.shape == (120, 8)
+    assert table.is_contiguous() and table.data_ptr() % 32 == 0
+    np.testing.assert_array_equal(
+        table.numpy(), np.asarray(jsdf.GridSDF.make(
+            jnp.asarray(g), jnp.zeros(3), 0.05).packed))
+    x, y, z = 2, 3, 1
+    corners = [g[x + dx, y + dy, z + dz]
+               for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+    np.testing.assert_array_equal(table[(x * 6 + y) * 4 + z].numpy(),
+                                  corners)
+    flat = torch.empty(120 * 8 + 1)[1:].view(120, 8)
+    flat.copy_(grid.packed)
+    moved = tr._packed_table(dataclasses.replace(grid, packed=flat), dense)
+    assert moved.data_ptr() % 32 == 0 and torch.equal(moved, grid.packed)
+    assert tr._packed_table(dataclasses.replace(grid, packed=None),
+                            dense) is None
+    with pytest.raises(ValueError, match=r"\[120, 8\]"):
+        tr._packed_table(dataclasses.replace(grid, packed=grid.packed[:-1]),
+                         dense)
+
+
 def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
     """Each kernel library's name hashes its .cu and every csrc header it
     includes: an edited header gets a new build."""

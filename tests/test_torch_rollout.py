@@ -153,8 +153,12 @@ def test_pack_params_layout(world_name):
 
 
 def test_t_chunk_covers_trajectory():
+    """The segment plan that replaced the per-thread waypoint chunks covers
+    the trajectory, whatever the batch: n_seg segments of seg_len owned
+    waypoints, the last one reaching T, each fitting a warp with its halo."""
     for C in (1, 56, 1000, 57344):
         for T in (2, 17, 102):
-            tc = tr._t_chunk(C, T)
-            n = -(-T // tc)
-            assert 1 <= tc <= T and (n - 1) * tc < T <= n * tc
+            seg_len, n = tr._segments(T)
+            assert 1 <= seg_len <= min(T, tr._SEG_MAX)
+            assert (n - 1) * seg_len < T <= n * seg_len
+            assert seg_len + 2 <= tr._WARP

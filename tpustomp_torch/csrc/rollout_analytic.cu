@@ -23,40 +23,28 @@
 // (C = 57,344 candidates, T = 102, d = 7, 12 bodies, 2 boxes) one launch reads
 // 164 MB of trajectories and writes 23 MB of cost rows, while each
 // (candidate, waypoint) costs ~70 flops per joint of frame algebra plus a
-// sincos, and ~40 flops per body and box of SDF. The design therefore keeps
-// every intermediate on chip and does each FK exactly once (plus a 2-waypoint
-// halo per chunk); the primitives are read from shared memory as
-// warp-uniform broadcasts.
+// sincos, and ~40 flops per body and box of SDF: a serial chain per
+// waypoint. The skeleton therefore does each FK once (plus a 1-waypoint
+// halo per segment of 30), keeps every intermediate in registers, and
+// spends no shared memory per thread, so registers alone set how many warps
+// hide that chain's latency.
 //
 // Per-row worlds (config 5: 10,000 scenarios x 21 candidates, one moving
-// sphere plus the 2 tabletop boxes per scenario, 16 floats per row): a
-// 64-thread block spans the candidates of ~4 scenarios, so a warp reads 2-3
-// distinct rows. Staging them in shared memory would buy little: the rows a
-// block touches are a few hundred bytes, read ns + nx times per body and
-// waypoint from L1 through __ldg (the same addresses across most of a warp,
-// so mostly broadcasts), while the FK arithmetic above still bounds the
-// kernel. The per-row world costs one more 4-byte load per primitive term
-// than the shared one, and no extra pass.
+// sphere plus the 2 tabletop boxes per scenario, 16 floats per row): a warp
+// evaluates one candidate, so its row is warp-uniform; a row within the
+// register budget below is loaded once into registers instead of once per
+// body and waypoint, and an inactive scenario's warps leave at once.
 
 #include "rollout_common.cuh"
 
 namespace {
 
-struct AnalyticDist {
-  int ns, nx;
-  __device__ __forceinline__ rollout::Prims<rollout::SharedLoad> at(
-      const float* W, int) const {
-    return rollout::shared_prims(W, ns, nx);
-  }
-};
-
-struct AnalyticRowDist {
-  rollout::RowPrims rows;
-  __device__ __forceinline__ rollout::Prims<rollout::ReadOnlyLoad> at(
-      const float*, int c) const {
-    return rows.at(c);
-  }
-};
+// The primitives a warp holds in registers: up to 16 floats (4 a sphere, 6
+// a box) keep every instantiation within 64 registers a thread (ptxas), so
+// 4 blocks of 256 threads stay resident per SM; 2 spheres and 2 boxes (20
+// floats) take 68 registers and 3 blocks. Larger worlds are read from
+// memory at every use.
+constexpr int kRegisterFloats = 16;
 
 template <class World>
 __global__ void __launch_bounds__(rollout::kBlock) rollout_analytic_kernel(
@@ -64,45 +52,50 @@ __global__ void __launch_bounds__(rollout::kBlock) rollout_analytic_kernel(
     const float* __restrict__ params, int n_params,
     const uint8_t* __restrict__ active, float* __restrict__ q_obs,
     float* __restrict__ margin_part, float* __restrict__ ee, int C, int T,
-    int d, int nb, float dt, float clearance, int skip_rotf, int t_chunk) {
+    int d, int nb, float dt, float clearance, int skip_rotf, int seg_len) {
   rollout::evaluate(world, cand, params, n_params, active, q_obs, margin_part,
-                    ee, C, T, d, nb, dt, clearance, skip_rotf, t_chunk);
+                    ee, C, T, d, nb, dt, clearance, skip_rotf, seg_len);
 }
 
 template <class World>
 int launch(const World& world, const float* cand, const float* params,
            int n_params, const uint8_t* active, float* q_obs,
            float* margin_part, float* ee, int C, int T, int d, int nb,
-           float dt, float clearance, int skip_rotf, int t_chunk,
+           float dt, float clearance, int skip_rotf, int seg_len,
            void* stream) {
   if (C <= 0) return 0;
-  const int n_chunks = (T + t_chunk - 1) / t_chunk;
-  const size_t smem = rollout::smem_bytes(n_params, nb);
-  const int err = rollout::allow_smem(rollout_analytic_kernel<World>, smem);
+  const size_t smem =
+      rollout::smem_floats(n_params, d, ee != nullptr) * sizeof(float);
+  const int err =
+      rollout::prepare(rollout_analytic_kernel<World>, smem, seg_len);
   if (err != 0) return err;
-  dim3 grid((C + rollout::kBlock - 1) / rollout::kBlock, n_chunks);
+  dim3 grid((C + rollout::kCands - 1) / rollout::kCands,
+            (T + seg_len - 1) / seg_len);
   rollout_analytic_kernel<World><<<grid, rollout::kBlock, smem,
                                    (cudaStream_t)stream>>>(
       world, cand, params, n_params, active, q_obs, margin_part, ee, C, T, d,
-      nb, dt, clearance, skip_rotf, t_chunk);
+      nb, dt, clearance, skip_rotf, seg_len);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Every entry point ends with the same tail: active (or null), q_obs,
-// margin_part, ee ([12, T, C], or null: no frame output), then the shapes
-// and scalars.
+// margin_part ([segments, C]), ee ([12, T, C], or null: no frame output),
+// then the shapes, the scalars and the segment length.
 
 // A world shared by every candidate: its primitives are in params.
 extern "C" int rollout_analytic_launch(
     const float* cand, const float* params, int n_params,
     const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
     int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int t_chunk, void* stream) {
-  return launch(AnalyticDist{ns, nx}, cand, params, n_params, active, q_obs,
-                margin_part, ee, C, T, d, nb, dt, clearance, skip_rotf,
-                t_chunk, stream);
+    int skip_rotf, int seg_len, void* stream) {
+  return rollout::with_register_counts<kRegisterFloats>(ns, nx, [&](auto k) {
+    using K = decltype(k);
+    return launch(rollout::SharedPrims<K::ns, K::nx>{ns, nx}, cand, params,
+                  n_params, active, q_obs, margin_part, ee, C, T, d, nb, dt,
+                  clearance, skip_rotf, seg_len, stream);
+  });
 }
 
 // Per-row worlds: spheres [C / cands_per_row, ns, 4], boxes [.., nx, 6];
@@ -112,9 +105,12 @@ extern "C" int rollout_analytic_rows_launch(
     const float* spheres, const float* boxes, int cands_per_row,
     const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
     int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int t_chunk, void* stream) {
-  const rollout::RowPrims rows{spheres, boxes, ns, nx, cands_per_row};
-  return launch(AnalyticRowDist{rows}, cand, params, n_params, active, q_obs,
-                margin_part, ee, C, T, d, nb, dt, clearance, skip_rotf,
-                t_chunk, stream);
+    int skip_rotf, int seg_len, void* stream) {
+  return rollout::with_register_counts<kRegisterFloats>(ns, nx, [&](auto k) {
+    using K = decltype(k);
+    return launch(rollout::RowPrims<K::ns, K::nx>{spheres, boxes, ns, nx,
+                                                  cands_per_row},
+                  cand, params, n_params, active, q_obs, margin_part, ee, C,
+                  T, d, nb, dt, clearance, skip_rotf, seg_len, stream);
+  });
 }

@@ -9,7 +9,7 @@
 // potential of (dist - radius - clearance) times the body's workspace speed
 // (central difference over t, one-sided at both ends), and writes
 //     q_obs[t, c]            = dt * sum_b potential_b(t) * speed_b(t)
-//     margin_part[chunk, c]  = min over b and this chunk's t of dist_b - radius_b
+//     margin_part[seg, c]    = min over b and this segment's t of dist_b - radius_b
 // and, when the caller passes an ee buffer (the TPU kernel's ee_out), the
 // last joint's frame per waypoint, 12 planes of [T, C]:
 //     ee[k, t, c]  k = 0..2 position, k = 3..11 rotation (row-major)
@@ -18,32 +18,44 @@
 // math); nvcc's default FMA contraction moves results by about 1 ULP per
 // composed joint.
 //
-// Layout and work split (what each kernel's header says bounds it is its
-// own):
-//   * One thread walks one candidate over a chunk of waypoints. Its frame
-//     (R, p) lives in registers; each link's bodies are placed while the
-//     frame is live.
-//   * The time coupling (speed at t needs positions at t-1 and t+1) is a
-//     3-slot sliding window of body positions in shared memory, laid out
-//     [slot][body][xyz][thread] so a warp's accesses are bank-conflict free.
-//   * The waypoint axis is cut into chunks (grid.y) so small batches still
-//     fill the 132 SMs; each chunk recomputes the FK of its 1-waypoint halo
-//     on either side. Per-chunk margins are min-reduced by the wrapper.
-//   * Inputs are time-major [d, T, C] and cost rows [T, C]: consecutive
-//     threads touch consecutive candidates, so loads and stores coalesce.
-//   * Robot and world parameters (a few hundred floats) are staged once per
-//     block in shared memory and read as warp-uniform broadcasts.
-//   * Per-row worlds (one set of spheres/boxes per scenario, batched MPC)
-//     cannot be staged that way: their primitives stay in global memory as
-//     [rows, ns, 4] and [rows, nx, 6], and candidate c reads row
-//     c / cands_per_row through the read-only path (RowPrims below). The
-//     same primitives_dist does the arithmetic for both.
-//   * Inactive rows (finished scenarios) write zeros and skip all work.
-//   * The end-effector frame (ee) is the (R, p) in registers after the
-//     joint loop of fk_bodies, before ee_offset (the position constraint
-//     applies it). Only waypoints a chunk owns write it (not the FK halo).
-//     It adds 48 bytes of coalesced stores per (candidate, waypoint) and no
-//     arithmetic: q_obs and margin are the same with or without it.
+// Work split. Each (candidate, waypoint) is a serial chain of d frame
+// products and nb distances, so the card is kept busy by many resident
+// warps, and what limits residency is registers, not shared memory:
+//   * One warp walks one candidate along the waypoint axis. The axis is cut
+//     into segments of seg_len <= kSegMax owned waypoints (the wrapper's
+//     segment plan, grid.y). Lane l computes the FK of waypoint
+//     t0 - 1 + l: lanes 1..seg_len own their waypoint, lane 0 and lane
+//     seg_len + 1 are the 1-waypoint halo on either side (their FK is
+//     recomputed by the neighbouring segment). Lanes past the halo repeat
+//     its last waypoint and write nothing.
+//   * Bodies are placed one at a time while the frame is live; the
+//     neighbours' positions at t - 1 and t + 1 come from the adjacent lanes
+//     (__shfl_up_sync / __shfl_down_sync). Speed, distance, potential and
+//     the sum over bodies (b = 0..nb-1, as the plain version) stay in the
+//     owning lane. The segment's margin is a warp min-reduction.
+//   * A block is kCands warps: kCands candidates (32 bytes per joint and
+//     waypoint) by one segment. The [d, T, C] tile comes into shared memory
+//     with coalesced loads and is read transposed (row pitch kPitch: no bank
+//     conflicts); q_obs, ee and margins go out through the same kind of
+//     staging, so every 32-byte sector is read and written whole.
+//   * Robot parameters (a few hundred floats) are staged once per block in
+//     shared memory and read as warp-uniform broadcasts.
+//   * A warp's candidate has one world. A world whose spheres and boxes
+//     fit the kernel's register budget (with_register_counts; each kernel
+//     file sets its budget in floats) runs with its counts compiled in and
+//     its primitives in registers, loaded once per warp as warp-uniform
+//     broadcasts: from the
+//     staged parameters for a shared world, from the row c / cands_per_row
+//     of [rows, ns, 4] / [rows, nx, 6] for per-row worlds. A larger world
+//     reads them through the same pointers at every use. Shared and
+//     per-row worlds of the same counts take the same instantiation and run
+//     the same code (primitives_dist), so they agree bit for bit.
+//   * A warp whose candidate is inactive (a finished scenario) writes zeros
+//     and does no other work; no lane waits on another candidate.
+//   * ee is the (R, p) in registers after the joint loop, before ee_offset
+//     (the position constraint applies it): 48 bytes of stores per
+//     (candidate, waypoint) and no arithmetic, so q_obs and margin are the
+//     same with or without it.
 // Joint type and axis are read at run time; bodies must be link-sorted (the
 // wrapper sorts robots that are not, on the device).
 //
@@ -67,97 +79,21 @@
 
 namespace rollout {
 
-constexpr int kBlock = 64;          // threads (candidates) per block
-constexpr float kBig = 1e6f;        // empty-set distance, as the reference
+constexpr int kWarp = 32;              // lanes: one waypoint each
+constexpr int kCands = 8;              // candidates per block, one warp each
+constexpr int kBlock = kWarp * kCands;
+constexpr int kPitch = kCands + 1;     // staging row pitch (odd: no conflicts)
+constexpr int kSegMax = kWarp - 2;     // owned waypoints: a halo lane each side
+constexpr int kAny = -1;               // a primitive count known at run time
+constexpr float kBig = 1e6f;           // empty-set distance, as the reference
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void place_bodies(
-    const float* P, int b_lo, int b_hi, int body_base, const float R[9],
-    const float p[3], float* win_slot) {
-  // win_slot points at [slot][0][0][tid]; stride between scalars is kBlock
-  for (int b = b_lo; b < b_hi; ++b) {
-    const float* B = P + body_base + 4 * b;
-    const float o0 = B[0], o1 = B[1], o2 = B[2];
-    float* w = win_slot + (b * 3) * kBlock;
-    w[0] = p[0] + R[0] * o0 + R[1] * o1 + R[2] * o2;
-    w[kBlock] = p[1] + R[3] * o0 + R[4] * o1 + R[5] * o2;
-    w[2 * kBlock] = p[2] + R[6] * o0 + R[7] * o1 + R[8] * o2;
-  }
-}
-
-// Forward kinematics of candidate c at waypoint t; writes every body's
-// world position into the window slot and, if ee is not null, the last
-// joint's frame to ee[k * plane] (k = 0..11; plane = T * C).
-__device__ __forceinline__ void fk_bodies(
-    const float* P, const float* __restrict__ cand, int c, int t, int C,
-    int T, int d, int skip_rotf, float* win_slot, float* ee, size_t plane) {
-  float R[9], p[3];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) R[k] = P[k];
-  p[0] = P[9]; p[1] = P[10]; p[2] = P[11];
-  const int body_start = 12 + 16 * d;
-  const int body_base = body_start + d + 1;
-  for (int j = 0; j < d; ++j) {
-    const float* J = P + 12 + 16 * j;
-    const float o0 = J[4], o1 = J[5], o2 = J[6];
-    p[0] = p[0] + R[0] * o0 + R[1] * o1 + R[2] * o2;
-    p[1] = p[1] + R[3] * o0 + R[4] * o1 + R[5] * o2;
-    p[2] = p[2] + R[6] * o0 + R[7] * o1 + R[8] * o2;
-    if (!skip_rotf) {
-      float Rn[9];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          Rn[3 * i + k] = R[3 * i] * J[7 + k] + R[3 * i + 1] * J[10 + k]
-                          + R[3 * i + 2] * J[13 + k];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-    }
-    const float x = J[1], y = J[2], z = J[3];
-    const float q = cand[((size_t)j * T + t) * C + c];
-    if (J[0] != 0.0f) {
-      // prismatic: translate along the world-frame axis, rotation unchanged
-      const float aw0 = R[0] * x + R[1] * y + R[2] * z;
-      const float aw1 = R[3] * x + R[4] * y + R[5] * z;
-      const float aw2 = R[6] * x + R[7] * y + R[8] * z;
-      p[0] = p[0] + aw0 * q;
-      p[1] = p[1] + aw1 * q;
-      p[2] = p[2] + aw2 * q;
-    } else {
-      // revolute: R <- R @ rodrigues(axis, q)
-      float s, co;
-      sincosf(q, &s, &co);
-      const float oc = 1.0f - co;
-      const float G[9] = {co + x * x * oc,     x * y * oc - z * s, x * z * oc + y * s,
-                          y * x * oc + z * s,  co + y * y * oc,    y * z * oc - x * s,
-                          z * x * oc - y * s,  z * y * oc + x * s, co + z * z * oc};
-      float Rn[9];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int k = 0; k < 3; ++k)
-          Rn[3 * i + k] = R[3 * i] * G[k] + R[3 * i + 1] * G[3 + k]
-                          + R[3 * i + 2] * G[6 + k];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-    }
-    place_bodies(P, (int)P[body_start + j], (int)P[body_start + j + 1],
-                 body_base, R, p, win_slot);
-  }
-  if (ee != nullptr) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) ee[k * plane] = p[k];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) ee[(3 + k) * plane] = R[k];
-  }
-}
-
-struct SharedLoad {
+struct Deref {                         // registers or shared memory
   __device__ __forceinline__ float operator()(const float* p) const {
     return *p;
   }
 };
-struct ReadOnlyLoad {   // global memory through the read-only (L1) path
+struct ReadOnly {                      // global memory through the L1 path
   __device__ __forceinline__ float operator()(const float* p) const {
     return __ldg(p);
   }
@@ -165,18 +101,24 @@ struct ReadOnlyLoad {   // global memory through the read-only (L1) path
 
 // Min signed distance to ns spheres (S: 4 floats each, center[3] and
 // radius) and nx boxes (X: 6 floats each, center[3] and half[3]); kBig
-// when there are none. Load says how S and X are read; the arithmetic is
-// the same for shared and per-row worlds.
-template <class Load>
+// when there are none. NS and NX are the counts at compile time (the loops
+// unroll, so S and X may be register arrays) or kAny (the run-time ns, nx);
+// Load says how S and X are read. The arithmetic is the same for every
+// instantiation and every kind of world.
+template <int NS, int NX, class Load>
 __device__ __forceinline__ float primitives_dist(
     Load ld, const float* S, int ns, const float* X, int nx, float x0,
     float x1, float x2) {
+  if (NS != kAny) ns = NS;
+  if (NX != kAny) nx = NX;
   float dist = kBig;
+#pragma unroll
   for (int s = 0; s < ns; ++s) {
     const float* P = S + 4 * s;
     const float r0 = x0 - ld(P), r1 = x1 - ld(P + 1), r2 = x2 - ld(P + 2);
     dist = fminf(dist, sqrtf(r0 * r0 + r1 * r1 + r2 * r2) - ld(P + 3));
   }
+#pragma unroll
   for (int k = 0; k < nx; ++k) {
     const float* B = X + 6 * k;
     const float q0 = fabsf(x0 - ld(B)) - ld(B + 3);
@@ -191,41 +133,100 @@ __device__ __forceinline__ float primitives_dist(
   return dist;
 }
 
-// One thread's view of a primitive set: a callable distance.
-template <class Load>
+// One warp's primitive set, a callable distance. Counts known at compile
+// time: the primitives are copied into registers once, through Load.
+template <int NS, int NX, class Load>
 struct Prims {
+  float s[NS > 0 ? 4 * NS : 1], x[NX > 0 ? 6 * NX : 1];
+  __device__ __forceinline__ Prims(const float* S, int, const float* X,
+                                   int) {
+    const Load ld{};
+#pragma unroll
+    for (int i = 0; i < 4 * NS; ++i) s[i] = ld(S + i);
+#pragma unroll
+    for (int i = 0; i < 6 * NX; ++i) x[i] = ld(X + i);
+  }
+  __device__ __forceinline__ float operator()(float x0, float x1,
+                                              float x2) const {
+    return primitives_dist<NS, NX>(Deref{}, s, NS, x, NX, x0, x1, x2);
+  }
+};
+
+// A world above the register budget: read through Load at every use.
+template <class Load>
+struct Prims<kAny, kAny, Load> {
   const float* S;
   int ns;
   const float* X;
   int nx;
+  __device__ __forceinline__ Prims(const float* S_, int ns_, const float* X_,
+                                   int nx_)
+      : S(S_), ns(ns_), X(X_), nx(nx_) {}
   __device__ __forceinline__ float operator()(float x0, float x1,
                                               float x2) const {
-    return primitives_dist(Load{}, S, ns, X, nx, x0, x1, x2);
+    return primitives_dist<kAny, kAny>(Load{}, S, ns, X, nx, x0, x1, x2);
   }
 };
 
 // The shared primitive set in the world section W of the staged parameters.
-__device__ __forceinline__ Prims<SharedLoad> shared_prims(const float* W,
-                                                          int ns, int nx) {
-  return Prims<SharedLoad>{W, ns, W + 4 * ns, nx};
-}
+template <int NS, int NX>
+struct SharedPrims {
+  int ns, nx;
+  __device__ __forceinline__ Prims<NS, NX, Deref> at(const float* W,
+                                                     int) const {
+    return Prims<NS, NX, Deref>(W, ns, W + 4 * ns, nx);
+  }
+};
 
 // Per-row primitive sets in global memory: spheres [rows, ns, 4], boxes
 // [rows, nx, 6]; candidate c reads row c / per_row.
+template <int NS, int NX>
 struct RowPrims {
   const float* spheres;
   const float* boxes;
   int ns, nx, per_row;
-  __device__ __forceinline__ Prims<ReadOnlyLoad> at(int c) const {
+  __device__ __forceinline__ Prims<NS, NX, ReadOnly> at(const float*,
+                                                        int c) const {
     const size_t r = (size_t)(c / per_row);
-    return Prims<ReadOnlyLoad>{spheres + r * 4 * ns, ns, boxes + r * 6 * nx,
-                               nx};
+    return Prims<NS, NX, ReadOnly>(spheres + r * 4 * ns, ns,
+                                   boxes + r * 6 * nx, nx);
   }
 };
 
-// The kernel body. World is a policy with
+template <int NS, int NX>
+struct Counts {
+  static constexpr int ns = NS, nx = NX;
+};
+
+// launch(Counts<ns, nx>{}), the world's own counts compiled in, when its
+// primitives fit in Floats registers (4 a sphere, 6 a box): one
+// instantiation per such pair of counts (S, X walk them).
+// launch(Counts<kAny, kAny>{}) for a larger world. Shared and per-row
+// worlds take the same instantiation.
+template <int Floats, int S = 0, int X = 0, class F>
+inline int with_register_counts(int ns, int nx, F launch) {
+  if constexpr (4 * S + 6 * X <= Floats) {
+    if (ns == S && nx == X) return launch(Counts<S, X>{});
+    return with_register_counts<Floats, S, X + 1>(ns, nx, launch);
+  } else if constexpr (X > 0) {
+    return with_register_counts<Floats, S + 1, 0>(ns, nx, launch);
+  } else {
+    return launch(Counts<kAny, kAny>{});
+  }
+}
+
+// Shared memory of one block, in floats: the padded parameters, the joint
+// tile [d][kWarp][kPitch], the cost rows [kWarp][kPitch], kWarp margin
+// slots, and with ee the frame [12][kWarp][kPitch].
+inline size_t smem_floats(int n_params, int d, bool ee) {
+  return (size_t)((n_params + 31) & ~31) + (size_t)(d + 1) * kWarp * kPitch
+         + kWarp + (ee ? 12 * kWarp * kPitch : 0);
+}
+
+// The kernel body; launched as a grid of (ceil(C / kCands), segments)
+// blocks of kBlock threads. World is a policy with
 //   __device__ Dist at(const float* W, int c) const
-// binding candidate c's distance once per thread: Dist is callable as
+// binding candidate c's distance once per warp: Dist is callable as
 // dist(x0, x1, x2), the signed distance at a body center (W: the world
 // section of the shared-memory parameters).
 template <class World>
@@ -234,106 +235,191 @@ __device__ __forceinline__ void evaluate(
     const float* __restrict__ params, int n_params,
     const uint8_t* __restrict__ active,                   // [C] or nullptr
     float* __restrict__ q_obs,                            // [T, C]
-    float* __restrict__ margin_part,                      // [n_chunks, C]
+    float* __restrict__ margin_part,                      // [segments, C]
     float* __restrict__ ee,                               // [12, T, C] or nullptr
     int C, int T, int d, int nb, float dt, float clearance, int skip_rotf,
-    int t_chunk) {
+    int seg_len) {
   extern __shared__ float smem[];
   float* P = smem;
-  const int n_params_pad = (n_params + 31) & ~31;
-  float* win = smem + n_params_pad;          // [3][nb][3][kBlock]
+  float* tile = smem + ((n_params + 31) & ~31);   // [d][kWarp][kPitch]
+  float* q_st = tile + d * kWarp * kPitch;        // [kWarp][kPitch]
+  float* m_st = q_st + kWarp * kPitch;            // [kCands]
+  float* ee_st = m_st + kWarp;                    // [12][kWarp][kPitch]
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int c0 = blockIdx.x * kCands;
+  const int seg = blockIdx.y;
+  const int t0 = seg * seg_len;
+  const int n_own = min(seg_len, T - t0);
+  const int n_rows = n_own + 2;                   // with the two halo lanes
+
   for (int i = threadIdx.x; i < n_params; i += kBlock) P[i] = params[i];
+  // the joint tile: thread (l, cc) loads waypoint t0 - 1 + l (clamped) of
+  // candidate c0 + cc for every joint; a warp reads 4 whole sectors a joint
+  if (threadIdx.x < n_rows * kCands) {
+    const int l = threadIdx.x / kCands, cc = threadIdx.x % kCands;
+    const int ci = c0 + cc;
+    if (ci < C && (active == nullptr || active[ci])) {
+      const int t = min(max(t0 - 1 + l, 0), T - 1);
+      const float* src = cand + (size_t)t * C + ci;
+      float* dst = tile + l * kPitch + cc;
+      for (int j = 0; j < d; ++j)
+        dst[j * kWarp * kPitch] = src[(size_t)j * T * C];
+    }
+  }
   __syncthreads();
 
-  const int c = blockIdx.x * kBlock + threadIdx.x;
-  if (c >= C) return;                        // ragged edge: masked, not padded
-  const int chunk = blockIdx.y;
-  const int t0 = chunk * t_chunk;
-  const int t1 = min(T, t0 + t_chunk);
+  const int c = c0 + warp;
+  const int t = t0 - 1 + lane;
+  const bool own = lane >= 1 && lane <= n_own;
+  float* q_at = q_st + lane * kPitch + warp;
+  float* ee_at = ee_st + lane * kPitch + warp;    // frame k at k * kWarp * kPitch
+  if (c < C && active != nullptr && !active[c]) {
+    *q_at = 0.0f;
+    if (ee != nullptr)
+      for (int k = 0; k < 12; ++k) ee_at[k * kWarp * kPitch] = 0.0f;
+    if (lane == 0) m_st[warp] = 0.0f;
+  } else if (c < C) {
+    const int body_start = 12 + 16 * d;
+    const int body_base = body_start + d + 1;
+    const auto dist_at = world.at(P + body_base + 4 * nb, c);
+    const float* q_of = tile + min(lane, n_rows - 1) * kPitch + warp;
+    const float inv_dt = 1.0f / dt;
+    const float inv_2dt = 1.0f / (2.0f * dt);
+    float R[9], p[3];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R[k] = P[k];
+    p[0] = P[9]; p[1] = P[10]; p[2] = P[11];
+    float acc = 0.0f, margin = kBig;
+    for (int j = 0; j < d; ++j) {
+      const float* J = P + 12 + 16 * j;
+      const float o0 = J[4], o1 = J[5], o2 = J[6];
+      p[0] = p[0] + R[0] * o0 + R[1] * o1 + R[2] * o2;
+      p[1] = p[1] + R[3] * o0 + R[4] * o1 + R[5] * o2;
+      p[2] = p[2] + R[6] * o0 + R[7] * o1 + R[8] * o2;
+      if (!skip_rotf) {
+        float Rn[9];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            Rn[3 * i + k] = R[3 * i] * J[7 + k] + R[3 * i + 1] * J[10 + k]
+                            + R[3 * i + 2] * J[13 + k];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+      }
+      const float x = J[1], y = J[2], z = J[3];
+      const float q = q_of[j * kWarp * kPitch];
+      if (J[0] != 0.0f) {
+        // prismatic: translate along the world-frame axis, rotation unchanged
+        const float aw0 = R[0] * x + R[1] * y + R[2] * z;
+        const float aw1 = R[3] * x + R[4] * y + R[5] * z;
+        const float aw2 = R[6] * x + R[7] * y + R[8] * z;
+        p[0] = p[0] + aw0 * q;
+        p[1] = p[1] + aw1 * q;
+        p[2] = p[2] + aw2 * q;
+      } else {
+        // revolute: R <- R @ rodrigues(axis, q)
+        float s, co;
+        sincosf(q, &s, &co);
+        const float oc = 1.0f - co;
+        const float G[9] = {co + x * x * oc,     x * y * oc - z * s, x * z * oc + y * s,
+                            y * x * oc + z * s,  co + y * y * oc,    y * z * oc - x * s,
+                            z * x * oc - y * s,  z * y * oc + x * s, co + z * z * oc};
+        float Rn[9];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            Rn[3 * i + k] = R[3 * i] * G[k] + R[3 * i + 1] * G[3 + k]
+                            + R[3 * i + 2] * G[6 + k];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+      }
+      const int b_hi = (int)P[body_start + j + 1];
+      for (int b = (int)P[body_start + j]; b < b_hi; ++b) {
+        const float* Bd = P + body_base + 4 * b;
+        const float e0 = Bd[0], e1 = Bd[1], e2 = Bd[2];
+        const float x0 = p[0] + R[0] * e0 + R[1] * e1 + R[2] * e2;
+        const float x1 = p[1] + R[3] * e0 + R[4] * e1 + R[5] * e2;
+        const float x2 = p[2] + R[6] * e0 + R[7] * e1 + R[8] * e2;
+        // the body at t - 1 and t + 1: the neighbouring lanes
+        const float u0 = __shfl_up_sync(kFull, x0, 1);
+        const float u1 = __shfl_up_sync(kFull, x1, 1);
+        const float u2 = __shfl_up_sync(kFull, x2, 1);
+        const float n0 = __shfl_down_sync(kFull, x0, 1);
+        const float n1 = __shfl_down_sync(kFull, x1, 1);
+        const float n2 = __shfl_down_sync(kFull, x2, 1);
+        if (own) {
+          float v0, v1, v2;
+          if (t == 0) {
+            v0 = (n0 - x0) * inv_dt;
+            v1 = (n1 - x1) * inv_dt;
+            v2 = (n2 - x2) * inv_dt;
+          } else if (t == T - 1) {
+            v0 = (x0 - u0) * inv_dt;
+            v1 = (x1 - u1) * inv_dt;
+            v2 = (x2 - u2) * inv_dt;
+          } else {
+            v0 = (n0 - u0) * inv_2dt;
+            v1 = (n1 - u1) * inv_2dt;
+            v2 = (n2 - u2) * inv_2dt;
+          }
+          const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
+          const float dist = dist_at(x0, x1, x2);
+          const float radius = Bd[3];
+          const float d_sig = dist - radius - clearance;
+          float pot;
+          if (d_sig < 0.0f) {
+            pot = -d_sig + 0.5f * clearance;
+          } else if (d_sig <= clearance) {
+            const float e = d_sig - clearance;
+            pot = e * e / (2.0f * clearance);
+          } else {
+            pot = 0.0f;
+          }
+          acc += pot * speed;
+          margin = fminf(margin, dist - radius);
+        }
+      }
+    }
+    *q_at = acc * dt;
+    if (ee != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ee_at[k * kWarp * kPitch] = p[k];
+#pragma unroll
+      for (int k = 0; k < 9; ++k) ee_at[(3 + k) * kWarp * kPitch] = R[k];
+    }
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o /= 2)
+      margin = fminf(margin, __shfl_xor_sync(kFull, margin, o));
+    if (lane == 0) m_st[warp] = margin;
+  }
+  __syncthreads();
+
+  // the owned waypoints of the tile, 32 bytes (kCands candidates) a row
   const size_t plane = (size_t)T * C;
-  if (active != nullptr && !active[c]) {
-    for (int t = t0; t < t1; ++t) {
-      q_obs[(size_t)t * C + c] = 0.0f;
+  if (threadIdx.x < n_own * kCands) {
+    const int l = threadIdx.x / kCands, cc = threadIdx.x % kCands;
+    const int ci = c0 + cc;
+    if (ci < C) {
+      const size_t o = (size_t)(t0 + l) * C + ci;
+      const int s = (l + 1) * kPitch + cc;
+      q_obs[o] = q_st[s];
       if (ee != nullptr)
-        for (int k = 0; k < 12; ++k) ee[k * plane + (size_t)t * C + c] = 0.0f;
+        for (int k = 0; k < 12; ++k)
+          ee[k * plane + o] = ee_st[k * kWarp * kPitch + s];
     }
-    margin_part[(size_t)chunk * C + c] = 0.0f;
-    return;
   }
-
-  const int body_base = 12 + 17 * d + 1;
-  const float* W = P + body_base + 4 * nb;
-  const auto dist_at = world.at(W, c);
-  const int slot_stride = nb * 3 * kBlock;
-  float* my_win = win + threadIdx.x;
-  const float inv_dt = 1.0f / dt;
-  const float inv_2dt = 1.0f / (2.0f * dt);
-
-  float margin = kBig;
-  int have = (t0 > 0 ? t0 - 1 : 0) - 1;      // last waypoint placed so far
-  for (int t = t0; t < t1; ++t) {
-    const int need = min(t + 1, T - 1);
-    while (have < need) {
-      ++have;
-      // the frame of a waypoint this chunk owns; the halo's belongs to the
-      // neighbouring chunk
-      float* ee_at = (ee != nullptr && have >= t0 && have < t1)
-                         ? ee + (size_t)have * C + c
-                         : nullptr;
-      fk_bodies(P, cand, c, have, C, T, d, skip_rotf,
-                my_win + (have % 3) * slot_stride, ee_at, plane);
-    }
-    const float* cur = my_win + (t % 3) * slot_stride;
-    const float* prv = my_win + ((t + 2) % 3) * slot_stride;  // t - 1
-    const float* nxt = my_win + ((t + 1) % 3) * slot_stride;  // t + 1
-    float acc = 0.0f;
-    for (int b = 0; b < nb; ++b) {
-      const int o = b * 3 * kBlock;
-      const float x0 = cur[o], x1 = cur[o + kBlock], x2 = cur[o + 2 * kBlock];
-      float v0, v1, v2;
-      if (t == 0) {
-        v0 = (nxt[o] - x0) * inv_dt;
-        v1 = (nxt[o + kBlock] - x1) * inv_dt;
-        v2 = (nxt[o + 2 * kBlock] - x2) * inv_dt;
-      } else if (t == T - 1) {
-        v0 = (x0 - prv[o]) * inv_dt;
-        v1 = (x1 - prv[o + kBlock]) * inv_dt;
-        v2 = (x2 - prv[o + 2 * kBlock]) * inv_dt;
-      } else {
-        v0 = (nxt[o] - prv[o]) * inv_2dt;
-        v1 = (nxt[o + kBlock] - prv[o + kBlock]) * inv_2dt;
-        v2 = (nxt[o + 2 * kBlock] - prv[o + 2 * kBlock]) * inv_2dt;
-      }
-      const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
-      const float dist = dist_at(x0, x1, x2);
-      const float radius = P[body_base + 4 * b + 3];
-      const float d_sig = dist - radius - clearance;
-      float pot;
-      if (d_sig < 0.0f) {
-        pot = -d_sig + 0.5f * clearance;
-      } else if (d_sig <= clearance) {
-        const float e = d_sig - clearance;
-        pot = e * e / (2.0f * clearance);
-      } else {
-        pot = 0.0f;
-      }
-      acc += pot * speed;
-      margin = fminf(margin, dist - radius);
-    }
-    q_obs[(size_t)t * C + c] = acc * dt;
-  }
-  margin_part[(size_t)chunk * C + c] = margin;
+  if (threadIdx.x < kCands && c0 + (int)threadIdx.x < C)
+    margin_part[(size_t)seg * C + c0 + threadIdx.x] = m_st[threadIdx.x];
 }
 
-// Dynamic shared memory of one block: the padded parameters plus the
-// window. Above 48 KB the kernel must opt in (cudaFuncSetAttribute).
-inline size_t smem_bytes(int n_params, int nb) {
-  return (size_t)(((n_params + 31) & ~31) + 3 * nb * 3 * kBlock)
-         * sizeof(float);
-}
-
+// Checks the segment length and opts the kernel in to its shared memory
+// above 48 KB (cudaFuncSetAttribute); returns a cudaError_t.
 template <class Kernel>
-inline int allow_smem(Kernel kernel, size_t smem) {
+inline int prepare(Kernel kernel, size_t smem, int seg_len) {
+  if (seg_len < 1 || seg_len > kSegMax) return (int)cudaErrorInvalidValue;
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -25,7 +25,10 @@ scenario, and nothing is repeated per candidate.
 
 Both kernels are hand-written CUDA C++ for sm_90a around one shared skeleton
 (``csrc/rollout_common.cuh``; each file's header says what bounds it and
-how the design answers that). Each source is compiled with nvcc into a
+how the design answers that): one warp walks one candidate over a segment
+of the waypoint axis, one waypoint per lane (the segment plan is
+:func:`_segments`); a grid with a packed corner table is read through it.
+Each source is compiled with nvcc into a
 shared library with a plain C interface at first use, into
 ``tpustomp_torch/_build/``, and called through ctypes.
 
@@ -63,9 +66,9 @@ from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (active, q_obs, margin_part, ee, C, T, d, nb, ns, nx, dt, clearance,
-#  skip_rotf, t_chunk, stream): the arguments every entry point ends with
+#  skip_rotf, seg_len, stream): the arguments every entry point ends with
 _TAIL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
-_GRID = [_P, _I, _I, _I, _F, _F, _F]          # grid, X, Y, Z, hi[3]
+_GRID = [_P, _P, _I, _I, _I, _F, _F, _F]      # grid, packed, X, Y, Z, hi[3]
 _ROWS = [_P, _P, _I]                          # spheres, boxes, cands_per_row
 # kernel variant -> (source in csrc/, C entry point, its argument types)
 _ENTRIES = {
@@ -93,11 +96,11 @@ _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
-# The waypoint axis is cut into chunks until candidates × chunks reaches
-# this many threads (132 SMs × 256). At the config-4 shape C alone exceeds
-# it: one chunk measured 1.52 ms against 1.56 ms for three (H100 SXM, 700 W).
-_TARGET_THREADS = 132 * 256
-_MIN_CHUNK = 8
+# One warp walks one candidate over a segment of the waypoint axis, a
+# waypoint per lane: its lanes less a halo lane on either side
+# (csrc/rollout_common.cuh kWarp, kSegMax).
+_WARP = 32
+_SEG_MAX = _WARP - 2
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -250,11 +253,16 @@ def pack_params(robot, world) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
-def _t_chunk(C: int, T: int) -> int:
-    """Waypoints per thread: the whole trajectory once C alone fills the
-    card, else chunks (each costs a 2-waypoint FK halo) down to _MIN_CHUNK."""
-    n_chunks = max(1, min(-(-_TARGET_THREADS // C), T // _MIN_CHUNK))
-    return -(-T // n_chunks)
+def _segments(T: int) -> tuple[int, int]:
+    """The kernels' segment plan: (seg_len, n_seg). Segment s owns
+    waypoints [s * seg_len, min(T, (s + 1) * seg_len)); its warp also
+    computes the FK of the waypoint on either side (the halo) for the
+    speed's central difference, and writes its own row of margin_part
+    [n_seg, C]. The fewest segments of at most _SEG_MAX waypoints, of
+    near-equal length (the last may be shorter)."""
+    n_seg = -(-T // _SEG_MAX)
+    seg_len = -(-T // n_seg)
+    return seg_len, n_seg
 
 
 def _cands_per_row(world, C: int, cands_per_row):
@@ -363,6 +371,22 @@ def _prim_arrays(prims):
     return spheres.contiguous(), boxes.contiguous()
 
 
+def _packed_table(grid, g):
+    """The GridSDF's packed corner table as the grid kernel reads it (one
+    32-byte row per sample): float32 [X*Y*Z, 8], contiguous, rows 32-byte
+    aligned; None when the grid has none (the kernel then reads the dense
+    grid g)."""
+    packed = grid.packed
+    if packed is None:
+        return None
+    if tuple(packed.shape) != (g.numel(), 8) or packed.device != g.device:
+        raise ValueError(f"packed corner table must be [{g.numel()}, 8] on "
+                         f"{g.device}, got {tuple(packed.shape)} on "
+                         f"{packed.device}")
+    packed = packed.to(torch.float32).contiguous()
+    return packed if packed.data_ptr() % 32 == 0 else packed.clone()
+
+
 def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             row_active, time_major, want_ee):
     source = "rollout_analytic" if grid is None else "rollout_grid"
@@ -388,10 +412,9 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
         if row_active.shape != (C,) or row_active.device != dev:
             raise ValueError(f"row_active must be [{C}] on {dev}")
         active = row_active.to(torch.uint8).contiguous()
-    t_chunk = _t_chunk(C, T)
-    n_chunks = -(-T // t_chunk)
+    seg_len, n_seg = _segments(T)
     q_obs = torch.empty((T, C), dtype=torch.float32, device=dev)
-    margin_part = torch.empty((n_chunks, C), dtype=torch.float32, device=dev)
+    margin_part = torch.empty((n_seg, C), dtype=torch.float32, device=dev)
     ee = (torch.empty((12, T, C), dtype=torch.float32, device=dev)
           if want_ee else None)
     ns = 0 if prims is None else prims.sphere_radius.shape[-1]
@@ -400,7 +423,7 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             q_obs.data_ptr(), margin_part.data_ptr(),
             None if ee is None else ee.data_ptr(), C, T, d,
             robot.num_bodies, ns, nx, float(dt), float(clearance),
-            int(bool(robot.rot_fixed_identity)), t_chunk)
+            int(bool(robot.rot_fixed_identity)), seg_len)
     head = (cand.data_ptr(), params.data_ptr(), params.numel())
     rows = ()
     if per is not None:
@@ -417,8 +440,10 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             if g.numel() >= 2**31:
                 raise ValueError(f"grid of {g.numel()} voxels: the kernel "
                                  "indexes it with 32-bit ints")
-            grid_args = (g.data_ptr(), *g.shape,
-                         *map(float, grid_clip_hi(g.shape)))
+            packed = _packed_table(grid, g)
+            grid_args = (g.data_ptr(),
+                         None if packed is None else packed.data_ptr(),
+                         *g.shape, *map(float, grid_clip_hi(g.shape)))
             mid = rows or (int(isinstance(world, CompositeWorld)),)
             err = entry(*head, *grid_args, *mid, *tail, stream)
     name = entry_name + (":ee" if want_ee else "")

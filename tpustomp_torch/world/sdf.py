@@ -59,8 +59,9 @@ class GridSDF:
 
     `packed` is an optional [X*Y*Z, 8] corner table: row i holds the 8
     corners G[x+dx, y+dy, z+dz] of flat cell i (dx, dy, dz in 0/1, dz
-    fastest), the JAX package's layout. The plain sampler reads one row per
-    sample when it is present; the CUDA kernel reads the dense grid.
+    fastest), the JAX package's layout. The plain sampler and the CUDA
+    kernel read one row per sample when it is present, the dense grid
+    otherwise.
     """
 
     grid: torch.Tensor                 # [X, Y, Z] float32 signed distance (m)
