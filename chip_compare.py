@@ -14,7 +14,10 @@ default):
 
   build     nvcc -Xptxas -v of both versions' csrc/*.cu for sm_90a:
             registers, spill bytes and stack frame per kernel; the loops
-            of this tree's per-row kernels in their SASS (cuobjdump);
+            of this tree's per-row kernels in their SASS (cuobjdump); this
+            tree's sources also with the static chains of arm_7dof and
+            chip_smoke.py's URDF robot (-DROLLOUT_CHAIN), with their
+            instruction counts;
   kernels   both versions' kernel wrappers loaded side by side (each with
             its own kernels, both on this tree's other modules), on the
             inputs of chip_smoke.py's kernel phases: the config-5 shape
@@ -94,20 +97,22 @@ def signature_name(demangled):
     return name
 
 
-def build_phase(label, pkg, tmp, loops_of=()):
+def build_phase(label, pkg, tmp, loops_of=(), chains=(("runtime", ()),)):
     """nvcc -Xptxas -v of every csrc/*.cu of the package at pkg into cubins
-    under tmp, all at once; prints registers, spills and stack per kernel,
-    and the SASS loops of the kernels whose name holds a string of
-    loops_of."""
+    under tmp, for each (chain label, extra nvcc flags) of chains, all at
+    once; prints registers, spills and stack per kernel, and the SASS loops
+    of the kernels whose name holds a string of loops_of."""
     csrc = os.path.join(pkg, "csrc")
     procs = {}
-    for cu in sorted(f for f in os.listdir(csrc) if f.endswith(".cu")):
-        out = os.path.join(tmp, label + "_" + cu.replace(".cu", ".cubin"))
-        procs[out] = subprocess.Popen(
-            [cuda_tool("nvcc"), *ARCH, "-cubin", "-Xptxas", "-v", "-o", out,
-             os.path.join(csrc, cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for cubin, p in procs.items():
+    for chain, flags in chains:
+        for cu in sorted(f for f in os.listdir(csrc) if f.endswith(".cu")):
+            out = os.path.join(tmp, f"{label}_{chain}_"
+                               + cu.replace(".cu", ".cubin"))
+            procs[out] = (chain, subprocess.Popen(
+                [cuda_tool("nvcc"), *ARCH, *flags, "-cubin", "-Xptxas", "-v",
+                 "-o", out, os.path.join(csrc, cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for cubin, (chain, p) in procs.items():
         text, _ = p.communicate()
         assert p.returncode == 0, text
         kernels, fn = {}, None
@@ -125,7 +130,8 @@ def build_phase(label, pkg, tmp, loops_of=()):
                 kernels[fn]["registers"] = int(
                     re.search(r"Used (\d+) reg", line)[1])
         for name, info in zip(demangle(kernels), kernels.values()):
-            say("build", version=label, kernel=signature_name(name), **info)
+            say("build", version=label, chain=chain,
+                kernel=signature_name(name), **info)
         if loops_of:
             sass_loops(cubin, loops_of)
 
@@ -146,7 +152,8 @@ def sass_loops(cubin, loops_of):
             if tgt and int(tgt[1], 16) < int(a, 16):
                 loops.append((hex(int(tgt[1], 16)), hex(int(a, 16)),
                               (int(a, 16) - int(tgt[1], 16)) // 16 + 1))
-        say("build", kernel=signature_name(demangle([name])[0]),
+        say("build", cubin=os.path.basename(cubin),
+            kernel=signature_name(demangle([name])[0]),
             instructions=len(ins), loops=loops)
 
 
@@ -390,11 +397,21 @@ def main():
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
     if "build" in phases:
+        from tpustomp_torch.kernels import rollout as this
+        from tpustomp_torch.robot import load_urdf
+        from tpustomp_torch.robot.model import arm_7dof
+
+        chains = [("runtime", ())] + [
+            (label, this._nvcc_flags(this.chain_of(robot))[
+                len(this._NVCC_FLAGS):])
+            for label, robot in (("arm_7dof", arm_7dof()),
+                                 ("torso_arm_urdf",
+                                  load_urdf(cs.torso_arm_urdf())))]
         with tempfile.TemporaryDirectory() as tmp:
             build_phase("other", os.path.join(roots["other"],
                                               "tpustomp_torch"), tmp)
             build_phase("this", os.path.join(ROOT, "tpustomp_torch"), tmp,
-                        loops_of=("RowPrims", "GridRowDist"))
+                        loops_of=("RowPrims", "GridRowDist"), chains=chains)
     if "kernels" in phases:
         from tpustomp_torch.kernels import rollout as this
 

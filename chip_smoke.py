@@ -65,12 +65,28 @@ and fails (non-zero exit, no result line) on any error:
      query, plan_batch B = 1024 on jittered problems (success floor 0.9),
      plan_batch B = 256 with the experiment suite's HMC settings;
   9c. constrained STOMP and config-3 CHOMP on the card against the CPU run,
-     B = 8, under the same noise.
+     B = 8, under the same noise;
+ 10. the joint chain (TPU K3/K5 static_joints): the phases above run every
+     built-in robot on its static chain (the robot compiled in); here each
+     variant and its :ee form on the static chain against the plain version
+     and against the runtime chain (joint_static=None) at the config-4 and
+     config-5 shapes, with both chains' times (arm_7dof; and the URDF torso
+     arm below at the config-4 shape);
+ 10u. plan_batch on config 4's problems with a URDF robot (the arm_7dof
+     chain under a prismatic torso lift, one axis negated, a general axis,
+     fixed rotations, a fixed tool link; cylinder/box collision geometry),
+     B = 1024, on its static chain only; and at B = 8 against the CPU run;
+ 10g. a stale joint_static (joint_axis replaced, joint_static kept):
+     plan_batch warns and runs only :runtime kernels, equal to the honest
+     robot's run;
+ 10s. one launch of each variant (and of the sorted runtime route, K1)
+     under torch.cuda.set_sync_debug_mode("error"): no host sync.
 
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
-and plain ms, the least time the card could take for the same work:
-bound_ms, bound_by; ms_smooth on solver-like candidates where measured);
+and plain ms, the least time the card could take for the same work on the
+chain it ran: bound_ms, bound_by; the runtime chain's ms and the largest
+|static - runtime|; ms_smooth on solver-like candidates where measured);
 the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -83,6 +99,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -103,24 +120,64 @@ EE_RTOL, EE_ATOL = 1e-5, 2e-5
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
 # Float operations per (candidate, waypoint) of the evaluators, counted
 # from the source (csrc/rollout_common.cuh); sin, cos, sqrt and a division
-# count one each. A revolute joint: origin update 18, Rodrigues 36, R·G 45;
-# a fixed rotation adds 45. A body: placement 18, then speed 12 and
+# count one each. FK: fk_ops below. A body: placement 18, then speed 12 and
 # potential, sum and margin 10, plus its distance: 11 per sphere, 25 per
 # box, 51 per trilinear grid sample. The ee output adds stores only.
-OPS_JOINT, OPS_ROTF, OPS_BODY = 99, 45, 40
-OPS_SPHERE, OPS_BOX, OPS_GRID = 11, 25, 51
+OPS_BODY, OPS_SPHERE, OPS_BOX, OPS_GRID = 40, 11, 25, 51
+OTHER = 2          # a run-time axis component (kernels/rollout.py _OTHER)
 
 
-def bound(C, T, d, nb, ns, nx, grid_voxels=0, rows=0, ee=False,
-          rotf=False):
+def fk_ops(rollout, robot, static=True):
+    """Float operations of one waypoint's FK on the chain a kernel runs:
+    per joint the origin (18) and R·RotFixed (45) unless every fixed
+    rotation is the identity; a revolute joint's sincos (2) and 1 - cos
+    (1), the live terms of G (a run-time coefficient costs its product and
+    the term's multiply; +1 and -1 fold to nothing), and R·G over G's live
+    entries; a prismatic joint's axis projection and translation. The
+    static chain folds as rollout_common.cuh's Joint does; the runtime
+    chain (static=False) folds nothing: 99 a revolute joint."""
+    d = robot.num_joints
+    chain = rollout.chain_of(robot) if static else None
+    assert (chain is not None) == static, "no static chain for this robot"
+    codes = ([chain[2 + 5 * j:5 + 5 * j] for j in range(d)] if static
+             else [(OTHER,) * 3] * d)
+
+    def mul(a, b):
+        return 0 if 0 in (a, b) else OTHER if OTHER in (a, b) else a * b
+
+    ops = 0
+    for jtype, (x, y, z) in zip(robot.joint_type.tolist(), codes):
+        ops += 18 + (0 if robot.rot_fixed_identity else 45)
+        if jtype != 0:                  # prismatic: a·R rows, then p += .. q
+            n = sum(k != 0 for k in (x, y, z))
+            per_row = sum(k == OTHER for k in (x, y, z)) + max(n - 1, 0)
+            ops += 3 * (per_row + 2) if n else 0
+            continue
+        ops += 3                                        # sincos, 1 - cos
+        live = []
+        for a, b, k_s in ((x, x, None), (x, y, z), (x, z, y),
+                          (y, x, z), (y, y, None), (y, z, x),
+                          (z, x, y), (z, y, x), (z, z, None)):
+            k_oc = mul(a, b)
+            terms = [(k_oc != 0, 2 if k_oc == OTHER else 0),
+                     (True, 0) if k_s is None      # a diagonal's cos
+                     else (k_s != 0, 1 if k_s == OTHER else 0)]
+            n = sum(lv for lv, _ in terms)
+            live.append(n > 0)
+            ops += sum(c for lv, c in terms if lv) + max(n - 1, 0)
+        for col in range(3):                            # R·G, 3 rows
+            ops += 3 * (2 * sum(live[col + 3 * k] for k in range(3)) - 1)
+    return ops
+
+
+def bound(C, T, d, fk, nb, ns, nx, grid_voxels=0, rows=0, ee=False):
     """(bound_ms, bound_by) of one evaluator launch: the larger of its
-    float operations over the fp32 peak and the bytes it must move (the
-    candidates, the grid and per-row primitives read once; q_obs, margin
-    and ee written once) over the memory rate."""
+    float operations (fk per waypoint: fk_ops) over the fp32 peak and the
+    bytes it must move (the candidates, the grid and per-row primitives
+    read once; q_obs, margin and ee written once) over the memory rate."""
     per_body = OPS_BODY + OPS_SPHERE * ns + OPS_BOX * nx + (
         OPS_GRID if grid_voxels else 0)
-    ops = C * T * (d * (OPS_JOINT + (OPS_ROTF if rotf else 0))
-                   + nb * per_body)
+    ops = C * T * (fk + nb * per_body)
     nbytes = 4 * (C * T * d + C * T + C + (12 * C * T if ee else 0)
                   + grid_voxels + rows * (4 * ns + 6 * nx))
     t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
@@ -251,10 +308,12 @@ def packed_vs_dense(label, rollout, robot, world, tm, dt, clearance,
         robot, dense, tm, dt, clearance, time_major=True, **kw), 20)
 
 
-def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi):
+def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
+                 chains):
     """Phases 3 and 3g for one kernel: time-major with all rows active and
     masked, candidate-major (the analytic kernel only: K4) and shuffled
-    bodies; then kernel and plain times. Returns (max_err, ms, plain_ms)."""
+    bodies; then kernel and plain times, beside both chains' times from
+    chain_phase (`chains`). Returns (max_err, ms, plain_ms)."""
     C = fulls.shape[0]
     plain = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
                                               clearance)
@@ -291,7 +350,8 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi):
         timing["candidate_major_ms"] = cuda_time_ms(
             lambda: rollout.obstacle_cost_batch(robot, world, fulls, dt,
                                                 clearance), 20)
-    say(f"kernel_time:{name}", **timing, card=smi)
+    say(f"kernel_time:{name}", **timing, static_ms=chains["static_ms"],
+        runtime_ms=chains["runtime_ms"], card=smi)
     return err, kernel_ms, plain_ms
 
 
@@ -475,14 +535,15 @@ def shared_row(world):
 
 
 def percand_phase(name, rollout, robot, static, centers, radius, fulls,
-                  smooth, per, dt, clearance, smi):
+                  smooth, per, dt, clearance, smi, chains):
     """Phase 3m for one variant: the tick's world of config 5 (one row per
     scenario, `per` candidates each) against the plain version, all rows
     active and masked, and on solver-like candidates (`smooth`); the
     per-candidate form (every candidate its own row) and every row equal
     against the shared-world kernel, both bitwise, and for the grid the
-    packed corner table against the dense grid; kernel and plain times.
-    Returns (max_err, ms, plain_ms, ms_smooth)."""
+    packed corner table against the dense grid; kernel and plain times,
+    beside both chains' times from chain_phase (`chains`). Returns
+    (max_err, ms, plain_ms, ms_smooth)."""
     from tpustomp_torch.engine.mpc import _tick_world_batch
 
     C = fulls.shape[0]
@@ -534,7 +595,8 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls,
             name, rollout, robot, world, tm, dt, clearance,
             cands_per_row=per)
     timing["speedup"] = timing["plain_ms"] / kernel_ms
-    say(f"kernel_time:{name}", **timing, card=smi)
+    say(f"kernel_time:{name}", **timing, static_ms=chains["static_ms"],
+        runtime_ms=chains["runtime_ms"], card=smi)
     return err, kernel_ms, timing["plain_ms"], timing["kernel_ms_smooth"]
 
 
@@ -620,12 +682,12 @@ def mpc_cuda_vs_cpu_phase(label, robot, cfg5, static, states, ticks=4):
 
 
 def ee_phase(variant, rollout, robot, world, fulls, dt, clearance, smi,
-             cands_per_row=None):
+             chains, cands_per_row=None):
     """Phase 7 for one variant's :ee form: with a third of the rows masked,
     ee against the plain fk_frames frame, zeros on masked rows, q_obs and
     margin bitwise equal to the same launch without ee and close to the
-    plain version; then ee, no-ee and plain times. Returns (max_err, ms,
-    plain_ms)."""
+    plain version; then ee, no-ee and plain times, beside both chains'
+    times from chain_phase (`chains`). Returns (max_err, ms, plain_ms)."""
     C = fulls.shape[0]
     tm = fulls.permute(2, 1, 0).contiguous()
     active = ~inactive_rows(C, fulls.device)
@@ -666,6 +728,7 @@ def ee_phase(variant, rollout, robot, world, fulls, dt, clearance, smi,
         want_ee=True), 3)
     say(f"kernel_time:{variant}:ee", C=C, T=fulls.shape[1], ee_ms=ms,
         no_ee_ms=no_ee_ms, plain_ms=plain_ms, ee_cost_ms=ms - no_ee_ms,
+        static_ms=chains["static_ms"], runtime_ms=chains["runtime_ms"],
         card=smi)
     torch.cuda.empty_cache()
     return max(float(dq.max()), float(dm.max()), out["max_abs_dee"]), ms, \
@@ -776,6 +839,233 @@ def cuda_vs_cpu_modes_phase(label, robot, world, cfg, q0b, qNb, **kw):
     assert same and d_traj <= 1e-4 and d_cost <= 1e-4
 
 
+def torso_arm_urdf():
+    """A URDF robot with arm_7dof's kinematics under a prismatic torso lift
+    (axis 0 0 1, 0 to 0.3 m): the shoulder lift's axis negated (limits
+    mirrored), the upper-arm roll's frame turned by rpy 0.5 rad about z
+    (a general axis, fixed rotations) and turned back at the elbow, a fixed
+    tool link; cylinder, box and sphere collision geometry. At torso
+    height 0.05 and the lift's sign flipped it moves as arm_7dof does."""
+    a = 0.5                                  # the roll joint's frame turn
+    c, s = np.cos(a), np.sin(a)
+    axis = f"{c:.9f} {-s:.9f} 0"             # parent x in the turned frame
+    elbow = f"{0.4 * c:.9f} {-0.4 * s:.9f} 0"
+    return f"""
+<robot name="torso_arm_7dof">
+  <link name="base"/>
+  <link name="torso">
+    <collision><origin xyz="-0.15 0 0.35"/>
+      <geometry><cylinder radius="0.08" length="0.3"/></geometry></collision>
+  </link>
+  <link name="shoulder_pan"/>
+  <link name="shoulder_lift"/>
+  <link name="upper_arm">
+    <collision><origin xyz="{0.2 * c:.9f} {-0.2 * s:.9f} 0" rpy="0 1.5707963267948966 {-a}"/>
+      <geometry><cylinder radius="0.06" length="0.4"/></geometry></collision>
+  </link>
+  <link name="elbow"/>
+  <link name="forearm">
+    <collision><origin xyz="0.16 0 0"/>
+      <geometry><box size="0.32 0.1 0.1"/></geometry></collision>
+  </link>
+  <link name="wrist_flex"/>
+  <link name="hand">
+    <collision><origin xyz="0.08 0 0" rpy="0 1.5707963267948966 0"/>
+      <geometry><cylinder radius="0.04" length="0.16"/></geometry></collision>
+  </link>
+  <link name="tool">
+    <collision><geometry><sphere radius="0.03"/></geometry></collision>
+  </link>
+  <joint name="torso_lift" type="prismatic">
+    <parent link="base"/><child link="torso"/>
+    <origin xyz="0 0 0.25"/><axis xyz="0 0 1"/>
+    <limit lower="0" upper="0.3"/>
+  </joint>
+  <joint name="shoulder_pan" type="revolute">
+    <parent link="torso"/><child link="shoulder_pan"/>
+    <origin xyz="0 0 0.5"/><axis xyz="0 0 1"/>
+    <limit lower="-2.28" upper="0.71"/>
+  </joint>
+  <joint name="shoulder_lift" type="revolute">
+    <parent link="shoulder_pan"/><child link="shoulder_lift"/>
+    <origin xyz="0.1 0 0"/><axis xyz="0 -1 0"/>
+    <limit lower="-1.39" upper="0.52"/>
+  </joint>
+  <joint name="upper_arm_roll" type="revolute">
+    <parent link="shoulder_lift"/><child link="upper_arm"/>
+    <origin xyz="0 0 0" rpy="0 0 {a}"/><axis xyz="{axis}"/>
+    <limit lower="-3.9" upper="0.8"/>
+  </joint>
+  <joint name="elbow_flex" type="revolute">
+    <parent link="upper_arm"/><child link="elbow"/>
+    <origin xyz="{elbow}" rpy="0 0 {-a}"/><axis xyz="0 1 0"/>
+    <limit lower="-2.32" upper="0.0"/>
+  </joint>
+  <joint name="forearm_roll" type="continuous">
+    <parent link="elbow"/><child link="forearm"/>
+    <origin xyz="0 0 0"/><axis xyz="1 0 0"/>
+  </joint>
+  <joint name="wrist_flex" type="revolute">
+    <parent link="forearm"/><child link="wrist_flex"/>
+    <origin xyz="0.32 0 0"/><axis xyz="0 1 0"/>
+    <limit lower="-2.18" upper="0.0"/>
+  </joint>
+  <joint name="wrist_roll" type="continuous">
+    <parent link="wrist_flex"/><child link="hand"/>
+    <origin xyz="0 0 0"/><axis xyz="1 0 0"/>
+  </joint>
+  <joint name="tool_mount" type="fixed">
+    <parent link="hand"/><child link="tool"/>
+    <origin xyz="0.16 0 0"/>
+  </joint>
+</robot>
+"""
+
+
+def torso_problems(q0b, qNb):
+    """Config 4's problems for torso_arm_urdf: the torso from 0.05 to 0.1 m,
+    the shoulder lift's sign flipped."""
+    def lift(q, torso):
+        q = np.concatenate([np.full((len(q), 1), torso, np.float32), q], 1)
+        q[:, 2] *= -1
+        return q
+    return lift(q0b, 0.05), lift(qNb, 0.1)
+
+
+def chain_phase(variant, rollout, robot, world, fulls, dt, clearance,
+                cands_per_row=None, tag=""):
+    """Phase 10 for one variant: on the same time-major input with a third
+    of the rows masked, the static chain (robot) against the plain version
+    and against the runtime chain (the robot with joint_static=None), at
+    the kernel-vs-plain tolerance, for the costs and for the :ee form; then
+    both chains' times in turns (static, runtime, runtime, static). Returns
+    {form: dict(static_vs_runtime_max_abs, static_ms, runtime_ms)}."""
+    runtime = dataclasses.replace(robot, joint_static=None)
+    assert rollout.chain_of(robot) is not None
+    assert rollout.chain_of(runtime) is None
+    C = fulls.shape[0]
+    tm = fulls.permute(2, 1, 0).contiguous()
+    active = ~inactive_rows(C, fulls.device)
+    q_p, m_p, ee_p = rollout.obstacle_cost_batch_plain(
+        robot, world, fulls, dt, clearance, cands_per_row=cands_per_row,
+        want_ee=True)
+    out = {}
+    for ee in (False, True):
+        form = variant + (":ee" if ee else "")
+        kw = dict(time_major=True, cands_per_row=cands_per_row)
+        before = dict(rollout.LAUNCHES)
+        got = {name: rollout.obstacle_cost_batch(r, world, tm, dt, clearance,
+                                                 row_active=active,
+                                                 want_ee=ee, **kw)
+               for name, r in (("static", robot), ("runtime", runtime))}
+        torch.cuda.synchronize()
+        runtime_form = variant + ":runtime" + (":ee" if ee else "")
+        ran = {k: rollout.LAUNCHES[k] - before[k] for k in before
+               if rollout.LAUNCHES[k] != before[k]}
+        assert ran == {form: 1, runtime_form: 1}, ran
+        s, r = got["static"], got["runtime"]
+        dq = (s[0] - q_p).abs()[active]
+        dm = (s[1] - m_p).abs()[active]
+        ok = bool((dq <= Q_ATOL + Q_RTOL * q_p.abs()[active]).all()
+                  and (dm <= M_ATOL).all())
+        res = dict(C=C, T=fulls.shape[1], rows_checked=int(active.sum()),
+                   max_abs_dq=float(dq.max()), max_abs_dm=float(dm.max()),
+                   tol=TOL)
+        if ee:
+            de = (s[2] - ee_p).abs()[:, :, active]
+            ok = ok and bool((de <= EE_ATOL + EE_RTOL
+                              * ee_p[:, :, active].abs()).all())
+            res.update(max_abs_dee=float(de.max()),
+                       ee_tol=f"{EE_ATOL}+{EE_RTOL}|ee|")
+        say(f"kernel_vs_plain:{form}:static{tag}", **res, ok=ok)
+        # static against runtime: the same tolerance, with q and ee
+        # relative to the runtime chain's values; masked rows zero in both
+        diffs = [(a - b).abs() for a, b in zip(s, r)]
+        within = bool(
+            (diffs[0] <= Q_ATOL + Q_RTOL * r[0].abs()).all()
+            and (diffs[1] <= M_ATOL).all()
+            and (not ee or (diffs[2] <= EE_ATOL + EE_RTOL
+                            * r[2].abs()).all()))
+        max_abs = max(float(x.max()) for x in diffs)
+        bitwise = all(torch.equal(a, b) for a, b in zip(s, r))
+        say(f"kernel_vs_kernel:{form}:static_vs_runtime{tag}", rows=C,
+            max_abs_q=float(diffs[0].max()), max_abs_margin=float(
+                diffs[1].max()),
+            max_abs_ee=float(diffs[2].max()) if ee else None,
+            max_abs=max_abs, within_tol=within, bitwise_equal=bitwise)
+        assert ok and within, (form, res)
+        del got, s, r, diffs
+        launch = {name: (lambda r=r: rollout.obstacle_cost_batch(
+            r, world, tm, dt, clearance, want_ee=ee, **kw))
+            for name, r in (("static", robot), ("runtime", runtime))}
+        t = [cuda_time_ms(launch[k], 20)
+             for k in ("static", "runtime", "runtime", "static")]
+        out[form] = dict(static_vs_runtime_max_abs=max_abs,
+                         static_ms=(t[0] + t[3]) / 2,
+                         runtime_ms=(t[1] + t[2]) / 2)
+        say(f"kernel_time:{form}:chains{tag}", C=C, T=fulls.shape[1],
+            static_ms=[t[0], t[3]], runtime_ms=[t[1], t[2]],
+            runtime_over_static=(t[1] + t[2]) / (t[0] + t[3]))
+    del q_p, m_p, ee_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def guard_phase(rollout, robot, world, cfg, q0b, qNb):
+    """Phase 10g: arm_7dof with joint 1's axis replaced and joint_static
+    left stale. plan_batch warns, runs only :runtime kernels and gives the
+    honest robot's (joint_static=None) trajectory bit for bit."""
+    from tpustomp_torch import ProblemSpec, plan_batch
+
+    dev = robot.joint_axis.device
+    axes = robot.joint_axis.clone()
+    axes[1] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    stale = dataclasses.replace(robot, joint_axis=axes)
+    honest = dataclasses.replace(stale, joint_static=None)
+    prob = ProblemSpec(q0=q0b, qN=qNb)
+
+    def run(r):
+        return plan_batch(r, world, prob, cfg, device=dev,
+                          generator=torch.Generator(dev).manual_seed(0))
+
+    rollout.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = run(stale)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in rollout.LAUNCHES.items() if v}
+    warned = [str(w.message) for w in caught
+              if issubclass(w.category, UserWarning)
+              and "joint_static" in str(w.message)]
+    ref = run(honest)
+    same = bool(torch.equal(got.trajectory, ref.trajectory)
+                and torch.equal(got.success, ref.success))
+    only_runtime = bool(launches) and all(":runtime" in k for k in launches)
+    say("guard:stale_joint_static", B=len(q0b), warned=len(warned),
+        kernel_launches=launches, only_runtime_kernels=only_runtime,
+        trajectory_equal_to_honest=same)
+    assert warned and only_runtime and same
+
+
+def sync_free_phase(rollout, cases, dt, clearance):
+    """Phase 10s: one launch of each case under
+    torch.cuda.set_sync_debug_mode("error"), which raises on any host sync
+    in the launch path."""
+    for label, robot, world, tm, per in cases:
+        torch.cuda.synchronize()
+        before = dict(rollout.LAUNCHES)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rollout.obstacle_cost_batch(robot, world, tm, dt, clearance,
+                                        time_major=True, cands_per_row=per)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        ran = [k for k in before if rollout.LAUNCHES[k] != before[k]]
+        say(f"sync_free:{label}", sync_debug_mode="error", launched=ran)
+        assert ran == [label], ran
+
+
 def main():
     # --- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -801,14 +1091,26 @@ def main():
     from tpustomp_torch.api.config import CostWeights, PlannerConfig, from_dict
     from tpustomp_torch.engine.mpc import _tick_world_batch
     from tpustomp_torch.kernels import rollout
+    from tpustomp_torch.robot import load_urdf
     from tpustomp_torch.robot.model import arm_7dof
     from tpustomp_torch.world.sdf import CompositeWorld
 
-    # --- 2. build -----------------------------------------------------------
+    # --- 2. build: the runtime chain and the static chains of arm_7dof and
+    # the URDF robot, one nvcc per source and chain, all started together
+    robot = arm_7dof().to(dev)
+    urdf_robot = load_urdf(torso_arm_urdf()).to(dev)
+    chains = {"runtime": None, "arm_7dof": rollout.chain_of(robot),
+              "torso_arm_urdf": rollout.chain_of(urdf_robot)}
     t0 = time.perf_counter()
-    rollout.build()
+    rollout.build(chains=tuple(chains.values()))
     say("build", kernels=sorted(rollout.LAUNCHES),
-        seconds=round(time.perf_counter() - t0, 3))
+        seconds=round(time.perf_counter() - t0, 3),
+        libraries=len(rollout.BUILD_SECONDS),
+        first_build_seconds={
+            f"{src}:{label}": rollout.BUILD_SECONDS.get((src, c))
+            for label, c in chains.items() for src in rollout._SOURCES},
+        chains={label: None if c is None else rollout.chain_definition(c)
+                for label, c in chains.items()})
 
     with open(os.path.join(ROOT, "configs", "config4_batch.yaml")) as f:
         doc4 = yaml.safe_load(f)
@@ -822,7 +1124,6 @@ def main():
     cfg2 = from_dict(doc2["planner"])
     cfg5, spec5 = from_dict(doc5["planner"]), doc5["mpc"]
     scene = doc2["scene"]             # the default tabletop scene
-    robot = arm_7dof().to(dev)
     world = tabletop(scene).to(dev)
     t0 = time.perf_counter()
     grid = voxel_tabletop(scene).to(dev)
@@ -843,9 +1144,22 @@ def main():
     fulls = torch.as_tensor(rng.uniform(lo, hi, (C, T, 7)).astype(np.float32),
                             device=dev)                       # [C, T, d]
     table = {}
+    # --- 10. static chain against plain and runtime, config-4 shape -------
+    chain_res = {}
+    for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
+        chain_res.update(chain_phase(name, rollout, robot, w, fulls, dt,
+                                     clearance))
+    lo_u = urdf_robot.joint_lower.cpu().numpy()
+    hi_u = urdf_robot.joint_upper.cpu().numpy()
+    fulls_u = torch.as_tensor(np.random.default_rng(3).uniform(
+        lo_u, hi_u, (C, T, urdf_robot.num_joints)).astype(np.float32),
+        device=dev)
+    chain_phase("rollout_analytic", rollout, urdf_robot, world, fulls_u, dt,
+                clearance, tag=":torso_arm_urdf")
+    del fulls_u
     for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
         table[name] = kernel_phase(name, rollout, robot, w, fulls, dt,
-                                   clearance, smi)
+                                   clearance, smi, chain_res[name])
     err = check_kernel("rollout_grid:composite", rollout, robot, composite,
                        fulls, dt, clearance)
     packed_vs_dense("rollout_grid:composite", rollout, robot, composite,
@@ -855,8 +1169,14 @@ def main():
     # --- 7. the :ee forms at the config-4 shape -------------------------------
     for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
         table[name + ":ee"] = ee_phase(name, rollout, robot, w, fulls, dt,
-                                       clearance, smi)
-    del fulls
+                                       clearance, smi, chain_res[name + ":ee"])
+    # --- 10s. no host sync in a launch ----------------------------------------
+    tm_small = fulls[:4096].permute(2, 1, 0).contiguous()
+    sync_cases = [("rollout_analytic", robot, world, tm_small, None),
+                  ("rollout_grid", robot, grid, tm_small, None),
+                  ("rollout_analytic:runtime", shuffled(robot, 0), world,
+                   tm_small, None)]
+    del fulls, tm_small
     torch.cuda.empty_cache()
 
     # --- 3m. the per-row-world variants at the config-5 shape ---------------
@@ -873,10 +1193,17 @@ def main():
     smooth_ms = {}
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
+        chain_res.update(chain_phase(
+            name, rollout, robot, _tick_world_batch(
+                states5.sphere_center.to(dev),
+                torch.tensor([0.12], device=dev), static),
+            fulls, cfg5.dt, cfg5.collision_clearance, cands_per_row=per5))
+    for name, static in (("rollout_analytic:per_cand_world", world),
+                         ("rollout_grid:per_cand_overlay", grid)):
         *table[name], smooth_ms[name] = percand_phase(
             name, rollout, robot, static, states5.sphere_center.to(dev),
             torch.tensor([0.12], device=dev), fulls, smooth, per5, cfg5.dt,
-            cfg5.collision_clearance, smi)
+            cfg5.collision_clearance, smi, chain_res[name])
     del smooth
     # --- 7. the :ee forms of the per-row variants at the config-5 shape ----
     for name, static in (("rollout_analytic:per_cand_world", world),
@@ -886,8 +1213,16 @@ def main():
                 states5.sphere_center.to(dev),
                 torch.tensor([0.12], device=dev), static),
             fulls, cfg5.dt, cfg5.collision_clearance, smi,
-            cands_per_row=per5)
-    del fulls
+            chain_res[name + ":ee"], cands_per_row=per5)
+    rows5 = 200
+    tm5 = fulls[:rows5 * per5].permute(2, 1, 0).contiguous()
+    for name, static in (("rollout_analytic:per_cand_world", world),
+                         ("rollout_grid:per_cand_overlay", grid)):
+        sync_cases.append((name, robot, _tick_world_batch(
+            states5.sphere_center[:rows5].to(dev),
+            torch.tensor([0.12], device=dev), static), tm5, per5))
+    sync_free_phase(rollout, sync_cases, cfg5.dt, cfg5.collision_clearance)
+    del fulls, tm5, sync_cases
     torch.cuda.empty_cache()
 
     # --- 4 / 4g. plan_batch on config 4 -------------------------------------
@@ -907,6 +1242,13 @@ def main():
         "config4_grid", "rollout_grid", rollout, robot, grid, cfg4, q0b, qNb,
         smi, success_floor=0.5, exact_world=world)
     cuda_vs_cpu_phase("config4_grid", robot, grid, cfg4, q0b, qNb)
+    # --- 10u / 10g. a URDF robot on its chain; a stale joint_static ---------
+    q0u, qNu = torso_problems(q0b, qNb)
+    launches["rollout_analytic"] += plan_batch_phase(
+        "config4_urdf", "rollout_analytic", rollout, urdf_robot, world, cfg4,
+        q0u, qNu, smi, success_floor=0.0)
+    cuda_vs_cpu_phase("config4_urdf", urdf_robot, world, cfg4, q0u, qNu)
+    guard_phase(rollout, robot, world, cfg4, q0b[:64], qNb[:64])
 
     # --- 5 / 5g. plan on config 2 ------------------------------------------
     plan_phase("config2", "rollout_analytic", rollout, robot, world, cfg2,
@@ -995,11 +1337,12 @@ def main():
         "rollout_grid:per_cand_overlay:ee":
             f"{pallas}:770 + _grid_finish per_cand + ee_out frame",
     }
-    # each kernel's bound at the shape it was timed at
+    # each kernel's bound at the shape it was timed at, on the chain it ran
+    # (arm_7dof's static chain)
     voxels = grid.grid.numel()
     nb, d = robot.num_bodies, robot.num_joints
+    fk = fk_ops(rollout, robot)
     C5, T5 = B5 * per5, cfg5.num_timesteps + 2
-    rotf = not robot.rot_fixed_identity
     nx4 = world.box_half.shape[0]
     shapes = {
         "rollout_analytic": dict(C=C, T=T, ns=0, nx=nx4),
@@ -1013,7 +1356,7 @@ def main():
     rows = []
     for name in replaces:
         base = name[:-3] if name.endswith(":ee") else name
-        bound_ms, bound_by = bound(d=d, nb=nb, rotf=rotf,
+        bound_ms, bound_by = bound(d=d, fk=fk, nb=nb,
                                    ee=name.endswith(":ee"), **shapes[base])
         rows.append({
             "name": name,
@@ -1027,6 +1370,9 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,   # no single PyTorch call computes FK→SDF→cost
+            "runtime_ms": chain_res[name]["runtime_ms"],
+            "static_vs_runtime_max_abs":
+                chain_res[name]["static_vs_runtime_max_abs"],
         })
         if name in smooth_ms:
             rows[-1]["ms_smooth"] = smooth_ms[name]

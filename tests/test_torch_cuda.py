@@ -1,7 +1,8 @@
 """On the card: the CUDA evaluator kernels (rollout_analytic, rollout_grid,
 their per-row-world variants rollout_analytic:per_cand_world and
-rollout_grid:per_cand_overlay, and the ``:ee`` form of all four) against
-their plain PyTorch version (mirrors the kernel phases of chip_smoke.py),
+rollout_grid:per_cand_overlay, and the ``:ee`` form of all four, on a
+robot's static chain and on the runtime chain) against their plain PyTorch
+version and each other (mirrors the kernel phases of chip_smoke.py),
 including the edges of the skeleton's segment plan (waypoint counts around
 30 a warp, ragged candidate tiles, rows of 1/3/21 candidates, masked warps,
 shared and per-row worlds within and above the kernels' register budget),
@@ -730,3 +731,211 @@ def test_planar_2r_matches_plain(cuda_device, kind):
     q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.05, 0.05)
     torch.testing.assert_close(q_k, q_p, **Q_TOL)
     torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+
+
+# ---- the joint chain (the TPU kernels' static_joints) ----------------------
+
+def _rz(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+
+# A torso lift (prismatic, +z) under a 3-joint arm and a wrist: a negated
+# axis, a general axis, rpy on two joints (rot_fixed_identity False), a
+# fixed tool link, cylinder and box geometry. Also read by
+# tests/test_torch_urdf.py.
+TORSO_ARM_URDF = """
+<robot name="torso_arm">
+  <link name="base"/>
+  <link name="torso">
+    <collision><origin xyz="0 0 0.2"/>
+      <geometry><box size="0.1 0.1 0.3"/></geometry></collision>
+  </link>
+  <link name="upper">
+    <collision><origin xyz="0.15 0 0" rpy="0 1.5707963267948966 0"/>
+      <geometry><cylinder radius="0.05" length="0.3"/></geometry></collision>
+  </link>
+  <link name="fore">
+    <collision><origin xyz="0.12 0 0"/>
+      <geometry><box size="0.24 0.06 0.06"/></geometry></collision>
+  </link>
+  <link name="hand"/>
+  <link name="tool">
+    <collision><geometry><sphere radius="0.03"/></geometry></collision>
+  </link>
+  <joint name="lift" type="prismatic">
+    <parent link="base"/><child link="torso"/>
+    <origin xyz="0 0 0.3"/><axis xyz="0 0 1"/>
+    <limit lower="0" upper="0.3"/>
+  </joint>
+  <joint name="shoulder" type="revolute">
+    <parent link="torso"/><child link="upper"/>
+    <origin xyz="0 0 0.4" rpy="0 0 0.4"/><axis xyz="0 -1 0"/>
+    <limit lower="-1.5" upper="1.5"/>
+  </joint>
+  <joint name="elbow" type="revolute">
+    <parent link="upper"/><child link="fore"/>
+    <origin xyz="0.3 0 0" rpy="0.2 0 0"/><axis xyz="0.6 0 0.8"/>
+    <limit lower="-2" upper="2"/>
+  </joint>
+  <joint name="wrist" type="continuous">
+    <parent link="fore"/><child link="hand"/>
+    <origin xyz="0.24 0 0"/><axis xyz="1 0 0"/>
+  </joint>
+  <joint name="tool_mount" type="fixed">
+    <parent link="hand"/><child link="tool"/>
+    <origin xyz="0.08 0 0"/>
+  </joint>
+</robot>
+"""
+
+
+def rpr_robot(m):
+    """The RPR chain of tests/unit/test_rollout_kernel.py:88-110: a
+    prismatic joint and non-identity fixed rotations (m: either package's
+    robot.model)."""
+    return m._spec(
+        joint_axis=[[0, 0, 1], [1, 0, 0], [0, 1, 0]],
+        joint_offset=[[0, 0, 0.3], [0.4, 0, 0], [0.3, 0, 0]],
+        joint_rot=np.stack([_rz(0.3), _rz(-0.5), _rz(0.2)]),
+        lower=[-3.0, 0.0, -3.0], upper=[3.0, 0.6, 3.0],
+        limited=[True, True, True], joint_type=[0, 1, 0],
+        body_link=[0, 1, 2, 2],
+        body_offset=[[0.2, 0, 0], [0.1, 0, 0], [0.15, 0, 0], [0.3, 0, 0]],
+        body_radius=[0.06, 0.05, 0.05, 0.04])
+
+
+def general_axis_robot(m):
+    """General (non-0/±1) and negative axis components, a prismatic joint
+    along a general axis, fixed rotations, bodies out of link order."""
+    return m._spec(
+        joint_axis=[[0.6, 0.0, 0.8], [0.0, -1.0, 0.0], [0.0, 0.8, -0.6],
+                    [-1.0, 0.0, 0.0]],
+        joint_offset=[[0, 0, 0.4], [0.1, 0, 0], [0.3, 0.05, 0],
+                      [0.2, 0, 0]],
+        joint_rot=np.stack([np.eye(3), _rz(0.25), np.eye(3), _rz(-0.6)]),
+        lower=[-2.0, -1.5, -0.3, -2.0], upper=[2.0, 1.5, 0.3, 2.0],
+        limited=[True] * 4, joint_type=[0, 0, 1, 0],
+        body_link=[3, 0, 1, 1, 2, 3], body_offset=np.random.default_rng(
+            0).uniform(-0.15, 0.15, (6, 3)), body_radius=[0.05] * 6)
+
+
+def _chain_robot(name):
+    """Robots whose static chains fold differently: the built-ins (unit
+    axes), an RPR chain with a prismatic joint and fixed rotations, general
+    and negative axis components (one prismatic), and a URDF robot."""
+    from tpustomp_torch.robot import load_urdf
+
+    if name == "arm_7dof":
+        return tmodel.arm_7dof()
+    if name == "planar_2r":
+        return tmodel.planar_2r(bodies_per_link=3)
+    if name == "rpr_prismatic":
+        return rpr_robot(tmodel)
+    if name == "general_axis":
+        return general_axis_robot(tmodel)
+    return load_urdf(TORSO_ARM_URDF)
+
+
+def _variant_world(variant, R):
+    if variant == "rollout_analytic":
+        return AnalyticWorld.make(**_WORLDS["spheres_boxes"]), None
+    if variant == "rollout_grid":
+        return _voxel_world("grid"), None
+    if variant == "rollout_analytic:per_cand_world":
+        return _row_world("analytic", R, 5, ns=1, nx=2), 21
+    return _row_world("composite", R, 5, ns=1), 21
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(_EE_WORLDS))
+@pytest.mark.parametrize("robot_name", ["arm_7dof", "planar_2r",
+                                        "rpr_prismatic", "general_axis",
+                                        "urdf_torso_arm"])
+def test_static_chain_matches_runtime_and_plain(cuda_device, robot_name,
+                                                variant):
+    """Every variant and its :ee form on the robot's static chain against
+    the plain version and against the runtime chain (joint_static=None), at
+    the kernel-vs-plain tolerance, at the segment edges T in {2, 3, 33, 52,
+    102} with a ragged tile and masked rows (zeros; other rows bit for bit
+    as the unmasked launch)."""
+    robot = _chain_robot(robot_name).to(cuda_device)
+    runtime = dataclasses.replace(robot, joint_static=None)
+    assert tr.chain_of(robot) is not None and tr.chain_of(runtime) is None
+    C = 273
+    world, per = _variant_world(variant, C // 21)
+    world = world.to(cuda_device)
+    for T in (2, 3, 33, 52, 102):
+        cand = _cands(robot, C, T, T, cuda_device)
+        tm = cand.permute(2, 1, 0).contiguous()
+        dt = 5.0 / (T - 1)
+        q_p, m_p, ee_p = tr.obstacle_cost_batch_plain(
+            robot, world, cand, dt, 0.05, cands_per_row=per, want_ee=True)
+        active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+        active[::3] = False
+        for ee in (False, True):
+            kw = dict(time_major=True, cands_per_row=per, want_ee=ee)
+            before = dict(tr.LAUNCHES)
+            s = tr.obstacle_cost_batch(robot, world, tm, dt, 0.05, **kw)
+            r = tr.obstacle_cost_batch(runtime, world, tm, dt, 0.05, **kw)
+            sm = tr.obstacle_cost_batch(robot, world, tm, dt, 0.05,
+                                        row_active=active, **kw)
+            form = variant + (":ee" if ee else "")
+            runtime_form = variant + ":runtime" + (":ee" if ee else "")
+            assert {k: tr.LAUNCHES[k] - before[k] for k in before
+                    if tr.LAUNCHES[k] != before[k]} == {form: 2,
+                                                       runtime_form: 1}
+            torch.cuda.synchronize()
+            for ref in ((q_p, m_p, ee_p), r):
+                torch.testing.assert_close(s[0], ref[0], **Q_TOL)
+                torch.testing.assert_close(s[1], ref[1], atol=M_ATOL, rtol=0)
+                if ee:
+                    torch.testing.assert_close(s[2], ref[2], rtol=1e-5,
+                                               atol=2e-5)
+            for a, b in zip(sm[:2], s[:2]):
+                assert torch.equal(a[active], b[active])
+                assert bool((a[~active] == 0).all())
+            if ee:
+                assert torch.equal(sm[2][:, :, active], s[2][:, :, active])
+                assert bool((sm[2][:, :, ~active] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot_name", ["planar_2r", "arm_7dof_3_spheres"])
+def test_chain_mismatch_is_a_launch_error(cuda_device, robot_name):
+    """A library compiled for arm_7dof's chain refuses a robot whose joint
+    or body count differs (cudaErrorInvalidValue, 1): the wrapper raises."""
+    robot = (tmodel.planar_2r() if robot_name == "planar_2r"
+             else tmodel.arm_7dof(spheres_per_link=3)).to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    grid, prims = tr._world_parts(world)
+    cand = _cands(robot, 64, 10, 0, cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        tr._launch(robot, world, grid, prims, None, cand, 0.05, 0.05, None,
+                   False, False, tr.chain_of(tmodel.arm_7dof()))
+
+
+@pytest.mark.cuda
+def test_stale_robot_plans_on_runtime_kernels(cuda_device):
+    """A stale joint_static through plan_batch: a warning, only :runtime
+    launches, and the honest robot's trajectory bit for bit."""
+    import warnings
+
+    robot = tmodel.arm_7dof()
+    axes = robot.joint_axis.clone()
+    axes[1] = torch.tensor([0.0, 0.0, 1.0])
+    stale = dataclasses.replace(robot, joint_axis=axes)
+    honest = dataclasses.replace(stale, joint_static=None)
+    cfg = PlannerConfig(num_timesteps=20, num_rollouts=8, max_iterations=4)
+    prob = ProblemSpec(q0=np.zeros((4, 7), np.float32),
+                       qN=np.full((4, 7), 0.4, np.float32))
+    world = AnalyticWorld.make(**_WORLDS["boxes"])
+    before = dict(tr.LAUNCHES)
+    with pytest.warns(UserWarning, match="joint_static"):
+        got = plan_batch(stale, world, prob, cfg, device=cuda_device)
+    ran = {k for k in before if tr.LAUNCHES[k] != before[k]}
+    assert ran and all(":runtime" in k for k in ran), ran
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", UserWarning)
+        ref = plan_batch(honest, world, prob, cfg, device=cuda_device)
+    assert torch.equal(got.trajectory, ref.trajectory)

@@ -248,11 +248,16 @@ def test_reset_launches():
     tr.LAUNCHES["rollout_grid"] += 2
     tr.LAUNCHES["rollout_analytic:per_cand_world"] += 1
     tr.LAUNCHES["rollout_grid:ee"] += 1
+    tr.LAUNCHES["rollout_analytic:runtime"] += 1
+    tr.LAUNCHES["rollout_grid:per_cand_overlay:runtime:ee"] += 1
     tr.reset_launches()
-    # each variant counts its launches with and without the ee output apart
+    # each variant counts its launches on the static and on the runtime
+    # chain, with and without the ee output, apart
     variants = ("rollout_analytic", "rollout_grid",
                 "rollout_analytic:per_cand_world",
                 "rollout_grid:per_cand_overlay")
-    assert tr.LAUNCHES == {v + ee: 0 for v in variants for ee in ("", ":ee")}
+    assert tr.LAUNCHES == {v + chain + ee: 0 for v in variants
+                           for chain in ("", ":runtime")
+                           for ee in ("", ":ee")}
     # every variant is an entry point of one of the two sources
     assert {src for src, _, _ in tr._ENTRIES.values()} == set(tr._SOURCES)

@@ -25,7 +25,7 @@ from tpustomp_torch.costs.constraints import as_tuple
 from tpustomp_torch.dynamics.device import device_ops
 from tpustomp_torch.engine import solver
 from tpustomp_torch.engine.sampling import draw_hmc, draw_z
-from tpustomp_torch.robot.model import RobotSpec
+from tpustomp_torch.robot.model import RobotSpec, check_joint_static
 from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld, GridSDF
 
 
@@ -65,7 +65,8 @@ def plan_batch(robot: RobotSpec, world, problem: ProblemSpec,
     independent noise streams into the scenario axis (B·R scenarios) and
     keeps the best per query (solver.select_best). constraints: None, one
     OrientationConstraint/PositionConstraint (costs/constraints.py), or a
-    tuple of them.
+    tuple of them. A robot whose joint_static disagrees with its joint
+    arrays plans on the runtime chain, with a warning (check_joint_static).
     """
     check_supported(cfg, constraints)
     if (problem.goal_tolerance_below is not None
@@ -74,6 +75,7 @@ def plan_batch(robot: RobotSpec, world, problem: ProblemSpec,
                                   "tpustomp_torch yet")
     device = _resolve_device(device)
     cfg = resolve_backend(cfg, robot, world)
+    robot = check_joint_static(robot)
     robot, world = robot.to(device), world.to(device)
     constraints = tuple(c.to(device) for c in as_tuple(constraints))
     q0 = torch.as_tensor(problem.q0, dtype=torch.float32, device=device)

@@ -46,35 +46,34 @@ namespace {
 // memory at every use.
 constexpr int kRegisterFloats = 16;
 
-template <class World>
+template <class World, class Chain>
 __global__ void __launch_bounds__(rollout::kBlock) rollout_analytic_kernel(
-    World world, const float* __restrict__ cand,
+    World world, Chain chain, const float* __restrict__ cand,
     const float* __restrict__ params, int n_params,
     const uint8_t* __restrict__ active, float* __restrict__ q_obs,
     float* __restrict__ margin_part, float* __restrict__ ee, int C, int T,
-    int d, int nb, float dt, float clearance, int skip_rotf, int seg_len) {
-  rollout::evaluate(world, cand, params, n_params, active, q_obs, margin_part,
-                    ee, C, T, d, nb, dt, clearance, skip_rotf, seg_len);
+    float dt, float clearance, int seg_len) {
+  rollout::evaluate(world, chain, cand, params, n_params, active, q_obs,
+                    margin_part, ee, C, T, dt, clearance, seg_len);
 }
 
-template <class World>
-int launch(const World& world, const float* cand, const float* params,
-           int n_params, const uint8_t* active, float* q_obs,
-           float* margin_part, float* ee, int C, int T, int d, int nb,
-           float dt, float clearance, int skip_rotf, int seg_len,
-           void* stream) {
+template <class World, class Chain>
+int launch(const World& world, const Chain& chain, const float* cand,
+           const float* params, int n_params, const uint8_t* active,
+           float* q_obs, float* margin_part, float* ee, int C, int T,
+           float dt, float clearance, int seg_len, void* stream) {
   if (C <= 0) return 0;
   const size_t smem =
-      rollout::smem_floats(n_params, d, ee != nullptr) * sizeof(float);
-  const int err =
-      rollout::prepare(rollout_analytic_kernel<World>, smem, seg_len);
+      rollout::smem_floats(n_params, chain.d, ee != nullptr) * sizeof(float);
+  const int err = rollout::prepare(rollout_analytic_kernel<World, Chain>,
+                                   smem, seg_len);
   if (err != 0) return err;
   dim3 grid((C + rollout::kCands - 1) / rollout::kCands,
             (T + seg_len - 1) / seg_len);
-  rollout_analytic_kernel<World><<<grid, rollout::kBlock, smem,
-                                   (cudaStream_t)stream>>>(
-      world, cand, params, n_params, active, q_obs, margin_part, ee, C, T, d,
-      nb, dt, clearance, skip_rotf, seg_len);
+  rollout_analytic_kernel<World, Chain><<<grid, rollout::kBlock, smem,
+                                          (cudaStream_t)stream>>>(
+      world, chain, cand, params, n_params, active, q_obs, margin_part, ee,
+      C, T, dt, clearance, seg_len);
   return (int)cudaGetLastError();
 }
 
@@ -82,7 +81,8 @@ int launch(const World& world, const float* cand, const float* params,
 
 // Every entry point ends with the same tail: active (or null), q_obs,
 // margin_part ([segments, C]), ee ([12, T, C], or null: no frame output),
-// then the shapes, the scalars and the segment length.
+// then the shapes, the scalars and the segment length. d, nb and skip_rotf
+// must match the library's chain (rollout_common.cuh with_chain).
 
 // A world shared by every candidate: its primitives are in params.
 extern "C" int rollout_analytic_launch(
@@ -90,11 +90,14 @@ extern "C" int rollout_analytic_launch(
     const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
     int T, int d, int nb, int ns, int nx, float dt, float clearance,
     int skip_rotf, int seg_len, void* stream) {
-  return rollout::with_register_counts<kRegisterFloats>(ns, nx, [&](auto k) {
-    using K = decltype(k);
-    return launch(rollout::SharedPrims<K::ns, K::nx>{ns, nx}, cand, params,
-                  n_params, active, q_obs, margin_part, ee, C, T, d, nb, dt,
-                  clearance, skip_rotf, seg_len, stream);
+  return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
+    return rollout::with_register_counts<kRegisterFloats>(
+        ns, nx, [&](auto k) {
+          using K = decltype(k);
+          return launch(rollout::SharedPrims<K::ns, K::nx>{ns, nx}, chain,
+                        cand, params, n_params, active, q_obs, margin_part,
+                        ee, C, T, dt, clearance, seg_len, stream);
+        });
   });
 }
 
@@ -106,11 +109,15 @@ extern "C" int rollout_analytic_rows_launch(
     const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
     int T, int d, int nb, int ns, int nx, float dt, float clearance,
     int skip_rotf, int seg_len, void* stream) {
-  return rollout::with_register_counts<kRegisterFloats>(ns, nx, [&](auto k) {
-    using K = decltype(k);
-    return launch(rollout::RowPrims<K::ns, K::nx>{spheres, boxes, ns, nx,
-                                                  cands_per_row},
-                  cand, params, n_params, active, q_obs, margin_part, ee, C,
-                  T, d, nb, dt, clearance, skip_rotf, seg_len, stream);
+  return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
+    return rollout::with_register_counts<kRegisterFloats>(
+        ns, nx, [&](auto k) {
+          using K = decltype(k);
+          return launch(rollout::RowPrims<K::ns, K::nx>{spheres, boxes, ns,
+                                                        nx, cands_per_row},
+                        chain, cand, params, n_params, active, q_obs,
+                        margin_part, ee, C, T, dt, clearance, seg_len,
+                        stream);
+        });
   });
 }

@@ -1,7 +1,8 @@
 // Shared skeleton of the fused rollout evaluators for Hopper (sm_90a):
 // rollout_analytic.cu (sphere/box worlds) and rollout_grid.cu (voxel grid,
 // optionally with a sphere/box overlay). Both are this one template,
-// evaluate<World>, with a different distance policy.
+// evaluate<World, Chain>, with a different distance policy; the Chain
+// policy walks the robot's joints (see "Joint chains" below).
 //
 // Per candidate trajectory c and waypoint t it computes forward kinematics
 // down the joint chain, the world position of every sphere body, the signed
@@ -56,8 +57,22 @@
 //     (the position constraint applies it): 48 bytes of stores per
 //     (candidate, waypoint) and no arithmetic, so q_obs and margin are the
 //     same with or without it.
-// Joint type and axis are read at run time; bodies must be link-sorted (the
-// wrapper sorts robots that are not, on the device).
+// Bodies must be link-sorted (the wrapper sorts robots that are not, on the
+// device).
+//
+// Joint chains (the TPU kernel's static_joints, rollout_pallas.py:372-391,
+// 536-571). A library built without ROLLOUT_CHAIN runs RuntimeChain: joint
+// type and axis read from the parameters at run time, a branch per joint,
+// loops to the run-time d and body_start. A library built with
+// -DROLLOUT_CHAIN=chain_<skip_rotf>_<type>_<ax>_<ay>_<az>_<n_bodies>_...
+// (five codes a joint, -1 spelled n1; kernels/rollout.py chain_of and
+// _nvcc_flags) runs that robot's StaticChain: the joint and
+// body loops unrolled, each joint's type resolved, and each axis component
+// coded 0, +1, -1 or kOther and folded as the reference's _cmul/_csum fold
+// it (a prismatic joint skips sincosf and translates along the live
+// components only; a revolute joint builds only the live entries of G and
+// multiplies R·G over them; a kOther value is read from the parameters).
+// Offsets, fixed rotations and bodies stay run-time values in both.
 //
 // Packed parameter layout (float32; built by kernels/rollout.py:pack_params):
 //   [0, 9)            base rotation, row-major
@@ -65,7 +80,8 @@
 //   12 + 16*j + ...   joint j: type (0 revolute, 1 prismatic), axis[3],
 //                     offset[3], fixed rotation[9] row-major
 //   PB = 12 + 16*d    body_start[d+1]: bodies of joint j are
-//                     [body_start[j], body_start[j+1]) (link-sorted)
+//                     [body_start[j], body_start[j+1]) (link-sorted; the
+//                     static chain has them compiled in)
 //   PB + d + 1 + 4*b  body b: offset[3], radius
 //   W = PB + d + 1 + 4*nb: the world section, read by the World policy:
 //     4 per sphere (center[3], radius), then 6 per box (center[3], half[3]),
@@ -76,6 +92,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <utility>
 
 namespace rollout {
 
@@ -223,22 +241,298 @@ inline size_t smem_floats(int n_params, int d, bool ee) {
          + kWarp + (ee ? 12 * kWarp * kPitch : 0);
 }
 
+// ---- Joint chains -----------------------------------------------------------
+// A chain's walk(P, q_of, R, p, body) runs the FK of one waypoint from the
+// base frame (R, p): for each joint j it moves the frame to the joint's
+// origin, applies the joint's motion at q_of[j * kWarp * kPitch], then calls
+// body(b) for each body b on that joint with the frame live. It has d, nb
+// and skip_rotf (every fixed rotation is the identity: R·RotFixed skipped).
+
+// p += R · offset, then R = R · RotFixed unless skip_rotf; J: joint j's
+// parameters.
+__device__ __forceinline__ void joint_origin(const float* J, bool skip_rotf,
+                                             float (&R)[9], float (&p)[3]) {
+  const float o0 = J[4], o1 = J[5], o2 = J[6];
+  p[0] = p[0] + R[0] * o0 + R[1] * o1 + R[2] * o2;
+  p[1] = p[1] + R[3] * o0 + R[4] * o1 + R[5] * o2;
+  p[2] = p[2] + R[6] * o0 + R[7] * o1 + R[8] * o2;
+  if (!skip_rotf) {
+    float Rn[9];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        Rn[3 * i + k] = R[3 * i] * J[7 + k] + R[3 * i + 1] * J[10 + k]
+                        + R[3 * i + 2] * J[13 + k];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+  }
+}
+
+// Joint type and axis read at run time (robots without a static chain, and
+// robots with body_counts=None, which the wrapper sorts on the device).
+struct RuntimeChain {
+  int d, nb, skip_rotf;
+
+  template <class Body>
+  __device__ __forceinline__ void walk(const float* P, const float* q_of,
+                                       float (&R)[9], float (&p)[3],
+                                       Body& body) const {
+    const int body_start = 12 + 16 * d;
+    for (int j = 0; j < d; ++j) {
+      const float* J = P + 12 + 16 * j;
+      joint_origin(J, skip_rotf, R, p);
+      const float x = J[1], y = J[2], z = J[3];
+      const float q = q_of[j * kWarp * kPitch];
+      if (J[0] != 0.0f) {
+        // prismatic: translate along the world-frame axis, rotation unchanged
+        const float aw0 = R[0] * x + R[1] * y + R[2] * z;
+        const float aw1 = R[3] * x + R[4] * y + R[5] * z;
+        const float aw2 = R[6] * x + R[7] * y + R[8] * z;
+        p[0] = p[0] + aw0 * q;
+        p[1] = p[1] + aw1 * q;
+        p[2] = p[2] + aw2 * q;
+      } else {
+        // revolute: R <- R @ rodrigues(axis, q)
+        float s, co;
+        sincosf(q, &s, &co);
+        const float oc = 1.0f - co;
+        const float G[9] = {co + x * x * oc,     x * y * oc - z * s, x * z * oc + y * s,
+                            y * x * oc + z * s,  co + y * y * oc,    y * z * oc - x * s,
+                            z * x * oc - y * s,  z * y * oc + x * s, co + z * z * oc};
+        float Rn[9];
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            Rn[3 * i + k] = R[3 * i] * G[k] + R[3 * i + 1] * G[3 + k]
+                            + R[3 * i + 2] * G[6 + k];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+      }
+      const int b_hi = (int)P[body_start + j + 1];
+      for (int b = (int)P[body_start + j]; b < b_hi; ++b) body(b);
+    }
+  }
+};
+
+// The code of an axis component, or of a product of two, in a static chain:
+// exactly 0, +1 or -1, or kOther (a value read from the parameters at run
+// time, as the TPU kernel multiplies its Python float).
+constexpr int kOther = 2;
+__host__ __device__ constexpr int code_mul(int a, int b) {
+  return (a == 0 || b == 0) ? 0
+         : (a == kOther || b == kOther) ? kOther : a * b;
+}
+__host__ __device__ constexpr int code_neg(int a) {
+  return a == kOther ? kOther : -a;
+}
+
+// k·e with k folded by its code K (the reference's _cmul): e, -e or k·e.
+template <int K>
+__device__ __forceinline__ float cmul(float k, float e) {
+  static_assert(K == 1 || K == -1 || K == kOther, "a zero term is dropped");
+  if constexpr (K == 1) return e;
+  else if constexpr (K == -1) return -e;
+  else return k * e;
+}
+
+// The sum, left to right, of the terms k_i·e_i whose code K_i is not 0 (the
+// reference's _csum); at least one term is live.
+template <int K0, int K1, int K2 = 0>
+__device__ __forceinline__ float csum(float k0, float e0, float k1, float e1,
+                                      float k2 = 0.0f, float e2 = 0.0f) {
+  static_assert(K0 != 0 || K1 != 0 || K2 != 0, "an empty sum is folded out");
+  float s = 0.0f;
+  if constexpr (K0 != 0) s = cmul<K0>(k0, e0);
+  if constexpr (K1 != 0) {
+    if constexpr (K0 != 0) s = s + cmul<K1>(k1, e1);
+    else s = cmul<K1>(k1, e1);
+  }
+  if constexpr (K2 != 0) {
+    if constexpr (K0 != 0 || K1 != 0) s = s + cmul<K2>(k2, e2);
+    else s = cmul<K2>(k2, e2);
+  }
+  return s;
+}
+
+// An off-diagonal entry of G: k_oc·oc + k_s·s; absent (0 here, never read)
+// when both codes are 0.
+template <int Koc, int Ks>
+__device__ __forceinline__ float g_off(float k_oc, float oc, float k_s,
+                                       float s) {
+  if constexpr (Koc == 0 && Ks == 0) return 0.0f;
+  else return csum<Koc, Ks>(k_oc, oc, k_s, s);
+}
+
+// One joint of a static chain: its type (0 revolute, 1 prismatic), the
+// codes of its axis, and the number of bodies it carries.
+template <int Type, int AX, int AY, int AZ, int NBodies>
+struct Joint {
+  static constexpr int n_bodies = NBodies;
+
+  // The joint's motion at q; J[1..3] is the axis (read where kOther).
+  __device__ __forceinline__ static void move(const float* J, float q,
+                                              float (&R)[9], float (&p)[3]) {
+    const float x = J[1], y = J[2], z = J[3];
+    if constexpr (Type != 0) {
+      // prismatic: translate along the live components, rotation unchanged
+      if constexpr (AX != 0 || AY != 0 || AZ != 0) {
+#pragma unroll
+        for (int i = 0; i < 3; ++i)
+          p[i] = p[i] + csum<AX, AY, AZ>(x, R[3 * i], y, R[3 * i + 1], z,
+                                         R[3 * i + 2]) * q;
+      }
+    } else {
+      // revolute: R <- R @ G, G = rodrigues(axis, q) with its live terms
+      constexpr int XX = code_mul(AX, AX), YY = code_mul(AY, AY),
+                    ZZ = code_mul(AZ, AZ), XY = code_mul(AX, AY),
+                    XZ = code_mul(AX, AZ), YZ = code_mul(AY, AZ);
+      // which entries of G are live: kOther (multiplied) or 0 (absent)
+      constexpr int L[9] = {
+          kOther, (XY || AZ) ? kOther : 0, (XZ || AY) ? kOther : 0,
+          (XY || AZ) ? kOther : 0, kOther, (YZ || AX) ? kOther : 0,
+          (XZ || AY) ? kOther : 0, (YZ || AX) ? kOther : 0, kOther};
+      float s, co;
+      sincosf(q, &s, &co);
+      const float oc = 1.0f - co;
+      const float G[9] = {
+          csum<1, XX>(1.0f, co, x * x, oc),
+          g_off<XY, code_neg(AZ)>(x * y, oc, -z, s),
+          g_off<XZ, AY>(x * z, oc, y, s),
+          g_off<XY, AZ>(y * x, oc, z, s),
+          csum<1, YY>(1.0f, co, y * y, oc),
+          g_off<YZ, code_neg(AX)>(y * z, oc, -x, s),
+          g_off<XZ, code_neg(AY)>(z * x, oc, -y, s),
+          g_off<YZ, AX>(z * y, oc, x, s),
+          csum<1, ZZ>(1.0f, co, z * z, oc)};
+      float Rn[9];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        Rn[3 * i] = csum<L[0], L[3], L[6]>(G[0], R[3 * i], G[3], R[3 * i + 1],
+                                           G[6], R[3 * i + 2]);
+        Rn[3 * i + 1] = csum<L[1], L[4], L[7]>(
+            G[1], R[3 * i], G[4], R[3 * i + 1], G[7], R[3 * i + 2]);
+        Rn[3 * i + 2] = csum<L[2], L[5], L[8]>(
+            G[2], R[3 * i], G[5], R[3 * i + 1], G[8], R[3 * i + 2]);
+      }
+#pragma unroll
+      for (int k = 0; k < 9; ++k) R[k] = Rn[k];
+    }
+  }
+};
+
+// A robot compiled in: the joint loop and each joint's body loop unrolled.
+template <int SkipRotf, class... Joints>
+struct StaticChain {
+  static constexpr int d = sizeof...(Joints);
+  static constexpr int nb = (0 + ... + Joints::n_bodies);
+  static constexpr int skip_rotf = SkipRotf;
+
+  template <class Body>
+  __device__ __forceinline__ void walk(const float* P, const float* q_of,
+                                       float (&R)[9], float (&p)[3],
+                                       Body& body) const {
+    step<0, 0, Joints...>(P, q_of, R, p, body);
+  }
+
+ private:
+  template <int J, int B, class First, class... Rest, class Body>
+  __device__ __forceinline__ static void step(const float* P,
+                                              const float* q_of,
+                                              float (&R)[9], float (&p)[3],
+                                              Body& body) {
+    const float* Jp = P + 12 + 16 * J;
+    joint_origin(Jp, SkipRotf != 0, R, p);
+    First::move(Jp, q_of[J * kWarp * kPitch], R, p);
+#pragma unroll
+    for (int b = B; b < B + First::n_bodies; ++b) body(b);
+    if constexpr (sizeof...(Rest) > 0)
+      step<J + 1, B + First::n_bodies, Rest...>(P, q_of, R, p, body);
+  }
+};
+
+// ChainOf<skip_rotf, type, ax, ay, az, n_bodies, ...>::type: the
+// StaticChain of the codes the wrapper passes as -DROLLOUT_CHAIN (five a
+// joint).
+template <class Chain, int... Codes>
+struct AppendJoints {
+  static_assert(sizeof...(Codes) == 0, "five codes a joint");
+  using type = Chain;
+};
+template <int S, class... Js, int Ty, int X, int Y, int Z, int N,
+          int... More>
+struct AppendJoints<StaticChain<S, Js...>, Ty, X, Y, Z, N, More...> {
+  using type = typename AppendJoints<
+      StaticChain<S, Js..., Joint<Ty, X, Y, Z, N>>, More...>::type;
+};
+template <int SkipRotf, int... Codes>
+struct ChainOf {
+  using type = typename AppendJoints<StaticChain<SkipRotf>, Codes...>::type;
+};
+
+// The codes of -DROLLOUT_CHAIN=chain_<code>_<code>..., one identifier (nvcc
+// splits a definition's value at commas), a negative code written n<abs>:
+// how many there are in its spelling s, and the i-th.
+__host__ __device__ constexpr int chain_codes(const char* s) {
+  int n = 0;
+  for (; *s; ++s) n += *s == '_';
+  return n;
+}
+__host__ __device__ constexpr int chain_code(const char* s, int i) {
+  for (int k = -1; k < i; ++s)
+    if (*s == '_') ++k;
+  const int sign = *s == 'n' ? -1 : 1;
+  if (*s == 'n') ++s;
+  int v = 0;
+  for (; *s >= '0' && *s <= '9'; ++s) v = 10 * v + (*s - '0');
+  return sign * v;
+}
+#ifdef ROLLOUT_CHAIN
+#define ROLLOUT_SPELL2(x) #x
+#define ROLLOUT_SPELL(x) ROLLOUT_SPELL2(x)
+template <int... I>
+typename ChainOf<chain_code(ROLLOUT_SPELL(ROLLOUT_CHAIN), I)...>::type
+chain_of_codes(
+    std::integer_sequence<int, I...>);
+using CompiledChain = decltype(chain_of_codes(std::make_integer_sequence<
+    int, chain_codes(ROLLOUT_SPELL(ROLLOUT_CHAIN))>{}));
+#endif
+
+// launch(chain) with the chain this library was built for: the robot's
+// StaticChain under -DROLLOUT_CHAIN (cudaErrorInvalidValue when d, nb or
+// skip_rotf disagree with it), else RuntimeChain.
+template <class F>
+inline int with_chain(int d, int nb, int skip_rotf, F launch) {
+#ifdef ROLLOUT_CHAIN
+  using Chain = CompiledChain;
+  static_assert(Chain::d > 0, "ROLLOUT_CHAIN names no joint");
+  if (d != Chain::d || nb != Chain::nb || skip_rotf != Chain::skip_rotf)
+    return (int)cudaErrorInvalidValue;
+  return launch(Chain{});
+#else
+  return launch(RuntimeChain{d, nb, skip_rotf});
+#endif
+}
+
 // The kernel body; launched as a grid of (ceil(C / kCands), segments)
 // blocks of kBlock threads. World is a policy with
 //   __device__ Dist at(const float* W, int c) const
 // binding candidate c's distance once per warp: Dist is callable as
 // dist(x0, x1, x2), the signed distance at a body center (W: the world
-// section of the shared-memory parameters).
-template <class World>
+// section of the shared-memory parameters). Chain is RuntimeChain or a
+// StaticChain (with_chain).
+template <class World, class Chain>
 __device__ __forceinline__ void evaluate(
-    const World& world, const float* __restrict__ cand,   // [d, T, C]
+    const World& world, const Chain& chain,
+    const float* __restrict__ cand,                       // [d, T, C]
     const float* __restrict__ params, int n_params,
     const uint8_t* __restrict__ active,                   // [C] or nullptr
     float* __restrict__ q_obs,                            // [T, C]
     float* __restrict__ margin_part,                      // [segments, C]
     float* __restrict__ ee,                               // [12, T, C] or nullptr
-    int C, int T, int d, int nb, float dt, float clearance, int skip_rotf,
-    int seg_len) {
+    int C, int T, float dt, float clearance, int seg_len) {
+  const int d = chain.d, nb = chain.nb;
   extern __shared__ float smem[];
   float* P = smem;
   float* tile = smem + ((n_params + 31) & ~31);   // [d][kWarp][kPitch]
@@ -291,98 +585,53 @@ __device__ __forceinline__ void evaluate(
     for (int k = 0; k < 9; ++k) R[k] = P[k];
     p[0] = P[9]; p[1] = P[10]; p[2] = P[11];
     float acc = 0.0f, margin = kBig;
-    for (int j = 0; j < d; ++j) {
-      const float* J = P + 12 + 16 * j;
-      const float o0 = J[4], o1 = J[5], o2 = J[6];
-      p[0] = p[0] + R[0] * o0 + R[1] * o1 + R[2] * o2;
-      p[1] = p[1] + R[3] * o0 + R[4] * o1 + R[5] * o2;
-      p[2] = p[2] + R[6] * o0 + R[7] * o1 + R[8] * o2;
-      if (!skip_rotf) {
-        float Rn[9];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            Rn[3 * i + k] = R[3 * i] * J[7 + k] + R[3 * i + 1] * J[10 + k]
-                            + R[3 * i + 2] * J[13 + k];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-      }
-      const float x = J[1], y = J[2], z = J[3];
-      const float q = q_of[j * kWarp * kPitch];
-      if (J[0] != 0.0f) {
-        // prismatic: translate along the world-frame axis, rotation unchanged
-        const float aw0 = R[0] * x + R[1] * y + R[2] * z;
-        const float aw1 = R[3] * x + R[4] * y + R[5] * z;
-        const float aw2 = R[6] * x + R[7] * y + R[8] * z;
-        p[0] = p[0] + aw0 * q;
-        p[1] = p[1] + aw1 * q;
-        p[2] = p[2] + aw2 * q;
-      } else {
-        // revolute: R <- R @ rodrigues(axis, q)
-        float s, co;
-        sincosf(q, &s, &co);
-        const float oc = 1.0f - co;
-        const float G[9] = {co + x * x * oc,     x * y * oc - z * s, x * z * oc + y * s,
-                            y * x * oc + z * s,  co + y * y * oc,    y * z * oc - x * s,
-                            z * x * oc - y * s,  z * y * oc + x * s, co + z * z * oc};
-        float Rn[9];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int k = 0; k < 3; ++k)
-            Rn[3 * i + k] = R[3 * i] * G[k] + R[3 * i + 1] * G[3 + k]
-                            + R[3 * i + 2] * G[6 + k];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) R[k] = Rn[k];
-      }
-      const int b_hi = (int)P[body_start + j + 1];
-      for (int b = (int)P[body_start + j]; b < b_hi; ++b) {
-        const float* Bd = P + body_base + 4 * b;
-        const float e0 = Bd[0], e1 = Bd[1], e2 = Bd[2];
-        const float x0 = p[0] + R[0] * e0 + R[1] * e1 + R[2] * e2;
-        const float x1 = p[1] + R[3] * e0 + R[4] * e1 + R[5] * e2;
-        const float x2 = p[2] + R[6] * e0 + R[7] * e1 + R[8] * e2;
-        // the body at t - 1 and t + 1: the neighbouring lanes
-        const float u0 = __shfl_up_sync(kFull, x0, 1);
-        const float u1 = __shfl_up_sync(kFull, x1, 1);
-        const float u2 = __shfl_up_sync(kFull, x2, 1);
-        const float n0 = __shfl_down_sync(kFull, x0, 1);
-        const float n1 = __shfl_down_sync(kFull, x1, 1);
-        const float n2 = __shfl_down_sync(kFull, x2, 1);
-        if (own) {
-          float v0, v1, v2;
-          if (t == 0) {
-            v0 = (n0 - x0) * inv_dt;
-            v1 = (n1 - x1) * inv_dt;
-            v2 = (n2 - x2) * inv_dt;
-          } else if (t == T - 1) {
-            v0 = (x0 - u0) * inv_dt;
-            v1 = (x1 - u1) * inv_dt;
-            v2 = (x2 - u2) * inv_dt;
-          } else {
-            v0 = (n0 - u0) * inv_2dt;
-            v1 = (n1 - u1) * inv_2dt;
-            v2 = (n2 - u2) * inv_2dt;
-          }
-          const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
-          const float dist = dist_at(x0, x1, x2);
-          const float radius = Bd[3];
-          const float d_sig = dist - radius - clearance;
-          float pot;
-          if (d_sig < 0.0f) {
-            pot = -d_sig + 0.5f * clearance;
-          } else if (d_sig <= clearance) {
-            const float e = d_sig - clearance;
-            pot = e * e / (2.0f * clearance);
-          } else {
-            pot = 0.0f;
-          }
-          acc += pot * speed;
-          margin = fminf(margin, dist - radius);
+    // one body of the current joint, with the joint's frame (R, p) live
+    auto body = [&](int b) {
+      const float* Bd = P + body_base + 4 * b;
+      const float e0 = Bd[0], e1 = Bd[1], e2 = Bd[2];
+      const float x0 = p[0] + R[0] * e0 + R[1] * e1 + R[2] * e2;
+      const float x1 = p[1] + R[3] * e0 + R[4] * e1 + R[5] * e2;
+      const float x2 = p[2] + R[6] * e0 + R[7] * e1 + R[8] * e2;
+      // the body at t - 1 and t + 1: the neighbouring lanes
+      const float u0 = __shfl_up_sync(kFull, x0, 1);
+      const float u1 = __shfl_up_sync(kFull, x1, 1);
+      const float u2 = __shfl_up_sync(kFull, x2, 1);
+      const float n0 = __shfl_down_sync(kFull, x0, 1);
+      const float n1 = __shfl_down_sync(kFull, x1, 1);
+      const float n2 = __shfl_down_sync(kFull, x2, 1);
+      if (own) {
+        float v0, v1, v2;
+        if (t == 0) {
+          v0 = (n0 - x0) * inv_dt;
+          v1 = (n1 - x1) * inv_dt;
+          v2 = (n2 - x2) * inv_dt;
+        } else if (t == T - 1) {
+          v0 = (x0 - u0) * inv_dt;
+          v1 = (x1 - u1) * inv_dt;
+          v2 = (x2 - u2) * inv_dt;
+        } else {
+          v0 = (n0 - u0) * inv_2dt;
+          v1 = (n1 - u1) * inv_2dt;
+          v2 = (n2 - u2) * inv_2dt;
         }
+        const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
+        const float dist = dist_at(x0, x1, x2);
+        const float radius = Bd[3];
+        const float d_sig = dist - radius - clearance;
+        float pot;
+        if (d_sig < 0.0f) {
+          pot = -d_sig + 0.5f * clearance;
+        } else if (d_sig <= clearance) {
+          const float e = d_sig - clearance;
+          pot = e * e / (2.0f * clearance);
+        } else {
+          pot = 0.0f;
+        }
+        acc += pot * speed;
+        margin = fminf(margin, dist - radius);
       }
-    }
+    };
+    chain.walk(P, q_of, R, p, body);
     *q_at = acc * dt;
     if (ee != nullptr) {
 #pragma unroll

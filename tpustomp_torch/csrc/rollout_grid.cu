@@ -158,35 +158,34 @@ struct GridRowDist {
   }
 };
 
-template <class World>
+template <class World, class Chain>
 __global__ void __launch_bounds__(rollout::kBlock) rollout_grid_kernel(
-    World world, const float* __restrict__ cand,
+    World world, Chain chain, const float* __restrict__ cand,
     const float* __restrict__ params, int n_params,
     const uint8_t* __restrict__ active, float* __restrict__ q_obs,
     float* __restrict__ margin_part, float* __restrict__ ee, int C, int T,
-    int d, int nb, float dt, float clearance, int skip_rotf, int seg_len) {
-  rollout::evaluate(world, cand, params, n_params, active, q_obs,
-                    margin_part, ee, C, T, d, nb, dt, clearance, skip_rotf,
-                    seg_len);
+    float dt, float clearance, int seg_len) {
+  rollout::evaluate(world, chain, cand, params, n_params, active, q_obs,
+                    margin_part, ee, C, T, dt, clearance, seg_len);
 }
 
-template <class World>
-int launch(const World& world, const float* cand, const float* params,
-           int n_params, const uint8_t* active, float* q_obs,
-           float* margin_part, float* ee, int C, int T, int d, int nb,
-           float dt, float clearance, int skip_rotf, int seg_len,
-           void* stream) {
+template <class World, class Chain>
+int launch(const World& world, const Chain& chain, const float* cand,
+           const float* params, int n_params, const uint8_t* active,
+           float* q_obs, float* margin_part, float* ee, int C, int T,
+           float dt, float clearance, int seg_len, void* stream) {
   if (C <= 0) return 0;
   const size_t smem =
-      rollout::smem_floats(n_params, d, ee != nullptr) * sizeof(float);
-  const int err = rollout::prepare(rollout_grid_kernel<World>, smem, seg_len);
+      rollout::smem_floats(n_params, chain.d, ee != nullptr) * sizeof(float);
+  const int err =
+      rollout::prepare(rollout_grid_kernel<World, Chain>, smem, seg_len);
   if (err != 0) return err;
   dim3 blocks((C + rollout::kCands - 1) / rollout::kCands,
               (T + seg_len - 1) / seg_len);
-  rollout_grid_kernel<World><<<blocks, rollout::kBlock, smem,
-                               (cudaStream_t)stream>>>(
-      world, cand, params, n_params, active, q_obs, margin_part, ee, C, T, d,
-      nb, dt, clearance, skip_rotf, seg_len);
+  rollout_grid_kernel<World, Chain><<<blocks, rollout::kBlock, smem,
+                                      (cudaStream_t)stream>>>(
+      world, chain, cand, params, n_params, active, q_obs, margin_part, ee,
+      C, T, dt, clearance, seg_len);
   return (int)cudaGetLastError();
 }
 
@@ -204,11 +203,15 @@ extern "C" int rollout_grid_launch(
     void* stream) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
-  return rollout::with_register_counts<kRegisterFloats>(ns, nx, [&](auto k) {
-    using K = decltype(k);
-    return launch(GridDist<K::ns, K::nx>{dims, {ns, nx}, composite}, cand,
-                  params, n_params, active, q_obs, margin_part, ee, C, T, d,
-                  nb, dt, clearance, skip_rotf, seg_len, stream);
+  return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
+    return rollout::with_register_counts<kRegisterFloats>(
+        ns, nx, [&](auto k) {
+          using K = decltype(k);
+          return launch(GridDist<K::ns, K::nx>{dims, {ns, nx}, composite},
+                        chain, cand, params, n_params, active, q_obs,
+                        margin_part, ee, C, T, dt, clearance, seg_len,
+                        stream);
+        });
   });
 }
 
@@ -222,12 +225,15 @@ extern "C" int rollout_grid_rows_launch(
     int skip_rotf, int seg_len, void* stream) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
-  return rollout::with_register_counts<kRegisterFloats>(ns, nx, [&](auto k) {
-    using K = decltype(k);
-    return launch(
-        GridRowDist<K::ns, K::nx>{
-            dims, {spheres, boxes, ns, nx, cands_per_row}},
-        cand, params, n_params, active, q_obs, margin_part, ee, C, T, d, nb,
-        dt, clearance, skip_rotf, seg_len, stream);
+  return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
+    return rollout::with_register_counts<kRegisterFloats>(
+        ns, nx, [&](auto k) {
+          using K = decltype(k);
+          return launch(
+              GridRowDist<K::ns, K::nx>{
+                  dims, {spheres, boxes, ns, nx, cands_per_row}},
+              chain, cand, params, n_params, active, q_obs, margin_part, ee,
+              C, T, dt, clearance, seg_len, stream);
+        });
   });
 }

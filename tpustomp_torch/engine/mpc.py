@@ -41,7 +41,7 @@ from tpustomp_torch.engine import solver
 from tpustomp_torch.engine.sampling import draw_z
 from tpustomp_torch.engine.trajectory import min_jerk_init, wrap_goal
 from tpustomp_torch.robot.fk import body_positions
-from tpustomp_torch.robot.model import RobotSpec
+from tpustomp_torch.robot.model import RobotSpec, check_joint_static
 from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
                                       sdf)
 
@@ -243,11 +243,14 @@ def run_mpc_batch(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     every scenario's moving spheres. static_world: None, an AnalyticWorld or
     a GridSDF (see _tick_world_batch). Noise: by default one draw_z per
     solver iteration from `generator` (seed 0 on `device` if None);
-    noise_fn(tick, iteration, active) replaces it.
+    noise_fn(tick, iteration, active) replaces it. A robot whose
+    joint_static disagrees with its joint arrays runs on the runtime chain,
+    with a warning (check_joint_static).
     """
     check_supported(cfg)
     device = _resolve_device(device)
     cfg = resolve_backend(cfg, robot, _probe_world(static_world))
+    robot = check_joint_static(robot)
     robot, state = robot.to(device), state.to(device)
     if static_world is not None:
         static_world = static_world.to(device)
@@ -334,6 +337,7 @@ def run_mpc_resilient(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     if chunk_ticks is None:
         chunk_ticks = max(1, min(num_ticks, 10))
     device = _resolve_device(device)
+    robot = check_joint_static(robot)     # once, not once per chunk
     if noise_fn is None and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     state = _to_host(state)

@@ -38,12 +38,22 @@ last joint's position, 3-11 its rotation, row-major; zeros on inactive
 rows), which Cartesian constraints read (costs/constraints.py
 ``constraint_cost_tm``). Asking for it changes neither q_obs nor margin.
 
+The joint chain (the TPU kernels' ``static_joints``, :355, :372-391,
+:536-571). A robot with ``joint_static`` and ``body_counts`` runs its static
+chain: the same sources built with the robot compiled in
+(``-DROLLOUT_CHAIN``, :func:`chain_of`), one library per source and robot,
+built at the robot's first launch. Any other robot (``joint_static=None``,
+or ``body_counts=None``: K1/K2) runs the runtime chain, the build without
+the definition. Both are hand-written kernels; the choice is the robot's,
+as on the TPU (:944-945), never a fallback.
+
 - :func:`obstacle_cost_batch_plain` is the plain PyTorch version
   (costs/obstacle.py, robot/fk.py ``fk_frames``) the kernels are held to.
 - :func:`obstacle_cost_batch` takes the plain version only for tensors on
   the CPU. For CUDA tensors it launches a kernel, or raises; it never falls
-  back. ``LAUNCHES`` counts each kernel variant's launches, the ``:ee``
-  forms under their own names.
+  back. ``LAUNCHES`` counts each kernel variant's launches: ``<variant>`` on
+  the static chain, ``<variant>:runtime`` on the runtime chain, each with
+  its ``:ee`` form.
 """
 
 from __future__ import annotations
@@ -55,8 +65,11 @@ import re
 import shutil
 import subprocess
 import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from tpustomp_torch.costs.obstacle import obstacle_cost
@@ -86,9 +99,13 @@ _ENTRIES = {
 }
 _SOURCES = ("rollout_analytic", "rollout_grid")
 
-# Kernel launches per kernel variant since import (or reset_launches());
-# a launch that also writes the end-effector frame counts as "<variant>:ee".
-LAUNCHES = {name + ee: 0 for name in _ENTRIES for ee in ("", ":ee")}
+# Kernel launches per kernel variant since import (or reset_launches()):
+# "<variant>" on a robot's static chain, "<variant>:runtime" on the runtime
+# chain; a launch that also writes the end-effector frame adds ":ee".
+LAUNCHES = {name + chain + ee: 0 for name in _ENTRIES
+            for chain in ("", ":runtime") for ee in ("", ":ee")}
+# Seconds of each library's first build in this process, by (source, chain).
+BUILD_SECONDS: dict[tuple, float] = {}
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -102,7 +119,11 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _WARP = 32
 _SEG_MAX = _WARP - 2
 
-_libs: dict[str, ctypes.CDLL] = {}
+# A static chain's axis component other than exactly 0, +1 or -1
+# (csrc/rollout_common.cuh kOther): read from the parameters at run time.
+_OTHER = 2
+
+_libs: dict[tuple, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -136,61 +157,108 @@ def _sources(name: str) -> list[Path]:
     return seen
 
 
-def _lib_path(name: str) -> Path:
-    """The library's name carries a hash of the flags and of every source it
-    is built from, so an edited source or header is never served by a
-    stale build."""
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+def chain_of(robot) -> tuple[int, ...] | None:
+    """The static chain the kernels compile in for `robot`: (skip_rotf,
+    then per joint type, ax, ay, az, n_bodies), each axis component coded
+    0, +1, -1 or 2 (any other value, read at run time) — the codes the
+    reference's _cmul folds (rollout_pallas.py:506-571). None (the runtime
+    chain) for a robot without joint_static or body_counts, as the TPU
+    kernel's static_joints (:944-945, :961, :1000, :1040, :1056)."""
+    static, counts = robot.joint_static, robot.body_counts
+    if static is None or counts is None:
+        return None
+    if len(static) != len(counts):
+        raise ValueError(f"joint_static has {len(static)} joints, "
+                         f"body_counts {len(counts)}")
+
+    def code(a):
+        return int(a) if a in (0.0, 1.0, -1.0) else _OTHER
+
+    out = [int(bool(robot.rot_fixed_identity))]
+    for (jtype, ax, ay, az), n in zip(static, counts):
+        out += [int(jtype != 0), code(ax), code(ay), code(az), int(n)]
+    return tuple(out)
+
+
+def chain_definition(chain) -> str:
+    """The chain as nvcc's definition: one identifier, since nvcc splits a
+    value at commas: ``-DROLLOUT_CHAIN=chain_1_0_0_n1_...`` (n: minus),
+    which csrc/rollout_common.cuh reads back."""
+    return "-DROLLOUT_CHAIN=chain" + "".join(
+        f"_{'n' if c < 0 else ''}{abs(c)}" for c in chain)
+
+
+def _nvcc_flags(chain) -> tuple[str, ...]:
+    """nvcc's flags for a library of `chain` (None: the runtime chain)."""
+    if chain is None:
+        return _NVCC_FLAGS
+    return _NVCC_FLAGS + (chain_definition(chain),)
+
+
+def _lib_path(name: str, chain=None) -> Path:
+    """The library's name carries a hash of the flags (the chain's
+    definition among them) and of every source it is built from, so an
+    edited source or header is never served by a stale build."""
+    h = hashlib.sha256(" ".join(_nvcc_flags(chain)).encode())
     for src in _sources(name):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(names=_SOURCES) -> dict[str, ctypes.CDLL]:
-    """Compile (once per version of the sources) and load the named kernel
-    libraries (sources in csrc/). Missing builds run at the same time, one
-    nvcc each."""
-    missing = [n for n in names
-               if n not in _libs and not _lib_path(n).exists()]
+def _nvcc_job(nvcc, name, chain, out):
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *_nvcc_flags(chain), "-o", out, str(_CSRC / f"{name}.cu")],
+        capture_output=True, text=True)
+    return proc, time.perf_counter() - t0
+
+
+def build(names=_SOURCES, chains=(None,)) -> dict[tuple, ctypes.CDLL]:
+    """Compile (once per version of the sources and chain) and load the
+    named kernel libraries (sources in csrc/) for each chain (None: the
+    runtime chain; else a :func:`chain_of` tuple). Missing builds run at the
+    same time, one nvcc each; their seconds go to BUILD_SECONDS. Returns
+    {(name, chain): library}."""
+    keys = [(n, c) for c in chains for n in names]
+    missing = [k for k in keys if k not in _libs and not _lib_path(*k).exists()]
     if missing:
         nvcc = _nvcc()
         _BUILD_DIR.mkdir(exist_ok=True)
-        jobs = []
+        tmps = []
         try:
-            for n in missing:
+            for _ in missing:
                 fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
                 os.close(fd)
-                jobs.append((n, tmp, subprocess.Popen(
-                    [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{n}.cu")],
-                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                    text=True)))
+                tmps.append(tmp)
+            with ThreadPoolExecutor(len(missing)) as pool:
+                jobs = [pool.submit(_nvcc_job, nvcc, n, c, tmp)
+                        for (n, c), tmp in zip(missing, tmps)]
+                done = [job.result() for job in jobs]
             errors = []
-            for n, tmp, proc in jobs:
-                out, err = proc.communicate()
+            for (n, c), tmp, (proc, seconds) in zip(missing, tmps, done):
                 if proc.returncode != 0:
-                    errors.append(f"nvcc failed on {n}.cu "
-                                  f"({proc.returncode}):\n{out}\n{err}")
+                    errors.append(f"nvcc failed on {n}.cu, chain {c} "
+                                  f"({proc.returncode}):\n{proc.stdout}\n"
+                                  f"{proc.stderr}")
                 else:
-                    os.replace(tmp, _lib_path(n))   # atomic: builds never race
+                    BUILD_SECONDS[(n, c)] = seconds
+                    os.replace(tmp, _lib_path(n, c))   # atomic: no races
             if errors:
                 raise RuntimeError("\n".join(errors))
         finally:
-            for _, tmp, proc in jobs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+            for tmp in tmps:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
-    for n in names:
-        if n not in _libs:
-            lib = ctypes.CDLL(str(_lib_path(n)))
+    for n, c in keys:
+        if (n, c) not in _libs:
+            lib = ctypes.CDLL(str(_lib_path(n, c)))
             for source, entry, argtypes in _ENTRIES.values():
                 if source == n:
                     fn = getattr(lib, entry)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-            _libs[n] = lib
-    return {n: _libs[n] for n in names}
+            _libs[(n, c)] = lib
+    return {k: _libs[k] for k in keys}
 
 
 def _world_parts(world):
@@ -222,17 +290,23 @@ def pack_params(robot, world) -> torch.Tensor:
     d = robot.num_joints
     dev = robot.joint_axis.device
     f32 = torch.float32
-    link = robot.body_link.long()
     offset, radius = robot.body_offset, robot.body_radius
-    if robot.body_counts is None:
+    if robot.body_counts is not None:
+        # bodies link-sorted (RobotSpec's _spec): the runs come from the host
+        # tuple, copied from pinned memory without a wait
+        body_start = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(robot.body_counts)]).astype(np.float32))
+        if dev.type == "cuda":
+            body_start = body_start.pin_memory().to(dev, non_blocking=True)
+    else:
         # bodies in any order: stable-sort by link on the device, so the
         # kernel walks one contiguous run per joint (costs are sums and mins
-        # over bodies; only the float summation order moves)
-        order = torch.argsort(link, stable=True)
+        # over bodies; only the float summation order moves); the runs'
+        # starts by a search of fixed output shape (no read-back)
+        link, order = torch.sort(robot.body_link.long(), stable=True)
         offset, radius = offset[order], radius[order]
-    # bodies per joint, counted on the device (a host list would cost a
-    # blocking host-to-device copy per launch)
-    counts = torch.bincount(link, minlength=d).to(f32)
+        body_start = torch.searchsorted(
+            link, torch.arange(d + 1, device=dev)).to(f32)
     joints = torch.cat([
         robot.joint_type.to(f32)[:, None], robot.joint_axis.to(f32),
         robot.joint_offset.to(f32), robot.joint_rot.to(f32).reshape(d, 9)],
@@ -240,8 +314,7 @@ def pack_params(robot, world) -> torch.Tensor:
     parts = [
         robot.base_rot.to(f32).reshape(9), robot.base_pos.to(f32),
         joints.reshape(-1),
-        torch.cat([torch.zeros(1, dtype=f32, device=dev),
-                   torch.cumsum(counts, 0)]),                  # body_start
+        body_start,
         torch.cat([offset.to(f32), radius.to(f32)[:, None]],
                   dim=1).reshape(-1)]
     grid, prims = _world_parts(world)
@@ -337,7 +410,13 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
     zeros, ee included (the kernels skip them); callers must discard them.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel of
-    the world's kind, or raise — there is no fallback.
+    the world's kind on the robot's chain (:func:`chain_of`), or raise —
+    there is no fallback. The static chain compiles in robot.joint_static
+    as it is: this function does not compare it with joint_type/joint_axis
+    (that would read the device on every launch). The public entry points
+    (plan_batch, plan, run_mpc_batch, run_mpc, run_mpc_resilient) check it
+    once per call on the host (robot/model.py check_joint_static); a
+    direct caller with CUDA tensors is responsible for a consistent spec.
     """
     dev = full_trajs.device
     if dev.type not in ("cpu", "cuda"):
@@ -356,7 +435,7 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
                                          clearance, time_major=time_major,
                                          cands_per_row=per, want_ee=want_ee)
     return _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
-                   row_active, time_major, want_ee)
+                   row_active, time_major, want_ee, chain_of(robot))
 
 
 def _prim_arrays(prims):
@@ -388,7 +467,9 @@ def _packed_table(grid, g):
 
 
 def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
-            row_active, time_major, want_ee):
+            row_active, time_major, want_ee, chain):
+    """One launch of the library of `chain` (:func:`chain_of`; None: the
+    runtime chain)."""
     source = "rollout_analytic" if grid is None else "rollout_grid"
     entry_name = source
     if per is not None:
@@ -429,7 +510,7 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
     if per is not None:
         spheres, boxes = _prim_arrays(prims)
         rows = (spheres.data_ptr(), boxes.data_ptr(), per)
-    lib = build((source,))[source]
+    lib = build((source,), (chain,))[(source, chain)]
     entry = getattr(lib, _ENTRIES[entry_name][1])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -446,7 +527,8 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
                          *g.shape, *map(float, grid_clip_hi(g.shape)))
             mid = rows or (int(isinstance(world, CompositeWorld)),)
             err = entry(*head, *grid_args, *mid, *tail, stream)
-    name = entry_name + (":ee" if want_ee else "")
+    name = (entry_name + ("" if chain is not None else ":runtime")
+            + (":ee" if want_ee else ""))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1

@@ -10,6 +10,8 @@ spec with ``robot.to(device)``.
 
 from __future__ import annotations
 
+import dataclasses
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -52,7 +54,9 @@ class RobotSpec:
     # the evaluator kernel walks one contiguous run of bodies per joint
     body_counts: tuple | None = None
     # per-joint (type, ax, ay, az) as Python numbers, mirroring the JAX
-    # spec; the port's kernel reads type/axis at run time and does not use it
+    # spec: with body_counts, the evaluator kernels compile this chain in
+    # (kernels/rollout.py chain_of); it must agree with joint_type /
+    # joint_axis (check_joint_static)
     joint_static: tuple | None = None
 
     @property
@@ -65,6 +69,28 @@ class RobotSpec:
 
     def to(self, device) -> "RobotSpec":
         return to_device(self, device)
+
+
+def check_joint_static(robot: RobotSpec) -> RobotSpec:
+    """Drop a stale joint_static (and warn) if it contradicts joint_type /
+    joint_axis (the JAX package's _check_joint_static,
+    kernels/rollout_pallas.py:865-890): guards ``dataclasses.replace(robot,
+    joint_axis=...)`` without a matching joint_static, which the compiled
+    chain would otherwise plan with the old kinematics. The public entry
+    points call it once per call; it reads the joint arrays on the host."""
+    static = robot.joint_static
+    if static is None:
+        return robot
+    types = [int(t) for t, _, _, _ in static]
+    axes = np.asarray([[a, b, c] for _, a, b, c in static], np.float32)
+    if (np.array_equal(robot.joint_type.cpu().numpy(), types)
+            and np.array_equal(robot.joint_axis.cpu().numpy(), axes)):
+        return robot
+    warnings.warn(
+        "RobotSpec.joint_static disagrees with joint_type/joint_axis "
+        "(stale dataclasses.replace?); disabling kernel FK specialization "
+        "for this call", stacklevel=3)
+    return dataclasses.replace(robot, joint_static=None)
 
 
 def _spec(joint_axis, joint_offset, joint_rot, lower, upper, limited,
