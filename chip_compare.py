@@ -16,8 +16,11 @@ default):
             registers, spill bytes and stack frame per kernel; the loops
             of this tree's per-row kernels in their SASS (cuobjdump); this
             tree's sources also with the static chains of arm_7dof and
-            chip_smoke.py's URDF robot (-DROLLOUT_CHAIN), with their
-            instruction counts;
+            chip_smoke.py's URDF robot (-DROLLOUT_CHAIN); on arm_7dof's
+            chain, both versions' SASS accounting of K3, K5, K3-pcw and
+            K5-pco (instructions of one pass by class) and an issue-rate
+            figure (pass instructions x lane-FKs over the schedulers' issue
+            rate at the maximum SM clock);
   kernels   both versions' kernel wrappers loaded side by side (each with
             its own kernels, both on this tree's other modules), on the
             inputs of chip_smoke.py's kernel phases: the config-5 shape
@@ -25,10 +28,14 @@ default):
             solver-like candidates, masked, :ee, the grid with and without
             its packed corner table, the shared world of equal rows) and
             the config-4 shape (C = 57,344, T = 102: K3, K4, K1, K5, K2,
-            composite, :ee). Median ms of 20 launches by CUDA events, in
-            the order other, this, this, other; each side's spread;
-            max |this - other|; one launch's registers, shared memory and
-            estimated occupancy from the profiler's CUDA activity record;
+            composite, :ee; uniform and solver-like candidates, all rows
+            active and a third masked) and config 2's (B = 1). Median ms of
+            20 launches by CUDA events, in the order other, this, this,
+            other; each side's spread; max |this - other|; resident blocks
+            per SM (a version's rollout_occupancy(), where it has one); one launch's
+            registers, shared memory and estimated occupancy from the
+            profiler's CUDA activity record; --cases keeps the cases whose
+            label holds one of its strings;
   episodes  run_mpc_batch on config 5 (10,000 scenarios x 100 ticks, as
             chip_smoke.py) over the box and the voxel tabletop, each
             version in a process of its own (the package is picked by
@@ -53,6 +60,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -97,13 +105,16 @@ def signature_name(demangled):
     return name
 
 
-def build_phase(label, pkg, tmp, loops_of=(), chains=(("runtime", ()),)):
+def build_phase(label, pkg, tmp, loops_of=(), chains=(("runtime", ()),),
+                account_chain=None):
     """nvcc -Xptxas -v of every csrc/*.cu of the package at pkg into cubins
     under tmp, for each (chain label, extra nvcc flags) of chains, all at
-    once; prints registers, spills and stack per kernel, and the SASS loops
-    of the kernels whose name holds a string of loops_of."""
+    once; prints registers, spills and stack per kernel, the SASS loops
+    of the kernels whose name holds a string of loops_of, and on the chain
+    labelled account_chain the instruction accounting of ACCOUNTED.
+    Returns {(chain, kernel): instructions of one pass}."""
     csrc = os.path.join(pkg, "csrc")
-    procs = {}
+    procs, passes = {}, {}
     for chain, flags in chains:
         for cu in sorted(f for f in os.listdir(csrc) if f.endswith(".cu")):
             out = os.path.join(tmp, f"{label}_{chain}_"
@@ -132,18 +143,112 @@ def build_phase(label, pkg, tmp, loops_of=(), chains=(("runtime", ()),)):
         for name, info in zip(demangle(kernels), kernels.values()):
             say("build", version=label, chain=chain,
                 kernel=signature_name(name), **info)
-        if loops_of:
-            sass_loops(cubin, loops_of)
+        if loops_of or chain == account_chain:
+            passes.update({(chain, k): v for k, v in sass_loops(
+                cubin, loops_of, ACCOUNTED if chain == account_chain
+                else ()).items()})
+    return passes
 
 
-def sass_loops(cubin, loops_of):
+# The instantiations of the accounting, by the world type in their name:
+# K3 and K5 on a shared world (2 boxes; the grid), and the per-row variants
+# at config 5 (1 sphere and 2 boxes; the grid with 1 overlay sphere), at the
+# shape each runs on the main path (C, T).
+ACCOUNTED = {"SharedPrims<(int)0, (int)2>": ("K3", 57344, 102),
+             "GridDist<(int)0, (int)0>": ("K5", 57344, 102),
+             "RowPrims<(int)1, (int)2>": ("K3-pcw", 210000, 52),
+             "GridRowDist<(int)1, (int)0>": ("K5-pco", 210000, 52)}
+SMS, SCHEDULERS = 132, 4     # H100 SXM: SMs, warp schedulers per SM
+
+
+def lane_fks(mod, C, T, d=7, ee=False, active=None):
+    """Lanes that run a waypoint's FK in one launch of the lane plan of
+    kernels/rollout.py `mod` (each window's 32 lanes), over the active
+    candidates (a [C] bool array; None: all)."""
+    cpb, n_slab = mod._plan(C, T, d, ee)
+    act = np.ones(C, bool) if active is None else np.asarray(active, bool)
+    per_block = np.add.reduceat(act.astype(np.int64), np.arange(0, C, cpb))
+    total = 0
+    for s in range(n_slab):
+        n_seq = mod._slab(T, n_slab, s)[3]
+        total += int((-(-(per_block * n_seq) // mod._CORE)).sum())
+    return mod._WARP * total
+
+
+def lane_fk_ratio(mod, C, T):
+    """Lanes that run a waypoint's FK per owned waypoint, all rows active,
+    in the version of kernels/rollout.py `mod`: its lane plan, or the
+    segment plan of the versions before it (32 lanes a segment)."""
+    if hasattr(mod, "_segments"):
+        return 32 * mod._segments(T)[1] / T
+    return lane_fks(mod, C, T) / (C * T)
+
+
+def issue_figure(label, mod, passes, clock_mhz):
+    """The accounting's issue-rate figure per accounted kernel: pass
+    instructions x lane-FKs / (SMs x schedulers x 32 lanes x SM clock), the
+    time the card's schedulers take to issue the kernel's warp instructions
+    at one a cycle (a diagnostic beside the work-based bound)."""
+    for (chain, kernel), n in sorted(passes.items()):
+        key = next(k for k in ACCOUNTED if k in kernel)
+        name, C, T = ACCOUNTED[key]
+        ratio = lane_fk_ratio(mod, C, T)
+        say("build", version=label, chain=chain, accounted=name, C=C, T=T,
+            pass_instructions=n, lane_fks_per_owned_waypoint=ratio,
+            sm_clock_mhz=clock_mhz, issue_ms=1e3 * n * C * T * ratio / (
+                SMS * SCHEDULERS * 32 * clock_mhz * 1e6))
+
+
+# SASS opcodes by class for the accounting (the opcode without modifiers)
+CLASSES = {
+    "fp32": ("FFMA", "FMUL", "FADD"),
+    "fp32_other": ("FMNMX", "FSETP", "FSEL", "FCHK", "FRND", "F2I", "I2F",
+                   "FSWZADD"),
+    "mufu": ("MUFU",),
+    "lds": ("LDS",), "sts": ("STS",), "shfl": ("SHFL",),
+    "ldg": ("LDG",), "stg": ("STG",), "ldc": ("LDC", "ULDC"),
+    "local": ("LDL", "STL"),
+    "control": ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "BAR",
+                "WARPSYNC", "BMOV", "VOTE", "YIELD"),
+}
+
+
+def opcode_classes(texts):
+    """{class: count} and {opcode: count} of SASS instruction texts."""
+    ops = {}
+    for text in texts:
+        op = re.sub(r"^@!?U?P\w+\s+", "", text.strip()).split()[0]
+        ops[op] = ops.get(op, 0) + 1
+    classes = {k: 0 for k in CLASSES}
+    classes["other"] = 0
+    for op, n in ops.items():
+        base = op.split(".")[0]
+        cls = next((k for k, v in CLASSES.items() if base in v), "other")
+        classes[cls] += n
+    return classes, ops
+
+
+def sass_loops(cubin, loops_of, account=()):
     """Backward branches of the kernels whose mangled name holds one of
-    loops_of: (loop start, branch address, instructions)."""
+    loops_of: (loop start, branch address, instructions). For the kernels
+    whose demangled name holds one of `account`, the instructions of one
+    pass by class: of the hot code (up to the last EXIT), the largest loop
+    when it holds at least half of it (a warp's loop over windows), else
+    all of it (one waypoint a lane); each sincosf / sqrtf / division
+    expansion shows as its MUFU (RSQ, RCP) and its slow-path CALLs, the
+    slow paths themselves as cold instructions. Returns {kernel:
+    instructions of one pass}."""
     sass = subprocess.run([cuda_tool("cuobjdump"), "-sass", cubin],
                           capture_output=True, text=True, check=True).stdout
+    passes = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
-        if not any(m in name for m in loops_of):
+        demangled = signature_name(demangle([name])[0])
+        # the parameter-block route where a version has two (the memory
+        # path's ParamPtr instantiations are off the main path)
+        accounted = (any(a in demangled for a in account)
+                     and "ParamPtr" not in demangled)
+        if not any(m in name for m in loops_of) and not accounted:
             continue
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)
         loops = []
@@ -152,9 +257,29 @@ def sass_loops(cubin, loops_of):
             if tgt and int(tgt[1], 16) < int(a, 16):
                 loops.append((hex(int(tgt[1], 16)), hex(int(a, 16)),
                               (int(a, 16) - int(tgt[1], 16)) // 16 + 1))
-        say("build", cubin=os.path.basename(cubin),
-            kernel=signature_name(demangle([name])[0]),
-            instructions=len(ins), loops=loops)
+        info = {}
+        if accounted:
+            # the hot code: up to the kernel's last EXIT (the slow paths of
+            # sincosf, sqrtf and division are placed after it and branch
+            # back); its largest loop is a warp's loop over windows
+            last = max(int(a, 16) for a, t in ins if t.split()[0] == "EXIT")
+            hot = [(a, t) for a, t in ins if int(a, 16) <= last]
+            big = max((x for x in loops if int(x[1], 16) <= last),
+                      key=lambda x: x[2], default=None)
+            if big is not None and 2 * big[2] >= len(hot):
+                lo, hi = int(big[0], 16), int(big[1], 16)
+                body = [t for a, t in hot if lo <= int(a, 16) <= hi]
+                scope = "largest loop"
+            else:
+                body, scope = [t for _, t in hot], "kernel to its last EXIT"
+            classes, ops = opcode_classes(body)
+            passes[demangled] = len(body)
+            info = dict(pass_scope=scope, pass_instructions=len(body),
+                        pass_classes=classes, pass_opcodes=ops,
+                        cold_instructions=len(ins) - len(hot))
+        say("build", cubin=os.path.basename(cubin), kernel=demangled,
+            instructions=len(ins), loops=loops, **info)
+    return passes
 
 
 def load_wrapper(pkg, name):
@@ -169,7 +294,10 @@ def load_wrapper(pkg, name):
 def launch_info(fn):
     """Registers, shared memory, block and estimated occupancy of the
     rollout kernel fn() launches, from the profiler's CUDA activity
-    record (None where the record lacks them)."""
+    record (None where the record lacks them), and the resident blocks per
+    SM that occupancy means (the profiler's figure is the occupancy
+    calculator's, cudaOccupancyMaxActiveBlocksPerMultiprocessor's
+    arithmetic, over 64 warps an SM)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -183,9 +311,15 @@ def launch_info(fn):
     for e in events:
         if e.get("cat") == "kernel" and "rollout_" in e.get("name", ""):
             a = e.get("args", {})
-            return {k: a.get(k) for k in (
+            out = {k: a.get(k) for k in (
                 "registers per thread", "shared memory", "block",
                 "est. achieved occupancy %")}
+            occ, block = out["est. achieved occupancy %"], out["block"]
+            if occ is not None and block:
+                warps = -(-int(np.prod(block)) // 32)
+                out["resident_blocks_per_sm"] = round(occ / 100 * 64 / warps,
+                                                      2)
+            return out
     return None
 
 
@@ -231,6 +365,18 @@ class Bench:
                          ("voxel_dense", cs.dense_twin(self.grid)))}
         self.same_rows = _tick_world_batch(centers[:1].expand_as(centers),
                                            radius, self.world)
+        # config 4's problems as chip_smoke.py phase 4 draws them (the CLI's
+        # --seed 0 jitter), and config 2's one query
+        jitter = float(doc4["batch"]["start_goal_jitter"])
+        rng = np.random.default_rng(0)
+        self.problems4 = SimpleNamespace(**{
+            k: torch.as_tensor(np.tile(q, (self.B4, 1)) + rng.uniform(
+                -jitter, jitter, (self.B4, 7)), dtype=torch.float32,
+                device=dev) for k, q in (("q", q0), ("qN", qN))})
+        self.problems2 = SimpleNamespace(
+            q=torch.as_tensor(q0, device=dev)[None],
+            qN=torch.as_tensor(qN, device=dev)[None])
+        self.cfg2 = from_dict(doc("config2_tabletop.yaml")["planner"])
 
     def uniform(self, C, T, seed):
         return torch.as_tensor(np.random.default_rng(seed).uniform(
@@ -250,12 +396,29 @@ def kernel_cases(b):
     C4 = b.B4 * (1 + cfg4.num_rollouts + cfg4.noise.num_rollouts_reused)
     fulls4 = b.uniform(C4, cfg4.num_timesteps + 2, 0)
     tm4 = fulls4.permute(2, 1, 0).contiguous()
+    per4 = 1 + cfg4.num_rollouts + cfg4.noise.num_rollouts_reused
+    # solver-like config-4 candidates (min-jerk + sigma L z, as phase 3m
+    # draws config 5's), and config 2's one scenario (B = 1)
+    sm4 = cs.solver_like(b.robot, cfg4, b.problems4, per4).permute(
+        2, 1, 0).contiguous()
+    cfg2 = b.cfg2
+    per2 = 1 + cfg2.num_rollouts + cfg2.noise.num_rollouts_reused
+    tm2 = b.uniform(per2, cfg2.num_timesteps + 2, 2).permute(
+        2, 1, 0).contiguous()
+    sm2 = cs.solver_like(b.robot, cfg2, b.problems2, per2).permute(
+        2, 1, 0).contiguous()
+    c2 = (cfg2.dt, cfg2.collision_clearance)
+    masked4 = dict(time_major=True,
+                   row_active=~cs.inactive_rows(C4, dev))
     k5 = dict(time_major=True, cands_per_row=b.per5)
     c5 = (cfg5.dt, cfg5.collision_clearance)
     c4 = (cfg4.dt, cfg4.collision_clearance)
     tmk = dict(time_major=True)
     unsorted = cs.shuffled(b.robot, 0)
     pcw, pco = b.row_world["box"], b.row_world["voxel"]
+    # the shared world of equal rows as a user's .to() brings it (the
+    # parameter block) and as built on the card (the memory path)
+    shared = cs.shared_row(b.same_rows)
     return [
         ("pcw random", b.robot, pcw, tm5, *c5, k5),
         ("pcw solver_like", b.robot, pcw, sm5, *c5, k5),
@@ -270,8 +433,11 @@ def kernel_cases(b):
         ("pcw masked_third", b.robot, pcw, tm5, *c5,
          dict(k5, row_active=~cs.inactive_rows(tm5.shape[-1], dev))),
         ("pcw every_row_equal", b.robot, b.same_rows, tm5, *c5, k5),
-        ("pcw shared_world", b.robot, cs.shared_row(b.same_rows), tm5, *c5,
+        ("pcw shared_world", b.robot, shared.to("cpu").to(dev), tm5, *c5,
          tmk),
+        ("pcw shared_world memory_path", b.robot, shared, tm5, *c5, tmk),
+        ("K1 config4 unsorted memory_path", cs.made_on_card(unsorted),
+         b.world, tm4, *c4, tmk),
         ("pcw:ee random", b.robot, pcw, tm5, *c5, dict(k5, want_ee=True)),
         ("pco:ee random", b.robot, pco, tm5, *c5, dict(k5, want_ee=True)),
         ("K4 config4 candidate_major", b.robot, b.world, fulls4, *c4, {}),
@@ -286,11 +452,26 @@ def kernel_cases(b):
          dict(tmk, want_ee=True)),
         ("K5:ee config4", b.robot, b.grid, tm4, *c4,
          dict(tmk, want_ee=True)),
+        ("K5 config4 masked_third", b.robot, b.grid, tm4, *c4, masked4),
+        ("K3 config4 solver_like", b.robot, b.world, sm4, *c4, tmk),
+        ("K5 config4 solver_like", b.robot, b.grid, sm4, *c4, tmk),
+        ("K3 config4 solver_like masked_third", b.robot, b.world, sm4, *c4,
+         masked4),
+        ("K5 config4 solver_like masked_third", b.robot, b.grid, sm4, *c4,
+         masked4),
+        ("K3 config2 B=1", b.robot, b.world, tm2, *c2, tmk),
+        ("K5 config2 B=1", b.robot, b.grid, tm2, *c2, tmk),
+        ("K3 config2 B=1 solver_like", b.robot, b.world, sm2, *c2, tmk),
+        ("K5 config2 B=1 solver_like", b.robot, b.grid, sm2, *c2, tmk),
     ]
 
 
-def kernels_phase(this, other, cases):
+def kernels_phase(this, other, cases, only=None):
+    """Each case in turns (other, this, this, other); `only`: the cases
+    whose label holds one of these strings."""
     for label, robot, world, x, dt, clearance, kw in cases:
+        if only and not any(o in label for o in only):
+            continue
         f_o, f_t = (lambda m=m: m.obstacle_cost_batch(robot, world, x, dt,
                                                       clearance, **kw)
                     for m in (other, this))
@@ -300,7 +481,12 @@ def kernels_phase(this, other, cases):
         o2 = cs.cuda_time_ms(f_o, 20)
         a, b = f_o(), f_t()
         o_ms, t_ms = (o1 + o2) / 2, (t1 + t2) / 2
+        blocks = {side: mod.rollout_occupancy(robot, world, x, dt, clearance,
+                                              **kw)
+                  for side, mod in (("other", other), ("this", this))
+                  if hasattr(mod, "rollout_occupancy")}
         say("kernels", case=label, other_ms=[o1, o2], this_ms=[t1, t2],
+            resident_blocks_per_sm=blocks,
             speedup=o_ms / t_ms, other_spread_pct=100 * abs(o1 - o2) / o_ms,
             this_spread_pct=100 * abs(t1 - t2) / t_ms,
             max_abs_this_vs_other=max(float((u - v).abs().max())
@@ -375,6 +561,9 @@ def main():
     ap.add_argument("--against", required=True,
                     help="directory holding the other tpustomp_torch")
     ap.add_argument("--phases", default=",".join(PHASES))
+    ap.add_argument("--cases", default="",
+                    help="kernels phase: only the cases whose label holds "
+                         "one of these comma-separated strings")
     ap.add_argument("--worker", choices=("this", "other"),
                     help="run the episodes of one version in this process")
     args = ap.parse_args()
@@ -407,11 +596,20 @@ def main():
             for label, robot in (("arm_7dof", arm_7dof()),
                                  ("torso_arm_urdf",
                                   load_urdf(cs.torso_arm_urdf())))]
+        clock = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], check=True,
+            capture_output=True, text=True).stdout.split()[0])
+        other_pkg = os.path.join(roots["other"], "tpustomp_torch")
         with tempfile.TemporaryDirectory() as tmp:
-            build_phase("other", os.path.join(roots["other"],
-                                              "tpustomp_torch"), tmp)
-            build_phase("this", os.path.join(ROOT, "tpustomp_torch"), tmp,
-                        loops_of=("RowPrims", "GridRowDist"), chains=chains)
+            passes = build_phase("other", other_pkg, tmp, chains=chains[:2],
+                                 account_chain="arm_7dof")
+            issue_figure("other", load_wrapper(other_pkg, "rollout_other"),
+                         passes, clock)
+            passes = build_phase("this", os.path.join(ROOT, "tpustomp_torch"),
+                                 tmp, loops_of=("RowPrims", "GridRowDist"),
+                                 chains=chains, account_chain="arm_7dof")
+            issue_figure("this", this, passes, clock)
     if "kernels" in phases:
         from tpustomp_torch.kernels import rollout as this
 
@@ -421,7 +619,8 @@ def main():
         this.build()
         other.build()
         say("kernels", build_seconds_both=time.perf_counter() - t0)
-        kernels_phase(this, other, kernel_cases(Bench(torch.device("cuda"))))
+        kernels_phase(this, other, kernel_cases(Bench(torch.device("cuda"))),
+                      [c for c in args.cases.split(",") if c])
         torch.cuda.empty_cache()
     if "episodes" in phases:
         for side in ("other", "this", "this", "other"):

@@ -19,7 +19,13 @@ and fails (non-zero exit, no result line) on any error:
      config-2 tabletop voxelized by the port's signed EDT (64x80x48 at
      2.5 cm): all rows active and masked (K5 + tail), the grid plus an
      overlay sphere (CompositeWorld), shuffled bodies (K2), the packed
-     corner table against the dense grid (bitwise); times;
+     corner table against the dense grid (bitwise); times, also on
+     solver-like candidates (config 4's problems: min-jerk + sigma L z);
+  3e. both kernels and their :ee forms against plain at the lane plan's
+     edges (T in {2, 3, 31, 32, 33, 101, 102, 103}, a ragged C of 4,229
+     with 7-8 candidates a block, a third of the rows masked, both chains),
+     and the memory path: a world and a robot too large for the kernel
+     parameter block, and a robot built on the card (no host copies);
   3m. the per-row-world variants (rollout_analytic:per_cand_world,
      rollout_grid:per_cand_overlay) against the plain version at the
      config-5 shape (B = 10,000 scenarios x 21 candidates = 210,000
@@ -38,7 +44,8 @@ and fails (non-zero exit, no result line) on any error:
      row; and the same slice on a small input against the CPU run (plain
      evaluator) under the same noise;
   4g. the same over the voxel tabletop (grid kernel), with every solved row
-     also checked against the exact box SDF;
+     also checked against the exact box SDF; every launch of both runs
+     takes the kernel parameter block (counted per route);
   5. plan on BASELINE config 2 (configs/config2_tabletop.yaml);
   5g. plan on config 2 over the voxel tabletop, 4 restarts;
   6. run_mpc_batch on BASELINE config 5 (configs/config5_mpc.yaml: 10,000
@@ -128,6 +135,7 @@ import subprocess
 import sys
 import time
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -253,13 +261,22 @@ def voxel_tabletop(scene_doc):
 
 def shuffled(robot, seed):
     """robot with its bodies in a random order and no body_counts (the
-    case of the TPU's rolled kernels K1/K2)."""
+    case of the TPU's rolled kernels K1/K2), built on the CPU and moved to
+    robot's device with .to(), as a user's robot comes (the parameter
+    block)."""
+    cpu = robot.to("cpu")
     perm = torch.from_numpy(np.random.default_rng(seed).permutation(
-        robot.num_bodies)).to(robot.body_link.device)
+        robot.num_bodies))
     return dataclasses.replace(
-        robot, body_link=robot.body_link[perm],
-        body_offset=robot.body_offset[perm],
-        body_radius=robot.body_radius[perm], body_counts=None)
+        cpu, body_link=cpu.body_link[perm], body_offset=cpu.body_offset[perm],
+        body_radius=cpu.body_radius[perm],
+        body_counts=None).to(robot.body_link.device)
+
+
+def made_on_card(robot):
+    """robot with a parameter made on its device (a clone there): no host
+    copy, so its launches take the memory path."""
+    return dataclasses.replace(robot, body_offset=robot.body_offset.clone())
 
 
 def check_kernel(label, rollout, robot, world, fulls, dt, clearance,
@@ -337,11 +354,12 @@ def packed_vs_dense(label, rollout, robot, world, tm, dt, clearance,
 
 
 def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
-                 chains):
+                 chains, smooth):
     """Phases 3 and 3g for one kernel: time-major with all rows active and
     masked, candidate-major (the analytic kernel only: K4) and shuffled
-    bodies; then kernel and plain times, beside both chains' times from
-    chain_phase (`chains`). Returns (max_err, ms, plain_ms)."""
+    bodies; then kernel and plain times, and the kernel's on solver-like
+    candidates (`smooth`, time-major), beside both chains' times from
+    chain_phase (`chains`). Returns (max_err, ms, plain_ms, ms_smooth)."""
     C = fulls.shape[0]
     plain = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
                                               clearance)
@@ -361,6 +379,10 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
         robot, world, fulls, dt, clearance), 5)
     timing = dict(kernel_ms=kernel_ms, plain_ms=plain_ms,
                   speedup=plain_ms / kernel_ms,
+                  kernel_ms_smooth=cuda_time_ms(
+                      lambda: rollout.obstacle_cost_batch(
+                          robot, world, smooth, dt, clearance,
+                          time_major=True), 20),
                   unsorted_bodies_ms=cuda_time_ms(
                       lambda: rollout.obstacle_cost_batch(
                           unsorted, world, tm, dt, clearance,
@@ -380,7 +402,119 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
                                                 clearance), 20)
     say(f"kernel_time:{name}", **timing, static_ms=chains["static_ms"],
         runtime_ms=chains["runtime_ms"], card=smi)
-    return err, kernel_ms, plain_ms
+    return err, kernel_ms, plain_ms, timing["kernel_ms_smooth"]
+
+
+# Waypoint counts at the lane plan's edges (windows of 30 owned lanes) and
+# a ragged batch that still takes 7-8 candidates a block: windows cross
+# candidate boundaries at every T that is not a multiple of 30.
+EDGE_TS = (2, 3, 31, 32, 33, 101, 102, 103)
+EDGE_C = 4229
+
+
+def edges_phase(rollout, robot, world, grid, smi):
+    """Phase 3e: K3 and K5 and their :ee forms against the plain version at
+    the lane plan's edges (EDGE_TS, EDGE_C, a third of the rows masked:
+    zeros there), on the static and the runtime chain; then the memory
+    path (csrc/rollout_common.cuh ParamPtr) for a world and a robot too
+    large for the parameter block, and for a robot built on the device
+    (no host copies): each against plain, and counted as such. Returns
+    the largest max |Δ| of q_obs and margin at the edges (the memory
+    path's, on other robots and worlds, stay in their own lines)."""
+    dev = robot.joint_axis.device
+    runtime = dataclasses.replace(robot, joint_static=None)
+    active = ~inactive_rows(EDGE_C, dev)
+    active[:3] = torch.tensor([False, True, False])
+    worst = 0.0
+
+    def check(label, r, w, fulls, dt, mask, ee):
+        x = fulls.permute(2, 1, 0).contiguous()
+        got = rollout.obstacle_cost_batch(r, w, x, dt, 0.05, row_active=mask,
+                                          time_major=True, want_ee=ee)
+        ref = rollout.obstacle_cost_batch_plain(r, w, fulls, dt, 0.05,
+                                                want_ee=ee)
+        torch.cuda.synchronize()
+        rows = (torch.ones(fulls.shape[0], dtype=torch.bool, device=dev)
+                if mask is None else mask)
+        dq = (got[0] - ref[0]).abs()[rows]
+        dm = (got[1] - ref[1]).abs()[rows]
+        ok = bool((dq <= Q_ATOL + Q_RTOL * ref[0].abs()[rows]).all()
+                  and (dm <= M_ATOL).all())
+        err = max(float(dq.max()), float(dm.max()))
+        dee = None
+        if ee:
+            de = (got[2] - ref[2]).abs()[:, :, rows]
+            ok = ok and bool((de <= EE_ATOL + EE_RTOL
+                              * ref[2][:, :, rows].abs()).all())
+            dee = float(de.max())
+        if mask is not None:
+            ok = ok and all(bool((g[..., ~mask] == 0).all()) if g.dim() == 3
+                            else bool((g[~mask] == 0).all()) for g in got)
+        assert ok, (label, err, dee)
+        return err, dee
+
+    for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
+        errs, ee_errs = {}, {}
+        for T in EDGE_TS:
+            fulls = torch.as_tensor(np.random.default_rng(T).uniform(
+                robot.joint_lower.cpu().numpy(),
+                robot.joint_upper.cpu().numpy(),
+                (EDGE_C, T, 7)).astype(np.float32), device=dev)
+            dt = 5.0 / (T - 1)
+            got = [check(f"{name}:{T}:{chain}:{ee}", r, w, fulls, dt, mask,
+                         ee)
+                   for chain, r in (("static", robot), ("runtime", runtime))
+                   for ee, mask in ((False, None), (True, active))]
+            errs[T] = max(e for e, _ in got)
+            ee_errs[T] = max(de for _, de in got if de is not None)
+        worst = max(worst, *errs.values())
+        say(f"kernel_vs_plain:{name}:edges", C=EDGE_C, T=list(EDGE_TS),
+            max_abs_by_T=errs, max_abs_ee_by_T=ee_errs,
+            chains=["static", "runtime"],
+            forms=["costs", "ee masked"], tol=TOL,
+            ee_tol=f"{EE_ATOL}+{EE_RTOL}|ee|", ok=True)
+    # the memory path: the parameters staged from device memory
+    rng = np.random.default_rng(7)
+    from tpustomp_torch.robot.model import arm_7dof
+    from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld
+
+    spheres = [(tuple(rng.uniform(-0.8, 0.8, 3)), rng.uniform(0.05, 0.2))
+               for _ in range(200)]
+    big_world = AnalyticWorld.make(spheres=spheres, boxes=[
+        (tuple(b.tolist()), tuple(h.tolist()))
+        for b, h in zip(world.box_center.cpu(), world.box_half.cpu())]).to(dev)
+    big_robot = dataclasses.replace(arm_7dof(spheres_per_link=70),
+                                    joint_static=None).to(dev)
+    device_made = made_on_card(shuffled(robot, 0))
+    fulls = torch.as_tensor(np.random.default_rng(11).uniform(
+        robot.joint_lower.cpu().numpy(), robot.joint_upper.cpu().numpy(),
+        (EDGE_C, 33, 7)).astype(np.float32), device=dev)
+    cases = (("rollout_analytic", "world_above_the_block", robot, big_world),
+             ("rollout_grid", "overlay_above_the_block", robot,
+              CompositeWorld(grid=grid, overlay=big_world)),
+             ("rollout_analytic", "robot_above_the_block", big_robot, world),
+             ("rollout_analytic", "robot_made_on_the_card", device_made,
+              world))
+    x = fulls.permute(2, 1, 0).contiguous()
+    for name, label, r, w in cases:
+        n = len(rollout.pack_params(r, w))
+        for ee, mask in ((False, None), (True, active)):
+            before = dict(rollout.PARAM_ROUTES)
+            err, dee = check(f"{name}:{label}", r, w, fulls, 5.0 / 32, mask,
+                             ee)
+            routes = {k: rollout.PARAM_ROUTES[k] - before[k]
+                      for k in before}
+            ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch(
+                r, w, x, 5.0 / 32, 0.05, row_active=mask, time_major=True,
+                want_ee=ee), 20)
+            say(f"kernel_vs_plain:{name}:memory_path:{label}"
+                + (":ee" if ee else ""), C=EDGE_C, T=33, n_params=n,
+                param_block_floats=rollout._PARAM_FLOATS, routes=routes,
+                max_abs=err, max_abs_ee=dee, tol=TOL, ms=ms, card=smi)
+            assert routes == {"block": 0, "memory": 1}, routes
+    del fulls, x
+    torch.cuda.empty_cache()
+    return worst
 
 
 def timed_plan_batch(rollout, robot, world, cfg, q0b, qNb, **kw):
@@ -421,13 +555,18 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     dt, clearance = cfg4.dt, cfg4.collision_clearance
     sol, wall, launches = timed_plan_batch(rollout, robot, world, cfg4, q0b,
                                            qNb)
+    # the robot and world came to the card by .to(): every launch takes the
+    # parameter block, none the memory path
+    routes = dict(rollout.PARAM_ROUTES)
+    assert routes["memory"] == 0 and routes["block"] > 0, routes
     traj, succ, iters = sol.trajectory, sol.success, sol.iterations
     assert traj.shape == (B, T, d) and succ.shape == (B,), traj.shape
     assert bool(torch.isfinite(traj).all() and torch.isfinite(sol.cost).all())
     success_rate = float(succ.float().mean())
     say(f"plan_batch:{label}", B=B, wall_s=wall, solves_per_s=B / wall,
         success_rate=success_rate, mean_iterations=float(iters.float().mean()),
-        max_iterations=int(iters.max()), kernel_launches=launches, card=smi)
+        max_iterations=int(iters.max()), kernel_launches=launches,
+        param_routes=routes, card=smi)
     assert launches.get(kernel, 0) >= int(iters.max()), launches
     assert sum(launches.values()) == launches[kernel], launches
     assert success_rate >= success_floor, success_rate
@@ -602,7 +741,9 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls,
         rows=C, bitwise_equal=contract)
     same = _tick_world_batch(centers[:1].expand_as(centers), radius, static)
     q_r, m_r = run(same, per)
-    q_s, m_s = run(shared_row(same))
+    # the shared row as a user's .to() brings it: the parameter block
+    shared = shared_row(same).to("cpu").to(fulls.device)
+    q_s, m_s = run(shared)
     vs_shared = bool(torch.equal(q_r, q_s) and torch.equal(m_r, m_s))
     say(f"kernel_vs_kernel:{name}:every_row_equal_vs_shared",
         rows=C // per, bitwise_equal=vs_shared)
@@ -614,8 +755,9 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls,
         kernel_ms_smooth=cuda_time_ms(lambda: rollout.obstacle_cost_batch(
             robot, world, tm_smooth, dt, clearance, time_major=True,
             cands_per_row=per), 20),
-        shared_world_kernel_ms=cuda_time_ms(lambda: run(shared_row(same)),
-                                            20),
+        shared_world_kernel_ms=cuda_time_ms(lambda: run(shared), 20),
+        shared_world_memory_path_ms=cuda_time_ms(
+            lambda: run(shared_row(same)), 20),
         plain_ms=cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
             robot, world, fulls, dt, clearance, cands_per_row=per), 5))
     if name.startswith("rollout_grid"):
@@ -719,12 +861,14 @@ def mpc_cuda_vs_cpu_phase(label, robot, cfg5, static, states, ticks=4):
 
 
 def ee_phase(variant, rollout, robot, world, fulls, dt, clearance, smi,
-             chains, cands_per_row=None):
+             chains, cands_per_row=None, smooth=None):
     """Phase 7 for one variant's :ee form: with a third of the rows masked,
     ee against the plain fk_frames frame, zeros on masked rows, q_obs and
     margin bitwise equal to the same launch without ee and close to the
-    plain version; then ee, no-ee and plain times, beside both chains'
-    times from chain_phase (`chains`). Returns (max_err, ms, plain_ms)."""
+    plain version; then ee, no-ee and plain times, and the ee time on
+    solver-like candidates (`smooth`, time-major, where given), beside both
+    chains' times from chain_phase (`chains`). Returns (max_err, ms,
+    plain_ms, ms_smooth or None)."""
     C = fulls.shape[0]
     tm = fulls.permute(2, 1, 0).contiguous()
     active = ~inactive_rows(C, fulls.device)
@@ -763,13 +907,17 @@ def ee_phase(variant, rollout, robot, world, fulls, dt, clearance, smi,
     plain_ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
         robot, world, fulls, dt, clearance, cands_per_row=cands_per_row,
         want_ee=True), 3)
+    ms_smooth = None if smooth is None else cuda_time_ms(
+        lambda: rollout.obstacle_cost_batch(robot, world, smooth, dt,
+                                            clearance, want_ee=True, **kw),
+        20)
     say(f"kernel_time:{variant}:ee", C=C, T=fulls.shape[1], ee_ms=ms,
         no_ee_ms=no_ee_ms, plain_ms=plain_ms, ee_cost_ms=ms - no_ee_ms,
-        static_ms=chains["static_ms"], runtime_ms=chains["runtime_ms"],
-        card=smi)
+        ee_ms_smooth=ms_smooth, static_ms=chains["static_ms"],
+        runtime_ms=chains["runtime_ms"], card=smi)
     torch.cuda.empty_cache()
     return max(float(dq.max()), float(dm.max()), out["max_abs_dee"]), ms, \
-        plain_ms
+        plain_ms, ms_smooth
 
 
 def cone_excess(robot, traj, cone):
@@ -1834,9 +1982,25 @@ def main():
     chain_phase("rollout_analytic", rollout, urdf_robot, world, fulls_u, dt,
                 clearance, tag=":torso_arm_urdf")
     del fulls_u
+    # config 4's problems (the CLI's --seed 0 jitter) and, for the kernels'
+    # ms_smooth, solver-like candidates on them (min-jerk + sigma L z)
+    q0 = np.asarray(scene["q0"], np.float32)
+    qN = np.asarray(scene["qN"], np.float32)
+    jitter = float(doc4["batch"]["start_goal_jitter"])
+    rng = np.random.default_rng(0)                 # as the CLI's --seed 0
+    q0b = (np.tile(q0, (B, 1))
+           + rng.uniform(-jitter, jitter, (B, 7))).astype(np.float32)
+    qNb = (np.tile(qN, (B, 1))
+           + rng.uniform(-jitter, jitter, (B, 7))).astype(np.float32)
+    problems4 = SimpleNamespace(q=torch.as_tensor(q0b, device=dev),
+                                qN=torch.as_tensor(qNb, device=dev))
+    smooth4 = solver_like(robot, cfg4, problems4, C // B).permute(
+        2, 1, 0).contiguous()
+    smooth_ms = {}
     for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
-        table[name] = kernel_phase(name, rollout, robot, w, fulls, dt,
-                                   clearance, smi, chain_res[name])
+        *table[name], smooth_ms[name] = kernel_phase(
+            name, rollout, robot, w, fulls, dt, clearance, smi,
+            chain_res[name], smooth4)
     err = check_kernel("rollout_grid:composite", rollout, robot, composite,
                        fulls, dt, clearance)
     packed_vs_dense("rollout_grid:composite", rollout, robot, composite,
@@ -1845,8 +2009,15 @@ def main():
     table["rollout_grid"] = (max(e, err), k_ms, p_ms)
     # --- 7. the :ee forms at the config-4 shape -------------------------------
     for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
-        table[name + ":ee"] = ee_phase(name, rollout, robot, w, fulls, dt,
-                                       clearance, smi, chain_res[name + ":ee"])
+        *table[name + ":ee"], smooth_ms[name + ":ee"] = ee_phase(
+            name, rollout, robot, w, fulls, dt, clearance, smi,
+            chain_res[name + ":ee"], smooth=smooth4)
+    del smooth4
+    # --- 3e. the lane plan's edges; the memory path ---------------------------
+    err = edges_phase(rollout, robot, world, grid, smi)
+    for name in ("rollout_analytic", "rollout_grid"):
+        e, k_ms, p_ms = table[name]
+        table[name] = (max(e, err), k_ms, p_ms)
     # --- 10s. no host sync in a launch ----------------------------------------
     tm_small = fulls[:4096].permute(2, 1, 0).contiguous()
     sync_cases = [("rollout_analytic", robot, world, tm_small, None),
@@ -1857,8 +2028,6 @@ def main():
     torch.cuda.empty_cache()
 
     # --- 3m. the per-row-world variants at the config-5 shape ---------------
-    q0 = np.asarray(scene["q0"], np.float32)
-    qN = np.asarray(scene["qN"], np.float32)
     B5 = int(spec5["scenarios"])
     per5 = 1 + cfg5.num_rollouts + cfg5.noise.num_rollouts_reused
     states5 = config5_states(robot, cfg5, B5, q0, qN,
@@ -1867,7 +2036,6 @@ def main():
         lo, hi, (B5 * per5, cfg5.num_timesteps + 2, 7)).astype(np.float32),
         device=dev)
     smooth = solver_like(robot, cfg5, states5, per5)
-    smooth_ms = {}
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
         chain_res.update(chain_phase(
@@ -1885,7 +2053,7 @@ def main():
     # --- 7. the :ee forms of the per-row variants at the config-5 shape ----
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
-        table[name + ":ee"] = ee_phase(
+        *table[name + ":ee"], _ = ee_phase(
             name, rollout, robot, _tick_world_batch(
                 states5.sphere_center.to(dev),
                 torch.tensor([0.12], device=dev), static),
@@ -1903,12 +2071,6 @@ def main():
     torch.cuda.empty_cache()
 
     # --- 4 / 4g. plan_batch on config 4 -------------------------------------
-    jitter = float(doc4["batch"]["start_goal_jitter"])
-    rng = np.random.default_rng(0)                 # as the CLI's --seed 0
-    q0b = (np.tile(q0, (B, 1))
-           + rng.uniform(-jitter, jitter, (B, 7))).astype(np.float32)
-    qNb = (np.tile(qN, (B, 1))
-           + rng.uniform(-jitter, jitter, (B, 7))).astype(np.float32)
     launches = {
         "rollout_analytic": plan_batch_phase(
             "config4", "rollout_analytic", rollout, robot, world, cfg4, q0b,

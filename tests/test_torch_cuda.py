@@ -3,9 +3,11 @@ their per-row-world variants rollout_analytic:per_cand_world and
 rollout_grid:per_cand_overlay, and the ``:ee`` form of all four, on a
 robot's static chain and on the runtime chain) against their plain PyTorch
 version and each other (mirrors the kernel phases of chip_smoke.py),
-including the edges of the skeleton's segment plan (waypoint counts around
-30 a warp, ragged candidate tiles, rows of 1/3/21 candidates, masked warps,
-shared and per-row worlds within and above the kernels' register budget),
+including the edges of the skeleton's lane plan (waypoint counts around
+the 30 owned lanes of a window, ragged candidate tiles, rows of 1/3/21
+candidates, masked candidates, shared and per-row worlds within and above
+the kernels' register budget, robots and worlds above the parameter
+block),
 the grid's packed corner table against its dense grid (bitwise) and a
 planar 2-joint robot; and the batched slice
 (STOMP, constrained STOMP, CHOMP, HMC) and batched MPC on CUDA against the
@@ -641,8 +643,8 @@ def _edge_world(kind, R, seed):
                                   "analytic_shared", "grid_shared"])
 @pytest.mark.parametrize("T", [2, 3, 17, 31, 32, 33, 52, 102])
 def test_segment_edges_match_plain(cuda_device, kind, T):
-    """Waypoint counts around the segment edges (30 owned waypoints per
-    warp) with a ragged candidate tile (C = 273, not a multiple of the 8
+    """Waypoint counts around the window edges (30 owned waypoints per
+    window) with a ragged candidate tile (C = 273, not a multiple of the 8
     candidates a block takes): q_obs, margin and ee against the plain
     version; masked warps (every third scenario and single candidates)
     write zeros and leave the other rows bit for bit unchanged."""
@@ -856,7 +858,7 @@ def test_static_chain_matches_runtime_and_plain(cuda_device, robot_name,
                                                 variant):
     """Every variant and its :ee form on the robot's static chain against
     the plain version and against the runtime chain (joint_static=None), at
-    the kernel-vs-plain tolerance, at the segment edges T in {2, 3, 33, 52,
+    the kernel-vs-plain tolerance, at the window edges T in {2, 3, 33, 52,
     102} with a ragged tile and masked rows (zeros; other rows bit for bit
     as the unmasked launch)."""
     robot = _chain_robot(robot_name).to(cuda_device)
@@ -1170,3 +1172,140 @@ def test_cli_config2_on_card(cuda_device):
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["success"] is True
     assert out["device"] == torch.cuda.get_device_name(0)
+
+
+# The lane plan's edges: waypoint counts around the 30 owned lanes of a
+# window, and a ragged batch large enough that the plan takes 8 candidates a
+# block, so windows cross candidate boundaries.
+_EDGE_C = 4229
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["analytic_shared", "grid_shared"])
+@pytest.mark.parametrize("T", [2, 3, 31, 32, 33, 101, 102, 103])
+def test_lane_plan_edges_match_plain(cuda_device, kind, T):
+    """K3 and K5 with their :ee forms, on the static and the runtime chain,
+    at the lane plan's edges: q_obs, margin and ee against the plain
+    version; a masked third (with single candidates inside a block) writes
+    zeros and leaves the other rows bit for bit as the unmasked launch."""
+    assert tr._plan(_EDGE_C, T, 7)[0] > 1
+    robot = tmodel.arm_7dof().to(cuda_device)
+    runtime = dataclasses.replace(robot, joint_static=None)
+    world = _edge_world(kind, 1, T).to(cuda_device)
+    cand = _cands(robot, _EDGE_C, T, T, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    dt = 5.0 / (T - 1)
+    q_p, m_p, ee_p = tr.obstacle_cost_batch_plain(robot, world, cand, dt,
+                                                  0.05, want_ee=True)
+    active = torch.rand(_EDGE_C, generator=torch.Generator().manual_seed(T)
+                        ).to(cuda_device) > 0.33
+    active[[0, 9, 17, _EDGE_C - 1]] = False
+    for r in (robot, runtime):
+        q_k, m_k = tr.obstacle_cost_batch(r, world, tm, dt, 0.05,
+                                          time_major=True)
+        torch.testing.assert_close(q_k, q_p, **Q_TOL)
+        torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+        q_a, m_a, ee = tr.obstacle_cost_batch(r, world, tm, dt, 0.05,
+                                              row_active=active,
+                                              time_major=True, want_ee=True)
+        assert torch.equal(q_a[active], q_k[active])
+        assert torch.equal(m_a[active], m_k[active])
+        assert bool((q_a[~active] == 0).all())
+        assert bool((m_a[~active] == 0).all())
+        torch.testing.assert_close(ee[:, :, active], ee_p[:, :, active],
+                                   rtol=1e-5, atol=2e-5)
+        assert bool((ee[:, :, ~active] == 0).all())
+
+
+def _above_the_block(case, device):
+    """(robot, world) whose parameters do not fit the kernel's parameter
+    block (200 spheres beside the tabletop boxes, shared or as a grid's
+    overlay; 210 robot bodies), or whose robot has no host copies (bodies
+    shuffled on the card)."""
+    rng = np.random.default_rng(3)
+    spheres = [(tuple(rng.uniform(-0.8, 0.8, 3)), rng.uniform(0.05, 0.2))
+               for _ in range(200)]
+    big = AnalyticWorld.make(spheres=spheres, boxes=_WORLDS["boxes"]["boxes"])
+    robot = tmodel.arm_7dof()
+    if case == "world":
+        world = big
+    elif case == "overlay":
+        world = CompositeWorld(_voxel_world("grid"), big)
+    else:
+        world = AnalyticWorld.make(**_WORLDS["boxes"])
+    if case == "robot":
+        robot = dataclasses.replace(tmodel.arm_7dof(spheres_per_link=70),
+                                    joint_static=None)
+    robot, world = robot.to(device), world.to(device)
+    if case == "device_made":
+        robot = _shuffled(robot, 0)
+    return robot, world
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["world", "overlay", "robot", "device_made"])
+def test_memory_path_matches_plain(cuda_device, case):
+    """The memory path (parameters staged from device memory), taken for a
+    robot or world above the parameter block or without host copies,
+    against the plain version, with ee and a masked third; every launch is
+    counted on that route and none on the parameter block."""
+    robot, world = _above_the_block(case, cuda_device)
+    C, T = _EDGE_C, 33
+    cand = _cands(robot, C, T, 4, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[::3] = False
+    q_p, m_p, ee_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.15,
+                                                  0.05, want_ee=True)
+    tr.reset_launches()
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
+                                      time_major=True)
+    q_a, m_a, ee = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
+                                          row_active=active, time_major=True,
+                                          want_ee=True)
+    assert tr.PARAM_ROUTES == {"block": 0, "memory": 2}
+    torch.cuda.synchronize()
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+    assert torch.equal(q_a[active], q_k[active])
+    assert bool((q_a[~active] == 0).all()) and bool((m_a[~active] == 0).all())
+    torch.testing.assert_close(ee[:, :, active], ee_p[:, :, active],
+                               rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_main_path_takes_the_parameter_block(cuda_device):
+    """A robot and world moved to the card with .to() launch with the
+    parameter block on every variant, and a world updated in place since
+    takes the memory path (its host copy is stale)."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    grid = _voxel_world("grid").to(cuda_device)
+    rows = _row_world("analytic", 13, 2, ns=1, nx=2).to(cuda_device)
+    cand = _cands(robot, 273, 52, 1, cuda_device)
+    tr.reset_launches()
+    for w, per in ((world, None), (grid, None), (rows, 21)):
+        tr.obstacle_cost_batch(robot, w, cand, 0.1, 0.05, cands_per_row=per)
+    assert tr.PARAM_ROUTES == {"block": 3, "memory": 0}
+    q_b, _ = tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+    world.box_half.mul_(1.5)
+    q_m, _ = tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+    q_p, _ = tr.obstacle_cost_batch_plain(robot, world, cand, 0.1, 0.05)
+    assert tr.PARAM_ROUTES == {"block": 4, "memory": 1}
+    torch.testing.assert_close(q_m, q_p, **Q_TOL)
+    assert not torch.equal(q_m, q_b)
+
+
+@pytest.mark.cuda
+def test_occupancy_query_launches_nothing(cuda_device):
+    """rollout_occupancy gives the resident blocks per SM of the kernel a
+    launch would take (at least its __launch_bounds__ minimum: 4 for K3 on
+    arm_7dof's chain with the parameter block), and launches and counts
+    nothing."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    cand = _cands(robot, 700, 102, 1, cuda_device)
+    tr.reset_launches()
+    assert tr.rollout_occupancy(robot, world, cand, 0.05, 0.05) >= 4
+    assert sum(tr.LAUNCHES.values()) == 0
+    assert tr.PARAM_ROUTES == {"block": 0, "memory": 0}

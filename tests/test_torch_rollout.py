@@ -153,12 +153,19 @@ def test_pack_params_layout(world_name):
 
 
 def test_t_chunk_covers_trajectory():
-    """The segment plan that replaced the per-thread waypoint chunks covers
-    the trajectory, whatever the batch: n_seg segments of seg_len owned
-    waypoints, the last one reaching T, each fitting a warp with its halo."""
+    """The lane plan that replaced the per-thread waypoint chunks covers
+    the trajectory, whatever the batch: n_slab slabs of ceil(T / n_slab)
+    owned waypoints, none empty, the last reaching T; 1 to 16 candidates a
+    block; the block's shared memory within budget for trajectories of a
+    few hundred waypoints."""
     for C in (1, 56, 1000, 57344):
         for T in (2, 17, 102):
-            seg_len, n = tr._segments(T)
-            assert 1 <= seg_len <= min(T, tr._SEG_MAX)
-            assert (n - 1) * seg_len < T <= n * seg_len
-            assert seg_len + 2 <= tr._WARP
+            for ee in (False, True):
+                cpb, n = tr._plan(C, T, 7, ee)
+                assert 1 <= cpb <= tr._MAX_CANDS
+                slabs = [tr._slab(T, n, s) for s in range(n)]
+                assert slabs[0][0] == 0 and slabs[-1][1] == T
+                assert all(lo < hi for lo, hi, _, _ in slabs)
+                assert all(a[1] == b[0] for a, b in zip(slabs, slabs[1:]))
+                assert (tr._smem_floats(0, 7, cpb, T, n, ee)
+                        <= (tr._SMEM_BUDGET_EE if ee else tr._SMEM_BUDGET))

@@ -19,84 +19,72 @@
 // this file supplies the distance: the min over the world's spheres and
 // boxes.
 //
-// What bounds it on the H100: arithmetic, not memory. At the config-4 shape
-// (C = 57,344 candidates, T = 102, d = 7, 12 bodies, 2 boxes) one launch reads
-// 164 MB of trajectories and writes 23 MB of cost rows, while each
-// (candidate, waypoint) costs ~70 flops per joint of frame algebra plus a
-// sincos, and ~40 flops per body and box of SDF: a serial chain per
-// waypoint. The skeleton therefore does each FK once (plus a 1-waypoint
-// halo per segment of 30), keeps every intermediate in registers, and
-// spends no shared memory per thread, so registers alone set how many warps
-// hide that chain's latency.
+// What bounds it on the H100: instruction issue, not memory. At the config-4
+// shape (C = 57,344 candidates, T = 102, d = 7, 12 bodies, 2 boxes) one
+// launch reads 164 MB of trajectories and writes 23 MB of cost rows (0.06 ms
+// at 3.35 TB/s), while each (candidate, waypoint) is a serial chain of
+// ~2,000 instructions: per joint ~70 flops of frame algebra and a sincos,
+// per body and box ~40 flops of SDF. rollout_common.cuh's skeleton answers
+// that: 32 lanes per 30 owned waypoints over the block's active candidates
+// only, the robot and the shared boxes as constant-bank operands (no
+// shared-memory load, no register), every intermediate in registers.
 //
 // Per-row worlds (config 5: 10,000 scenarios x 21 candidates, one moving
-// sphere plus the 2 tabletop boxes per scenario, 16 floats per row): a warp
-// evaluates one candidate, so its row is warp-uniform; a row within the
-// register budget below is loaded once into registers instead of once per
-// body and waypoint, and an inactive scenario's warps leave at once.
+// sphere plus the 2 tabletop boxes per scenario, 16 floats per row): a row
+// within the budget below is staged per block in shared memory (a block's 9
+// candidates span one or two rows) and read with its counts compiled in;
+// inactive scenarios cost no FK.
 
 #include "rollout_common.cuh"
 
 namespace {
 
-// The primitives a warp holds in registers: up to 16 floats (4 a sphere, 6
-// a box) keep every instantiation within 64 registers a thread (ptxas), so
-// 4 blocks of 256 threads stay resident per SM; 2 spheres and 2 boxes (20
-// floats) take 68 registers and 3 blocks. Larger worlds are read from
-// memory at every use.
+// Worlds of up to 16 floats of primitives (4 a sphere, 6 a box) run with
+// their counts compiled in (the loops unrolled): a per-row world's row
+// staged in shared memory, a shared world's primitives at fixed offsets of
+// the parameters. Larger worlds loop to their run-time counts (a shared one
+// still in the constant bank while the parameter block holds it; a per-row
+// one read from memory at every use).
 constexpr int kRegisterFloats = 16;
 
-template <class World, class Chain>
-__global__ void __launch_bounds__(rollout::kBlock) rollout_analytic_kernel(
-    World world, Chain chain, const float* __restrict__ cand,
-    const float* __restrict__ params, int n_params,
-    const uint8_t* __restrict__ active, float* __restrict__ q_obs,
-    float* __restrict__ margin_part, float* __restrict__ ee, int C, int T,
-    float dt, float clearance, int seg_len) {
-  rollout::evaluate(world, chain, cand, params, n_params, active, q_obs,
-                    margin_part, ee, C, T, dt, clearance, seg_len);
-}
-
-template <class World, class Chain>
-int launch(const World& world, const Chain& chain, const float* cand,
-           const float* params, int n_params, const uint8_t* active,
-           float* q_obs, float* margin_part, float* ee, int C, int T,
-           float dt, float clearance, int seg_len, void* stream) {
-  if (C <= 0) return 0;
-  const size_t smem =
-      rollout::smem_floats(n_params, chain.d, ee != nullptr) * sizeof(float);
-  const int err = rollout::prepare(rollout_analytic_kernel<World, Chain>,
-                                   smem, seg_len);
-  if (err != 0) return err;
-  dim3 grid((C + rollout::kCands - 1) / rollout::kCands,
-            (T + seg_len - 1) / seg_len);
-  rollout_analytic_kernel<World, Chain><<<grid, rollout::kBlock, smem,
-                                          (cudaStream_t)stream>>>(
-      world, chain, cand, params, n_params, active, q_obs, margin_part, ee,
-      C, T, dt, clearance, seg_len);
-  return (int)cudaGetLastError();
+template <class World, class Chain, class Par>
+__global__ void __launch_bounds__(
+    rollout::kBlock, rollout::kernel_min_blocks<World, Chain, Par>())
+rollout_analytic_kernel(
+    World world, Chain chain, const __grid_constant__ Par par,
+    const rollout::Shape s) {
+  rollout::evaluate(world, chain, par, s);
 }
 
 }  // namespace
 
 // Every entry point ends with the same tail: active (or null), q_obs,
-// margin_part ([segments, C]), ee ([12, T, C], or null: no frame output),
-// then the shapes, the scalars and the segment length. d, nb and skip_rotf
-// must match the library's chain (rollout_common.cuh with_chain).
+// margin_part ([n_slab, C]), ee ([12, T, C], or null: no frame output),
+// then the shapes, the scalars, the lane plan (cpb, n_slab:
+// kernels/rollout.py _plan), the stream, and `resident`: null for a launch,
+// else the occupancy query of rollout_common.cuh launch_plan. params is a host pointer to n_params floats
+// for the parameter block when host_params is 1 (n_params <= kParamFloats),
+// else a device pointer (the memory path). d, nb and skip_rotf must match
+// the library's chain (rollout_common.cuh with_chain).
 
 // A world shared by every candidate: its primitives are in params.
 extern "C" int rollout_analytic_launch(
-    const float* cand, const float* params, int n_params,
+    const float* cand, const float* params, int n_params, int host_params,
     const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
     int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int seg_len, void* stream) {
+    int skip_rotf, int cpb, int n_slab, void* stream, int* resident) {
+  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
+                         n_params, cpb, n_slab, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
-    return rollout::with_register_counts<kRegisterFloats>(
-        ns, nx, [&](auto k) {
+    return rollout::with_params<kRegisterFloats>(
+        params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
           using K = decltype(k);
-          return launch(rollout::SharedPrims<K::ns, K::nx>{ns, nx}, chain,
-                        cand, params, n_params, active, q_obs, margin_part,
-                        ee, C, T, dt, clearance, seg_len, stream);
+          using Par = std::decay_t<decltype(par)>;
+          using World = rollout::SharedPrims<K::ns, K::nx>;
+          return rollout::launch_plan(
+              rollout_analytic_kernel<World, decltype(chain), Par>,
+              Par::kStaged ? n_params : 0, d, s, stream, resident,
+              World{ns, nx}, chain, par);
         });
   });
 }
@@ -104,20 +92,23 @@ extern "C" int rollout_analytic_launch(
 // Per-row worlds: spheres [C / cands_per_row, ns, 4], boxes [.., nx, 6];
 // params hold the robot only.
 extern "C" int rollout_analytic_rows_launch(
-    const float* cand, const float* params, int n_params,
+    const float* cand, const float* params, int n_params, int host_params,
     const float* spheres, const float* boxes, int cands_per_row,
     const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
     int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int seg_len, void* stream) {
+    int skip_rotf, int cpb, int n_slab, void* stream, int* resident) {
+  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
+                         n_params, cpb, n_slab, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
-    return rollout::with_register_counts<kRegisterFloats>(
-        ns, nx, [&](auto k) {
+    return rollout::with_params<kRegisterFloats>(
+        params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
           using K = decltype(k);
-          return launch(rollout::RowPrims<K::ns, K::nx>{spheres, boxes, ns,
-                                                        nx, cands_per_row},
-                        chain, cand, params, n_params, active, q_obs,
-                        margin_part, ee, C, T, dt, clearance, seg_len,
-                        stream);
+          using Par = std::decay_t<decltype(par)>;
+          using World = rollout::RowPrims<K::ns, K::nx>;
+          return rollout::launch_plan(
+              rollout_analytic_kernel<World, decltype(chain), Par>,
+              Par::kStaged ? n_params : 0, d, s, stream, resident,
+              World{spheres, boxes, ns, nx, cands_per_row}, chain, par);
         });
   });
 }

@@ -1,8 +1,9 @@
 // Shared skeleton of the fused rollout evaluators for Hopper (sm_90a):
 // rollout_analytic.cu (sphere/box worlds) and rollout_grid.cu (voxel grid,
 // optionally with a sphere/box overlay). Both are this one template,
-// evaluate<World, Chain>, with a different distance policy; the Chain
-// policy walks the robot's joints (see "Joint chains" below).
+// evaluate<World, Chain, Par>, with a different distance policy; the Chain
+// policy walks the robot's joints (see "Joint chains" below) and Par says
+// where the launch-uniform parameters live.
 //
 // Per candidate trajectory c and waypoint t it computes forward kinematics
 // down the joint chain, the world position of every sphere body, the signed
@@ -10,55 +11,82 @@
 // potential of (dist - radius - clearance) times the body's workspace speed
 // (central difference over t, one-sided at both ends), and writes
 //     q_obs[t, c]            = dt * sum_b potential_b(t) * speed_b(t)
-//     margin_part[seg, c]    = min over b and this segment's t of dist_b - radius_b
+//     margin_part[slab, c]   = min over b and this slab's t of dist_b - radius_b
 // and, when the caller passes an ee buffer (the TPU kernel's ee_out), the
 // last joint's frame per waypoint, 12 planes of [T, C]:
 //     ee[k, t, c]  k = 0..2 position, k = 3..11 rotation (row-major)
 // Numerics follow tpustomp_torch/costs/obstacle.py (the plain version the
 // kernels are held to): accurate sincosf/sqrtf and IEEE division (no fast
 // math); nvcc's default FMA contraction moves results by about 1 ULP per
-// composed joint.
+// composed joint. No tensor cores: each (candidate, waypoint) is a chain of
+// 3x3 fp32 products, far below wgmma's 64-row tile, and TF32 would break
+// the 1e-5 tolerance.
 //
-// Work split. Each (candidate, waypoint) is a serial chain of d frame
-// products and nb distances, so the card is kept busy by many resident
-// warps, and what limits residency is registers, not shared memory:
-//   * One warp walks one candidate along the waypoint axis. The axis is cut
-//     into segments of seg_len <= kSegMax owned waypoints (the wrapper's
-//     segment plan, grid.y). Lane l computes the FK of waypoint
-//     t0 - 1 + l: lanes 1..seg_len own their waypoint, lane 0 and lane
-//     seg_len + 1 are the 1-waypoint halo on either side (their FK is
-//     recomputed by the neighbouring segment). Lanes past the halo repeat
-//     its last waypoint and write nothing.
-//   * Bodies are placed one at a time while the frame is live; the
-//     neighbours' positions at t - 1 and t + 1 come from the adjacent lanes
-//     (__shfl_up_sync / __shfl_down_sync). Speed, distance, potential and
-//     the sum over bodies (b = 0..nb-1, as the plain version) stay in the
-//     owning lane. The segment's margin is a warp min-reduction.
-//   * A block is kCands warps: kCands candidates (32 bytes per joint and
-//     waypoint) by one segment. The [d, T, C] tile comes into shared memory
-//     with coalesced loads and is read transposed (row pitch kPitch: no bank
-//     conflicts); q_obs, ee and margins go out through the same kind of
-//     staging, so every 32-byte sector is read and written whole.
-//   * Robot parameters (a few hundred floats) are staged once per block in
-//     shared memory and read as warp-uniform broadcasts.
-//   * A warp's candidate has one world. A world whose spheres and boxes
-//     fit the kernel's register budget (with_register_counts; each kernel
-//     file sets its budget in floats) runs with its counts compiled in and
-//     its primitives in registers, loaded once per warp as warp-uniform
-//     broadcasts: from the
-//     staged parameters for a shared world, from the row c / cands_per_row
-//     of [rows, ns, 4] / [rows, nx, 6] for per-row worlds. A larger world
-//     reads them through the same pointers at every use. Shared and
-//     per-row worlds of the same counts take the same instantiation and run
-//     the same code (primitives_dist), so they agree bit for bit.
-//   * A warp whose candidate is inactive (a finished scenario) writes zeros
-//     and does no other work; no lane waits on another candidate.
+// What bounds it: instruction issue. Each (candidate, waypoint) is a serial
+// chain of d frame products and nb distances (~2,000 instructions on
+// arm_7dof), so the schedulers' issue slots are the scarce resource, and
+// every lane that computes an FK nobody reads, and every operand fetched by
+// its own instruction, costs them. The design:
+//   * Lane plan (kernels/rollout.py _plan, replayed on the CPU by
+//     tests/test_torch_segments.py). A block holds `cpb` consecutive
+//     candidates (1..kMaxCands) and one slab of the waypoint axis (one slab
+//     unless the tile would not fit: long trajectories).
+//     Its active candidates' waypoints are laid end to end, candidate-major,
+//     with the slab's halo waypoints (t_lo - 1 and t_hi, where they exist)
+//     in place: n_seq rows a candidate. Warps take windows of that flat
+//     sequence in turn: window k puts flat position 30k - 1 + l on lane l,
+//     lanes 1..30 are its core and lanes 0 and 31 the halo (each computed
+//     again as a neighbouring window's core). A core lane owns its waypoint
+//     when it lies in [t_lo, t_hi). Its neighbours t - 1 and t + 1 are the
+//     adjacent lanes (__shfl_up/down_sync): a candidate boundary inside a
+//     window needs no halo, because t = 0 and t = T - 1 take one-sided
+//     differences toward their own candidate. The wrapper picks cpb so
+//     that the block's windows fill whole rounds of its 8 warps (a warp
+//     that idles in the last round still holds its registers): at T = 102
+//     7 candidates are 24 windows, 3 rounds, 1.076 lane slots per owned
+//     waypoint, against 1.255 for the segment plan this replaced and for 8
+//     candidates (28 windows: half the warps idle in the 4th round); at
+//     T = 52 9 candidates, 16 windows, 1.094 against 1.231. With the ee
+//     frame it takes at least 8 (8 at T = 102, 9 at T = 52), so the
+//     frame's 12 planes go out in rows of mostly whole 32-byte sectors.
+//   * Activity skip: the lanes go over the block's active candidates only
+//     (a ballot of the mask), so masked rows cost no FK; they are written
+//     as zeros.
+//   * Staging: the block's [d, rows, cpb] joint tile comes into shared
+//     memory with loads of cpb consecutive candidates a row, and q_obs, ee
+//     and the per-waypoint margins go out through the same kind of staging;
+//     a warp then min-reduces each candidate's margin over the slab.
+//   * Launch-uniform data in the constant bank (Par = ParamBlock): the
+//     robot's parameters and a shared world's primitives are a
+//     __grid_constant__ kernel parameter of kParamFloats floats, filled on
+//     the host from the host mirror of the robot and world
+//     (kernels/rollout.py _host_params), so FFMA reads joint offsets, fixed
+//     rotations, body offsets and radii, and box or sphere primitives as
+//     constant-bank operands: no shared-memory load and no register for
+//     them. Par = ParamPtr is the memory path, a designed instantiation for
+//     a robot and world above kParamFloats or without a host mirror (a
+//     robot built on the device): the parameters are staged once per block
+//     in shared memory, with the world's counts read at run time.
+//   * Per-row worlds (RowPrims): a row within the kernel's budget
+//     (with_register_counts) is staged per block in shared memory, one row
+//     a candidate column, and read with its counts compiled in (a window
+//     may span two rows); a larger row is read from global memory at every
+//     use. Holding the row in registers, as the segment plan did, took 16
+//     of them and with the window loop's state cost a block of residency.
+//   * __launch_bounds__ min-blocks per instantiation (kernel_min_blocks),
+//     measured with ptxas: 4 (64 registers) where the kernel fits them
+//     without a spill, 3 where it does not (worlds of run-time counts,
+//     empty worlds, the memory path, chains with fixed rotations or more
+//     than 7 joints).
 //   * ee is the (R, p) in registers after the joint loop, before ee_offset
 //     (the position constraint applies it): 48 bytes of stores per
 //     (candidate, waypoint) and no arithmetic, so q_obs and margin are the
 //     same with or without it.
-// Bodies must be link-sorted (the wrapper sorts robots that are not, on the
-// device).
+// The arithmetic per (candidate, waypoint) is the segment plan's, operation
+// for operation and body for body, so q_obs and margin are bitwise those of
+// the kernels this replaced. cp.async / TMA for the joint tile is not used:
+// it is 164 MB at config 4's shape, ~0.05 ms at 3.35 TB/s of a ~1 ms launch.
+// Bodies must be link-sorted (the wrapper sorts robots that are not).
 //
 // Joint chains (the TPU kernel's static_joints, rollout_pallas.py:372-391,
 // 536-571). A library built without ROLLOUT_CHAIN runs RuntimeChain: joint
@@ -74,7 +102,8 @@
 // multiplies R·G over them; a kOther value is read from the parameters).
 // Offsets, fixed rotations and bodies stay run-time values in both.
 //
-// Packed parameter layout (float32; built by kernels/rollout.py:pack_params):
+// Packed parameter layout (float32; kernels/rollout.py pack_params on the
+// device, _host_params on the host):
 //   [0, 9)            base rotation, row-major
 //   [9, 12)           base position
 //   12 + 16*j + ...   joint j: type (0 revolute, 1 prismatic), axis[3],
@@ -93,20 +122,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
 #include <utility>
 
 namespace rollout {
 
-constexpr int kWarp = 32;              // lanes: one waypoint each
-constexpr int kCands = 8;              // candidates per block, one warp each
-constexpr int kBlock = kWarp * kCands;
-constexpr int kPitch = kCands + 1;     // staging row pitch (odd: no conflicts)
-constexpr int kSegMax = kWarp - 2;     // owned waypoints: a halo lane each side
+constexpr int kWarp = 32;              // lanes: one (candidate, waypoint) each
+constexpr int kWarps = 8;              // warps a block
+constexpr int kBlock = kWarp * kWarps;
+constexpr int kCore = kWarp - 2;       // owned lanes a window: a halo each side
+constexpr int kMaxCands = 16;          // candidates a block at most
+constexpr int kParamFloats = 768;      // the parameter block: 3 KB, within
+                                       // the classic 4 KB of kernel parameters
 constexpr int kAny = -1;               // a primitive count known at run time
+constexpr int kRowFloats = 16;         // a staged per-row world, at most
 constexpr float kBig = 1e6f;           // empty-set distance, as the reference
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Deref {                         // registers or shared memory
+struct Deref {                         // constant bank, registers or shared
   __device__ __forceinline__ float operator()(const float* p) const {
     return *p;
   }
@@ -117,12 +150,40 @@ struct ReadOnly {                      // global memory through the L1 path
   }
 };
 
+// ---- Where the parameters live ---------------------------------------------
+// bind(smem, n) returns the pointer the block reads its parameters through;
+// a staged policy copies them into smem (the caller synchronises).
+
+// The robot and a shared world's primitives, by value: a __grid_constant__
+// kernel parameter, read as constant-bank operands.
+struct ParamBlock {
+  float v[kParamFloats];
+  static constexpr bool kStaged = false;
+  static constexpr int kMinBlocks = 4;
+  __device__ __forceinline__ const float* bind(float*, int) const {
+    return v;
+  }
+};
+
+// The memory path: n parameters in device memory, staged once per block.
+struct ParamPtr {
+  const float* p;
+  static constexpr bool kStaged = true;
+  static constexpr int kMinBlocks = 3;    // the staged pointer: a spill at 4
+  __device__ __forceinline__ const float* bind(float* smem, int n) const {
+    for (int i = threadIdx.x; i < n; i += kBlock) smem[i] = p[i];
+    return smem;
+  }
+};
+
+// ---- Worlds of spheres and boxes --------------------------------------------
+
 // Min signed distance to ns spheres (S: 4 floats each, center[3] and
 // radius) and nx boxes (X: 6 floats each, center[3] and half[3]); kBig
 // when there are none. NS and NX are the counts at compile time (the loops
-// unroll, so S and X may be register arrays) or kAny (the run-time ns, nx);
-// Load says how S and X are read. The arithmetic is the same for every
-// instantiation and every kind of world.
+// unroll, so S and X may be register arrays or constant-bank offsets) or
+// kAny (the run-time ns, nx); Load says how S and X are read. The
+// arithmetic is the same for every instantiation and every kind of world.
 template <int NS, int NX, class Load>
 __device__ __forceinline__ float primitives_dist(
     Load ld, const float* S, int ns, const float* X, int nx, float x0,
@@ -151,63 +212,92 @@ __device__ __forceinline__ float primitives_dist(
   return dist;
 }
 
-// One warp's primitive set, a callable distance. Counts known at compile
-// time: the primitives are copied into registers once, through Load.
+// A primitive set read through Load at every use: from the constant bank
+// (a shared world in the parameter block), shared memory (a staged row, the
+// memory path) or global memory (a per-row world above the budget).
 template <int NS, int NX, class Load>
-struct Prims {
-  float s[NS > 0 ? 4 * NS : 1], x[NX > 0 ? 6 * NX : 1];
-  __device__ __forceinline__ Prims(const float* S, int, const float* X,
-                                   int) {
-    const Load ld{};
-#pragma unroll
-    for (int i = 0; i < 4 * NS; ++i) s[i] = ld(S + i);
-#pragma unroll
-    for (int i = 0; i < 6 * NX; ++i) x[i] = ld(X + i);
-  }
-  __device__ __forceinline__ float operator()(float x0, float x1,
-                                              float x2) const {
-    return primitives_dist<NS, NX>(Deref{}, s, NS, x, NX, x0, x1, x2);
-  }
-};
-
-// A world above the register budget: read through Load at every use.
-template <class Load>
-struct Prims<kAny, kAny, Load> {
+struct PrimsAt {
   const float* S;
   int ns;
   const float* X;
   int nx;
-  __device__ __forceinline__ Prims(const float* S_, int ns_, const float* X_,
-                                   int nx_)
-      : S(S_), ns(ns_), X(X_), nx(nx_) {}
   __device__ __forceinline__ float operator()(float x0, float x1,
                                               float x2) const {
-    return primitives_dist<kAny, kAny>(Load{}, S, ns, X, nx, x0, x1, x2);
+    return primitives_dist<NS, NX>(Load{}, S, ns, X, nx, x0, x1, x2);
   }
 };
 
-// The shared primitive set in the world section W of the staged parameters.
+// __launch_bounds__ min-blocks (resident blocks of 256 threads an SM), set
+// from ptxas -v: 4 (64 registers) when the world, the chain and the
+// parameters each fit it (kMinBlocks 4), one block fewer for each that does
+// not (kMinBlocks 3), and at least 2: every instantiation built for
+// arm_7dof, the URDF torso arm and the runtime chain then has no spill. A
+// world of compiled counts fits 4; run-time counts and the empty world do
+// not.
+template <int NS, int NX>
+constexpr int min_blocks() {
+  return (NS == kAny || NS + NX == 0) ? 3 : 4;
+}
+template <class World, class Chain, class Par>
+constexpr int kernel_min_blocks() {
+  const int heavy = (World::kMinBlocks < 4) + (Chain::kMinBlocks < 4)
+                    + (Par::kMinBlocks < 4);
+  return heavy > 2 ? 2 : 4 - heavy;
+}
+
+// A world policy has stage(rows, c0, n_c), run by every thread of the
+// block before the first __syncthreads (a per-row world copies its rows
+// there), and at(W, c, row): candidate c's distance, with W the world
+// section of the parameters and row its column's staged row.
+
+// The shared primitive set in the world section W of the parameters (the
+// counts compiled in where known, so every read is at a fixed offset).
 template <int NS, int NX>
 struct SharedPrims {
+  static constexpr int kMinBlocks = min_blocks<NS, NX>();
   int ns, nx;
-  __device__ __forceinline__ Prims<NS, NX, Deref> at(const float* W,
-                                                     int) const {
-    return Prims<NS, NX, Deref>(W, ns, W + 4 * ns, nx);
+  // floats of primitives before what follows them in W
+  __device__ __forceinline__ int floats() const {
+    return NS == kAny ? 4 * ns + 6 * nx : 4 * NS + 6 * NX;
+  }
+  __device__ __forceinline__ void stage(float*, int, int) const {}
+  __device__ __forceinline__ PrimsAt<NS, NX, Deref> at(const float* W, int,
+                                                       const float*) const {
+    return {W, ns, W + (NS == kAny ? 4 * ns : 4 * NS), nx};
   }
 };
 
 // Per-row primitive sets in global memory: spheres [rows, ns, 4], boxes
-// [rows, nx, 6]; candidate c reads row c / per_row.
+// [rows, nx, 6]; candidate c reads row c / per_row. Compiled counts stage
+// each column's row in shared memory (kStaged floats: spheres, then boxes).
 template <int NS, int NX>
 struct RowPrims {
+  static constexpr int kMinBlocks = min_blocks<NS, NX>();
+  static constexpr int kStaged = NS == kAny ? 0 : 4 * NS + 6 * NX;
+  static_assert(kStaged <= kRowFloats, "a staged row above kRowFloats");
   const float* spheres;
   const float* boxes;
   int ns, nx, per_row;
-  __device__ __forceinline__ Prims<NS, NX, ReadOnly> at(const float*,
-                                                        int c) const {
-    const size_t r = (size_t)(c / per_row);
-    return Prims<NS, NX, ReadOnly>(spheres + r * 4 * ns, ns,
-                                   boxes + r * 6 * nx, nx);
+  __device__ __forceinline__ void stage(float* rows, int c0, int n_c) const {
+    if constexpr (kStaged > 0) {
+      for (int i = threadIdx.x; i < n_c * kStaged; i += kBlock) {
+        const int col = i / kStaged, k = i % kStaged;
+        const size_t r = (size_t)((c0 + col) / per_row);
+        rows[col * kRowFloats + k] =
+            k < 4 * NS ? spheres[r * 4 * NS + k]
+                       : boxes[r * 6 * NX + k - 4 * NS];
+      }
+    }
+  }
+  __device__ __forceinline__ auto at(const float*, int c,
+                                     const float* row) const {
+    if constexpr (NS == kAny) {
+      const size_t r = (size_t)(c / per_row);
+      return PrimsAt<kAny, kAny, ReadOnly>{spheres + r * 4 * ns, ns,
+                                           boxes + r * 6 * nx, nx};
+    } else {
+      return PrimsAt<NS, NX, Deref>{row, NS, row + 4 * NS, NX};
+    }
   }
 };
 
@@ -217,10 +307,9 @@ struct Counts {
 };
 
 // launch(Counts<ns, nx>{}), the world's own counts compiled in, when its
-// primitives fit in Floats registers (4 a sphere, 6 a box): one
-// instantiation per such pair of counts (S, X walk them).
-// launch(Counts<kAny, kAny>{}) for a larger world. Shared and per-row
-// worlds take the same instantiation.
+// primitives fit in Floats (4 a sphere, 6 a box): one instantiation per
+// such pair of counts (S, X walk them). launch(Counts<kAny, kAny>{}) for a
+// larger world. Shared and per-row worlds take the same counts.
 template <int Floats, int S = 0, int X = 0, class F>
 inline int with_register_counts(int ns, int nx, F launch) {
   if constexpr (4 * S + 6 * X <= Floats) {
@@ -233,20 +322,73 @@ inline int with_register_counts(int ns, int nx, F launch) {
   }
 }
 
-// Shared memory of one block, in floats: the padded parameters, the joint
-// tile [d][kWarp][kPitch], the cost rows [kWarp][kPitch], kWarp margin
-// slots, and with ee the frame [12][kWarp][kPitch].
-inline size_t smem_floats(int n_params, int d, bool ee) {
-  return (size_t)((n_params + 31) & ~31) + (size_t)(d + 1) * kWarp * kPitch
-         + kWarp + (ee ? 12 * kWarp * kPitch : 0);
+// launch(Counts, Par) for a launch whose parameters are on the host
+// (host_params: the parameter block, filled here from n_params host floats)
+// with the counts of with_register_counts, or in device memory (the memory
+// path, off the main paths) with the run-time counts: one instantiation a
+// chain and world kind, so the memory path doubles no instantiation. The
+// arithmetic per primitive is the same either way; only the loop over
+// primitives is rolled.
+template <int Floats, class F>
+inline int with_params(const float* params, int n_params, int host_params,
+                       int ns, int nx, F launch) {
+  if (!host_params) return launch(Counts<kAny, kAny>{}, ParamPtr{params});
+  if (n_params > kParamFloats) return (int)cudaErrorInvalidValue;
+  ParamBlock block;
+  for (int i = 0; i < n_params; ++i) block.v[i] = params[i];
+  for (int i = n_params; i < kParamFloats; ++i) block.v[i] = 0.0f;
+  return with_register_counts<Floats>(
+      ns, nx, [&](auto k) { return launch(k, block); });
+}
+
+// ---- The launch's shape and buffers -----------------------------------------
+struct Shape {
+  const float* cand;            // [d, T, C]
+  const uint8_t* active;        // [C] or nullptr
+  float* q_obs;                 // [T, C]
+  float* margin_part;           // [n_slab, C]
+  float* ee;                    // [12, T, C] or nullptr
+  int C, T, n_params, cpb, n_slab;
+  float dt, clearance;
+};
+
+// Slab s of the waypoint axis: owned [t_lo, t_hi), rows [a, b) with the
+// halo waypoints that exist; L = ceil(T / n_slab) owned a slab.
+struct Slab {
+  int t_lo, t_hi, a, n_seq, n_own;
+  __host__ __device__ Slab(int T, int n_slab, int s) {
+    const int L = (T + n_slab - 1) / n_slab;
+    t_lo = s * L;
+    t_hi = t_lo + L < T ? t_lo + L : T;
+    a = t_lo > 0 ? t_lo - 1 : 0;
+    const int b = t_hi + 1 < T ? t_hi + 1 : T;
+    n_seq = b - a;
+    n_own = t_hi - t_lo;
+  }
+};
+
+// Shared memory of one block, in floats, for the largest slab (L owned
+// rows and both halos): the staged parameters (memory path), the joint tile
+// [d][cpb][n_seq], the cost and margin rows [cpb][opitch], the staged
+// per-row worlds [kMaxCands][kRowFloats], the active slots and mask, and
+// with ee the frame [12][cpb][opitch] (opitch = n_own | 1: odd, few bank
+// conflicts). kernels/rollout.py _smem_floats is the same.
+inline size_t smem_floats(int staged_params, int d, int cpb, int T,
+                          int n_slab, bool ee) {
+  const int L = (T + n_slab - 1) / n_slab;
+  const size_t n_seq = n_slab == 1 ? T : (L + 2 < T ? L + 2 : T);
+  const size_t opitch = L | 1;
+  return (size_t)((staged_params + 31) & ~31) + (size_t)d * cpb * n_seq
+         + (2 + (ee ? 12 : 0)) * cpb * opitch + kMaxCands * kRowFloats
+         + kMaxCands + 2;
 }
 
 // ---- Joint chains -----------------------------------------------------------
-// A chain's walk(P, q_of, R, p, body) runs the FK of one waypoint from the
-// base frame (R, p): for each joint j it moves the frame to the joint's
-// origin, applies the joint's motion at q_of[j * kWarp * kPitch], then calls
-// body(b) for each body b on that joint with the frame live. It has d, nb
-// and skip_rotf (every fixed rotation is the identity: R·RotFixed skipped).
+// A chain's walk(P, q_of, stride, R, p, body) runs the FK of one waypoint
+// from the base frame (R, p): for each joint j it moves the frame to the
+// joint's origin, applies the joint's motion at q_of[j * stride], then
+// calls body(b) for each body b on that joint with the frame live. It has d, nb and skip_rotf (every fixed
+// rotation is the identity: R·RotFixed skipped).
 
 // p += R · offset, then R = R · RotFixed unless skip_rotf; J: joint j's
 // parameters.
@@ -272,18 +414,19 @@ __device__ __forceinline__ void joint_origin(const float* J, bool skip_rotf,
 // Joint type and axis read at run time (robots without a static chain, and
 // robots with body_counts=None, which the wrapper sorts on the device).
 struct RuntimeChain {
+  static constexpr int kMinBlocks = 4;
   int d, nb, skip_rotf;
 
   template <class Body>
   __device__ __forceinline__ void walk(const float* P, const float* q_of,
-                                       float (&R)[9], float (&p)[3],
-                                       Body& body) const {
+                                       int stride, float (&R)[9],
+                                       float (&p)[3], Body& body) const {
     const int body_start = 12 + 16 * d;
     for (int j = 0; j < d; ++j) {
       const float* J = P + 12 + 16 * j;
       joint_origin(J, skip_rotf, R, p);
       const float x = J[1], y = J[2], z = J[3];
-      const float q = q_of[j * kWarp * kPitch];
+      const float q = q_of[j * stride];
       if (J[0] != 0.0f) {
         // prismatic: translate along the world-frame axis, rotation unchanged
         const float aw0 = R[0] * x + R[1] * y + R[2] * z;
@@ -428,27 +571,31 @@ struct StaticChain {
   static constexpr int d = sizeof...(Joints);
   static constexpr int nb = (0 + ... + Joints::n_bodies);
   static constexpr int skip_rotf = SkipRotf;
+  // arm_7dof (7 joints, identity fixed rotations) fits 64 registers; a
+  // chain with fixed rotations or more joints (the URDF torso arm) spills
+  static constexpr int kMinBlocks = SkipRotf != 0 && d <= 7 ? 4 : 3;
 
   template <class Body>
   __device__ __forceinline__ void walk(const float* P, const float* q_of,
-                                       float (&R)[9], float (&p)[3],
-                                       Body& body) const {
-    step<0, 0, Joints...>(P, q_of, R, p, body);
+                                       int stride, float (&R)[9],
+                                       float (&p)[3], Body& body) const {
+    step<0, 0, Joints...>(P, q_of, stride, R, p, body);
   }
 
  private:
   template <int J, int B, class First, class... Rest, class Body>
   __device__ __forceinline__ static void step(const float* P,
-                                              const float* q_of,
+                                              const float* q_of, int stride,
                                               float (&R)[9], float (&p)[3],
                                               Body& body) {
     const float* Jp = P + 12 + 16 * J;
     joint_origin(Jp, SkipRotf != 0, R, p);
-    First::move(Jp, q_of[J * kWarp * kPitch], R, p);
+    First::move(Jp, q_of[J * stride], R, p);
 #pragma unroll
     for (int b = B; b < B + First::n_bodies; ++b) body(b);
     if constexpr (sizeof...(Rest) > 0)
-      step<J + 1, B + First::n_bodies, Rest...>(P, q_of, R, p, body);
+      step<J + 1, B + First::n_bodies, Rest...>(P, q_of, stride, R, p,
+                                                body);
   }
 };
 
@@ -515,163 +662,231 @@ inline int with_chain(int d, int nb, int skip_rotf, F launch) {
 #endif
 }
 
-// The kernel body; launched as a grid of (ceil(C / kCands), segments)
-// blocks of kBlock threads. World is a policy with
-//   __device__ Dist at(const float* W, int c) const
-// binding candidate c's distance once per warp: Dist is callable as
-// dist(x0, x1, x2), the signed distance at a body center (W: the world
-// section of the shared-memory parameters). Chain is RuntimeChain or a
-// StaticChain (with_chain).
-template <class World, class Chain>
-__device__ __forceinline__ void evaluate(
-    const World& world, const Chain& chain,
-    const float* __restrict__ cand,                       // [d, T, C]
-    const float* __restrict__ params, int n_params,
-    const uint8_t* __restrict__ active,                   // [C] or nullptr
-    float* __restrict__ q_obs,                            // [T, C]
-    float* __restrict__ margin_part,                      // [segments, C]
-    float* __restrict__ ee,                               // [12, T, C] or nullptr
-    int C, int T, float dt, float clearance, int seg_len) {
+// ---- The kernel body ---------------------------------------------------------
+
+// One body of the current joint for one lane, with the joint's frame (R, p)
+// live: body(b) puts the body in the world, reads its neighbours at t - 1
+// and t + 1 from the adjacent lanes and, on an owning lane, adds
+// potential x speed to the lane's sum and dist - radius to its margin.
+template <class Dist>
+struct BodyCost {
+  const Dist& dist;
+  const float* bodies;          // offset[3], radius per body
+  const float (&R)[9];
+  const float (&p)[3];
+  bool own;
+  int t, T;
+  float inv_dt, inv_2dt, clearance;
+  float& acc;
+  float& margin;
+
+  __device__ __forceinline__ void operator()(int b) const {
+    const float* Bd = bodies + 4 * b;
+    const float e0 = Bd[0], e1 = Bd[1], e2 = Bd[2];
+    const float x0 = p[0] + R[0] * e0 + R[1] * e1 + R[2] * e2;
+    const float x1 = p[1] + R[3] * e0 + R[4] * e1 + R[5] * e2;
+    const float x2 = p[2] + R[6] * e0 + R[7] * e1 + R[8] * e2;
+    // the body at t - 1 and t + 1: the neighbouring lanes
+    const float u0 = __shfl_up_sync(kFull, x0, 1);
+    const float u1 = __shfl_up_sync(kFull, x1, 1);
+    const float u2 = __shfl_up_sync(kFull, x2, 1);
+    const float n0 = __shfl_down_sync(kFull, x0, 1);
+    const float n1 = __shfl_down_sync(kFull, x1, 1);
+    const float n2 = __shfl_down_sync(kFull, x2, 1);
+    if (!own) return;
+    float v0, v1, v2;
+    if (t == 0) {
+      v0 = (n0 - x0) * inv_dt;
+      v1 = (n1 - x1) * inv_dt;
+      v2 = (n2 - x2) * inv_dt;
+    } else if (t == T - 1) {
+      v0 = (x0 - u0) * inv_dt;
+      v1 = (x1 - u1) * inv_dt;
+      v2 = (x2 - u2) * inv_dt;
+    } else {
+      v0 = (n0 - u0) * inv_2dt;
+      v1 = (n1 - u1) * inv_2dt;
+      v2 = (n2 - u2) * inv_2dt;
+    }
+    const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
+    const float d = dist(x0, x1, x2);
+    const float radius = Bd[3];
+    const float d_sig = d - radius - clearance;
+    float pot;
+    if (d_sig < 0.0f) {
+      pot = -d_sig + 0.5f * clearance;
+    } else if (d_sig <= clearance) {
+      const float e = d_sig - clearance;
+      pot = e * e / (2.0f * clearance);
+    } else {
+      pot = 0.0f;
+    }
+    acc += pot * speed;
+    margin = fminf(margin, d - radius);
+  }
+};
+
+// The kernel body; launched as a grid of (ceil(C / cpb), n_slab) blocks of
+// kBlock threads. World is a policy with stage() and
+//   __device__ Dist at(const float* W, int c, const float* row) const
+// binding candidate c's distance once per window: Dist is callable as
+// dist(x0, x1, x2), the signed distance at a body center. Chain is
+// RuntimeChain or a StaticChain (with_chain); Par is ParamBlock or
+// ParamPtr.
+template <class World, class Chain, class Par>
+__device__ __forceinline__ void evaluate(const World& world,
+                                         const Chain& chain, const Par& par,
+                                         const Shape& s) {
   const int d = chain.d, nb = chain.nb;
+  const int C = s.C, T = s.T, cpb = s.cpb;
+  const Slab sl(T, s.n_slab, blockIdx.y);
+  const int n_seq = sl.n_seq, n_own = sl.n_own, opitch = n_own | 1;
   extern __shared__ float smem[];
-  float* P = smem;
-  float* tile = smem + ((n_params + 31) & ~31);   // [d][kWarp][kPitch]
-  float* q_st = tile + d * kWarp * kPitch;        // [kWarp][kPitch]
-  float* m_st = q_st + kWarp * kPitch;            // [kCands]
-  float* ee_st = m_st + kWarp;                    // [12][kWarp][kPitch]
+  float* tile = smem + (Par::kStaged ? (s.n_params + 31) & ~31 : 0);
+  float* q_st = tile + d * cpb * n_seq;           // [cpb][opitch]
+  float* m_st = q_st + cpb * opitch;              // [cpb][opitch]
+  float* rows = m_st + cpb * opitch;              // [kMaxCands][kRowFloats]
+  int* slots = reinterpret_cast<int*>(rows + kMaxCands * kRowFloats);
+  float* ee_st = reinterpret_cast<float*>(slots + kMaxCands + 2);
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int c0 = blockIdx.x * kCands;
-  const int seg = blockIdx.y;
-  const int t0 = seg * seg_len;
-  const int n_own = min(seg_len, T - t0);
-  const int n_rows = n_own + 2;                   // with the two halo lanes
-
-  for (int i = threadIdx.x; i < n_params; i += kBlock) P[i] = params[i];
-  // the joint tile: thread (l, cc) loads waypoint t0 - 1 + l (clamped) of
-  // candidate c0 + cc for every joint; a warp reads 4 whole sectors a joint
-  if (threadIdx.x < n_rows * kCands) {
-    const int l = threadIdx.x / kCands, cc = threadIdx.x % kCands;
-    const int ci = c0 + cc;
-    if (ci < C && (active == nullptr || active[ci])) {
-      const int t = min(max(t0 - 1 + l, 0), T - 1);
-      const float* src = cand + (size_t)t * C + ci;
-      float* dst = tile + l * kPitch + cc;
-      for (int j = 0; j < d; ++j)
-        dst[j * kWarp * kPitch] = src[(size_t)j * T * C];
+  const int c0 = blockIdx.x * cpb;
+  const int n_c = min(cpb, C - c0);
+  // the block's active candidates: slots[0..n_act) their columns, then
+  // n_act and the mask
+  if (warp == 0) {
+    const bool act = lane < n_c
+                     && (s.active == nullptr || s.active[c0 + lane]);
+    const unsigned mask = __ballot_sync(kFull, act);
+    if (act) slots[__popc(mask & ((1u << lane) - 1))] = lane;
+    if (lane == 0) {
+      slots[kMaxCands] = __popc(mask);
+      slots[kMaxCands + 1] = (int)mask;
+    }
+  }
+  const float* P = par.bind(smem, s.n_params);
+  world.stage(rows, c0, n_c);
+  // the joint tile [d][cpb][n_seq]: thread (r, cc) of the first
+  // r_step * cpb loads rows r, r + r_step, .. of column cc for every joint
+  const int cc = threadIdx.x % cpb;
+  const int r0 = threadIdx.x / cpb, r_step = kBlock / cpb;
+  const bool mine = r0 < r_step && cc < n_c
+                    && (s.active == nullptr || s.active[c0 + cc]);
+  if (mine) {
+    const float* src = s.cand + (size_t)sl.a * C + c0 + cc;
+    for (int j = 0; j < d; ++j) {
+      float* dst = tile + (j * cpb + cc) * n_seq;
+      const float* sj = src + (size_t)j * T * C;
+      for (int r = r0; r < n_seq; r += r_step) dst[r] = sj[(size_t)r * C];
     }
   }
   __syncthreads();
 
-  const int c = c0 + warp;
-  const int t = t0 - 1 + lane;
-  const bool own = lane >= 1 && lane <= n_own;
-  float* q_at = q_st + lane * kPitch + warp;
-  float* ee_at = ee_st + lane * kPitch + warp;    // frame k at k * kWarp * kPitch
-  if (c < C && active != nullptr && !active[c]) {
-    *q_at = 0.0f;
-    if (ee != nullptr)
-      for (int k = 0; k < 12; ++k) ee_at[k * kWarp * kPitch] = 0.0f;
-    if (lane == 0) m_st[warp] = 0.0f;
-  } else if (c < C) {
-    const int body_start = 12 + 16 * d;
-    const int body_base = body_start + d + 1;
-    const auto dist_at = world.at(P + body_base + 4 * nb, c);
-    const float* q_of = tile + min(lane, n_rows - 1) * kPitch + warp;
-    const float inv_dt = 1.0f / dt;
-    const float inv_2dt = 1.0f / (2.0f * dt);
+  const int n_act = slots[kMaxCands];
+  const int n_pairs = n_act * n_seq;
+  const int n_win = (n_pairs + kCore - 1) / kCore;
+  const int body_base = 12 + 16 * d + d + 1;
+  const float* W = P + body_base + 4 * nb;
+  const float inv_dt = 1.0f / s.dt;
+  const float inv_2dt = 1.0f / (2.0f * s.dt);
+  const int stride = cpb * n_seq;                  // one joint of the tile
+  for (int w = warp; w < n_win; w += kWarps) {
+    const int f = w * kCore - 1 + lane;
+    const int fc = min(max(f, 0), n_pairs - 1);
+    const int i = fc / n_seq;
+    const int r = fc - i * n_seq;
+    const int t = sl.a + r;
+    const int slot = slots[i];
+    const bool own = lane >= 1 && lane <= kCore && f < n_pairs
+                     && t >= sl.t_lo && t < sl.t_hi;
+    const auto dist = world.at(W, c0 + slot, rows + slot * kRowFloats);
     float R[9], p[3];
 #pragma unroll
     for (int k = 0; k < 9; ++k) R[k] = P[k];
     p[0] = P[9]; p[1] = P[10]; p[2] = P[11];
     float acc = 0.0f, margin = kBig;
-    // one body of the current joint, with the joint's frame (R, p) live
-    auto body = [&](int b) {
-      const float* Bd = P + body_base + 4 * b;
-      const float e0 = Bd[0], e1 = Bd[1], e2 = Bd[2];
-      const float x0 = p[0] + R[0] * e0 + R[1] * e1 + R[2] * e2;
-      const float x1 = p[1] + R[3] * e0 + R[4] * e1 + R[5] * e2;
-      const float x2 = p[2] + R[6] * e0 + R[7] * e1 + R[8] * e2;
-      // the body at t - 1 and t + 1: the neighbouring lanes
-      const float u0 = __shfl_up_sync(kFull, x0, 1);
-      const float u1 = __shfl_up_sync(kFull, x1, 1);
-      const float u2 = __shfl_up_sync(kFull, x2, 1);
-      const float n0 = __shfl_down_sync(kFull, x0, 1);
-      const float n1 = __shfl_down_sync(kFull, x1, 1);
-      const float n2 = __shfl_down_sync(kFull, x2, 1);
-      if (own) {
-        float v0, v1, v2;
-        if (t == 0) {
-          v0 = (n0 - x0) * inv_dt;
-          v1 = (n1 - x1) * inv_dt;
-          v2 = (n2 - x2) * inv_dt;
-        } else if (t == T - 1) {
-          v0 = (x0 - u0) * inv_dt;
-          v1 = (x1 - u1) * inv_dt;
-          v2 = (x2 - u2) * inv_dt;
-        } else {
-          v0 = (n0 - u0) * inv_2dt;
-          v1 = (n1 - u1) * inv_2dt;
-          v2 = (n2 - u2) * inv_2dt;
-        }
-        const float speed = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
-        const float dist = dist_at(x0, x1, x2);
-        const float radius = Bd[3];
-        const float d_sig = dist - radius - clearance;
-        float pot;
-        if (d_sig < 0.0f) {
-          pot = -d_sig + 0.5f * clearance;
-        } else if (d_sig <= clearance) {
-          const float e = d_sig - clearance;
-          pot = e * e / (2.0f * clearance);
-        } else {
-          pot = 0.0f;
-        }
-        acc += pot * speed;
-        margin = fminf(margin, dist - radius);
+    BodyCost<decltype(dist)> body{dist, P + body_base, R, p, own, t, T,
+                                  inv_dt, inv_2dt, s.clearance, acc,
+                                  margin};
+    chain.walk(P, tile + slot * n_seq + r, stride, R, p, body);
+    if (own) {
+      const int o = slot * opitch + (t - sl.t_lo);
+      q_st[o] = acc * s.dt;
+      m_st[o] = margin;
+      if (s.ee != nullptr) {
+        float* e = ee_st + o;
+        const int plane = cpb * opitch;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) e[k * plane] = p[k];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) e[(3 + k) * plane] = R[k];
       }
-    };
-    chain.walk(P, q_of, R, p, body);
-    *q_at = acc * dt;
-    if (ee != nullptr) {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) ee_at[k * kWarp * kPitch] = p[k];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) ee_at[(3 + k) * kWarp * kPitch] = R[k];
     }
-#pragma unroll
-    for (int o = kWarp / 2; o > 0; o /= 2)
-      margin = fminf(margin, __shfl_xor_sync(kFull, margin, o));
-    if (lane == 0) m_st[warp] = margin;
   }
   __syncthreads();
 
-  // the owned waypoints of the tile, 32 bytes (kCands candidates) a row
+  // the owned rows, cpb candidates a row; inactive columns are zeros
   const size_t plane = (size_t)T * C;
-  if (threadIdx.x < n_own * kCands) {
-    const int l = threadIdx.x / kCands, cc = threadIdx.x % kCands;
-    const int ci = c0 + cc;
-    if (ci < C) {
-      const size_t o = (size_t)(t0 + l) * C + ci;
-      const int s = (l + 1) * kPitch + cc;
-      q_obs[o] = q_st[s];
-      if (ee != nullptr)
+  if (r0 < r_step && cc < n_c) {
+    for (int r = r0; r < n_own; r += r_step) {
+      const size_t o = (size_t)(sl.t_lo + r) * C + c0 + cc;
+      const int so = cc * opitch + r;
+      s.q_obs[o] = mine ? q_st[so] : 0.0f;
+      if (s.ee != nullptr)
         for (int k = 0; k < 12; ++k)
-          ee[k * plane + o] = ee_st[k * kWarp * kPitch + s];
+          s.ee[k * plane + o] = mine ? ee_st[k * cpb * opitch + so] : 0.0f;
     }
   }
-  if (threadIdx.x < kCands && c0 + (int)threadIdx.x < C)
-    margin_part[(size_t)seg * C + c0 + threadIdx.x] = m_st[threadIdx.x];
+  // warp w: the margins over the slab of candidates c0 + w, c0 + w + 8, ..
+  for (int col = warp; col < n_c; col += kWarps) {
+    const bool act = (slots[kMaxCands + 1] >> col) & 1;
+    float m = kBig;
+    if (act)
+      for (int r = lane; r < n_own; r += kWarp)
+        m = fminf(m, m_st[col * opitch + r]);
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o /= 2)
+      m = fminf(m, __shfl_xor_sync(kFull, m, o));
+    if (lane == 0)
+      s.margin_part[(size_t)blockIdx.y * C + c0 + col] = act ? m : 0.0f;
+  }
 }
 
-// Checks the segment length and opts the kernel in to its shared memory
-// above 48 KB (cudaFuncSetAttribute); returns a cudaError_t.
+// Checks the plan (cpb in [1, kMaxCands]; n_slab slabs of L =
+// ceil(T / n_slab) owned waypoints, none empty) and
+// opts the kernel in to its shared memory above 48 KB
+// (cudaFuncSetAttribute); returns a cudaError_t.
 template <class Kernel>
-inline int prepare(Kernel kernel, size_t smem, int seg_len) {
-  if (seg_len < 1 || seg_len > kSegMax) return (int)cudaErrorInvalidValue;
+inline int prepare(Kernel kernel, size_t smem, const Shape& s) {
+  if (s.cpb < 1 || s.cpb > kMaxCands || s.n_slab < 1 || s.n_slab > s.T)
+    return (int)cudaErrorInvalidValue;
+  const int L = (s.T + s.n_slab - 1) / s.n_slab;
+  if ((s.T + L - 1) / L != s.n_slab) return (int)cudaErrorInvalidValue;
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// Launches kernel<<<(ceil(C / cpb), n_slab), kBlock>>> with the shared
+// memory of its plan; returns a cudaError_t. With a non-null `resident` it
+// launches nothing and writes the kernel's resident blocks per SM at that
+// shared memory instead (cudaOccupancyMaxActiveBlocksPerMultiprocessor:
+// kernels/rollout.py rollout_occupancy).
+template <class Kernel, class... Args>
+inline int launch_plan(Kernel kernel, int staged_params, int d,
+                       const Shape& s, void* stream, int* resident,
+                       Args&&... args) {
+  if (s.C <= 0) return 0;
+  const size_t smem = smem_floats(staged_params, d, s.cpb, s.T, s.n_slab,
+                                  s.ee != nullptr) * sizeof(float);
+  const int err = prepare(kernel, smem, s);
+  if (err != 0) return err;
+  if (resident != nullptr)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        resident, kernel, kBlock, smem);
+  const dim3 grid((s.C + s.cpb - 1) / s.cpb, s.n_slab);
+  kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(args..., s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace rollout

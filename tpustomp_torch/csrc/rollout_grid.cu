@@ -31,18 +31,27 @@
 // interpolation along z, then y, then x. A composite world then takes the
 // min with the overlay's spheres and boxes.
 //
-// What bounds it on the H100: the gather. At the config-5 shape (C =
-// 210,000, T = 52, 12 bodies) one launch takes 131M samples. From the
-// dense grid a sample is eight scattered 4-byte loads over 4 sectors of
-// 32 bytes. The GridSDF's packed corner table ([X*Y*Z, 8], world/sdf.py,
-// the layout the JAX package's grid tail reads) holds a cell's 8 corners in
-// one 32-byte row, so a sample is one sector and two 16-byte loads: 4x fewer
-// L1/L2 sectors. The table (7.9 MB for the 64x80x48 tabletop) stays
-// resident in the 50 MB L2. The kernel reads the table when the grid has
-// one and the dense grid otherwise (pack=False); the corner values and the
-// arithmetic are the same, so the two agree bit for bit. Hardware texture
-// filtering is not used: its 8-bit fractional weights cannot meet the 1e-6
-// margin tolerance.
+// What bounds it on the H100: instruction issue, as rollout_analytic.cu,
+// plus the gather. Per (candidate, waypoint) the FK chain is the analytic
+// kernel's, and each body adds a trilinear sample: three IEEE divisions,
+// the cell arithmetic and the corner loads. At config 4's shape (C =
+// 57,344, T = 102, 12 bodies) a launch takes 70M samples; at config 5's
+// (C = 210,000, T = 52) 131M. From the dense grid a sample is eight
+// scattered 4-byte loads over 4 sectors of 32 bytes. The GridSDF's packed
+// corner table ([X*Y*Z, 8], world/sdf.py, the layout the JAX package's grid
+// tail reads) holds a cell's 8 corners in one 32-byte row, so a sample is
+// one sector and two 16-byte loads: 4x fewer L1/L2 sectors. The table (7.9
+// MB for the 64x80x48 tabletop) stays resident in the 50 MB L2. The kernel
+// reads the table when the grid has one and the dense grid otherwise
+// (pack=False); the corner values and the arithmetic are the same, so the
+// two agree bit for bit. Hardware texture filtering is not used: its 8-bit
+// fractional weights cannot meet the 1e-6 margin tolerance. The skeleton's
+// lane plan and parameter block cut the issued instructions as for the
+// analytic kernel (the grid's origin and resolution are constant-bank
+// operands). Issuing two bodies' table loads before consuming either (to
+// overlap their L2 round trips) was measured and dropped: the held corners
+// took the kernel from 63 to 156-209 registers and one block an SM
+// (PERF.md).
 
 #include "rollout_common.cuh"
 
@@ -54,13 +63,14 @@ struct GridSample {
   const float4* packed;             // [X*Y*Z, 8] as 2 float4 a row, or null
   int X, Y, Z;
   float hi0, hi1, hi2;              // shape - 1.000001, in float32
-  float o0, o1, o2, res;            // origin, resolution
+  const float* G;                   // origin[3], resolution: parameters
 
   __device__ __forceinline__ float operator()(float x0, float x1,
                                               float x2) const {
-    float g0 = (x0 - o0) / res;
-    float g1 = (x1 - o1) / res;
-    float g2 = (x2 - o2) / res;
+    const float res = G[3];
+    float g0 = (x0 - G[0]) / res;
+    float g1 = (x1 - G[1]) / res;
+    float g2 = (x2 - G[2]) / res;
     g0 = fminf(fmaxf(g0, 0.0f), hi0);
     g1 = fminf(fmaxf(g1, 0.0f), hi1);
     g2 = fminf(fmaxf(g2, 0.0f), hi2);
@@ -104,23 +114,19 @@ struct GridDims {
   const float4* packed;
   int X, Y, Z;
   float hi0, hi1, hi2;
-  // G: origin[3], resolution in the staged parameters
+  // G: origin[3], resolution in the parameters
   __device__ __forceinline__ GridSample at(const float* G) const {
-    return GridSample{grid, packed, X, Y, Z, hi0, hi1, hi2,
-                      G[0], G[1], G[2], G[3]};
+    return GridSample{grid, packed, X, Y, Z, hi0, hi1, hi2, G};
   }
 };
 
-// The overlay primitives a warp holds in registers: one sphere (4 floats)
-// keeps the kernel, whose grid sample holds its pointers, dimensions and
-// origin in registers too, within 64 registers a thread (ptxas), so 4
-// blocks of 256 threads stay resident per SM; 2 spheres and 2 boxes take 77
-// registers and 3 blocks. Larger overlays are read from memory at every
-// use.
+// Overlays of up to 4 floats (one sphere) run with their counts compiled
+// in: a per-row overlay's row staged in shared memory, a shared overlay at
+// fixed offsets of the parameters. Larger overlays loop to their run-time
+// counts.
 constexpr int kRegisterFloats = 4;
 
-// One warp's distance: the grid sample, min-composed with the overlay
-// for a composite world.
+// The grid sample, min-composed with the overlay for a composite world.
 template <class Overlay>
 struct GridPoint {
   GridSample sample;
@@ -137,56 +143,42 @@ struct GridPoint {
 // A GridSDF, or a CompositeWorld whose overlay is in params (shared).
 template <int NS, int NX>
 struct GridDist {
+  static constexpr int kMinBlocks = NS == rollout::kAny ? 3 : 4;
   GridDims dims;
   rollout::SharedPrims<NS, NX> prims;   // overlay (0, 0 for a grid)
   int composite;
-  __device__ __forceinline__ auto at(const float* W, int c) const {
-    auto overlay = prims.at(W, c);
-    return GridPoint<decltype(overlay)>{
-        dims.at(W + 4 * prims.ns + 6 * prims.nx), overlay, composite};
+  __device__ __forceinline__ void stage(float*, int, int) const {}
+  __device__ __forceinline__ auto at(const float* W, int c,
+                                     const float* row) const {
+    auto overlay = prims.at(W, c, row);
+    return GridPoint<decltype(overlay)>{dims.at(W + prims.floats()), overlay,
+                                        composite};
   }
 };
 
 // A CompositeWorld with one overlay per row; params hold no primitives.
 template <int NS, int NX>
 struct GridRowDist {
+  static constexpr int kMinBlocks = NS == rollout::kAny ? 3 : 4;
   GridDims dims;
   rollout::RowPrims<NS, NX> rows;
-  __device__ __forceinline__ auto at(const float* W, int c) const {
-    auto overlay = rows.at(W, c);
+  __device__ __forceinline__ void stage(float* st, int c0, int n_c) const {
+    rows.stage(st, c0, n_c);
+  }
+  __device__ __forceinline__ auto at(const float* W, int c,
+                                     const float* row) const {
+    auto overlay = rows.at(W, c, row);
     return GridPoint<decltype(overlay)>{dims.at(W), overlay, 1};
   }
 };
 
-template <class World, class Chain>
-__global__ void __launch_bounds__(rollout::kBlock) rollout_grid_kernel(
-    World world, Chain chain, const float* __restrict__ cand,
-    const float* __restrict__ params, int n_params,
-    const uint8_t* __restrict__ active, float* __restrict__ q_obs,
-    float* __restrict__ margin_part, float* __restrict__ ee, int C, int T,
-    float dt, float clearance, int seg_len) {
-  rollout::evaluate(world, chain, cand, params, n_params, active, q_obs,
-                    margin_part, ee, C, T, dt, clearance, seg_len);
-}
-
-template <class World, class Chain>
-int launch(const World& world, const Chain& chain, const float* cand,
-           const float* params, int n_params, const uint8_t* active,
-           float* q_obs, float* margin_part, float* ee, int C, int T,
-           float dt, float clearance, int seg_len, void* stream) {
-  if (C <= 0) return 0;
-  const size_t smem =
-      rollout::smem_floats(n_params, chain.d, ee != nullptr) * sizeof(float);
-  const int err =
-      rollout::prepare(rollout_grid_kernel<World, Chain>, smem, seg_len);
-  if (err != 0) return err;
-  dim3 blocks((C + rollout::kCands - 1) / rollout::kCands,
-              (T + seg_len - 1) / seg_len);
-  rollout_grid_kernel<World, Chain><<<blocks, rollout::kBlock, smem,
-                                      (cudaStream_t)stream>>>(
-      world, chain, cand, params, n_params, active, q_obs, margin_part, ee,
-      C, T, dt, clearance, seg_len);
-  return (int)cudaGetLastError();
+template <class World, class Chain, class Par>
+__global__ void __launch_bounds__(
+    rollout::kBlock, rollout::kernel_min_blocks<World, Chain, Par>())
+rollout_grid_kernel(
+    World world, Chain chain, const __grid_constant__ Par par,
+    const rollout::Shape s) {
+  rollout::evaluate(world, chain, par, s);
 }
 
 }  // namespace
@@ -195,45 +187,54 @@ int launch(const World& world, const Chain& chain, const float* cand,
 // byte aligned rows, or null), X, Y, Z, hi[3]; and end with
 // rollout_analytic.cu's tail.
 extern "C" int rollout_grid_launch(
-    const float* cand, const float* params, int n_params, const float* grid,
-    const float* packed, int X, int Y, int Z, float hi0, float hi1,
-    float hi2, int composite, const uint8_t* active, float* q_obs,
+    const float* cand, const float* params, int n_params, int host_params,
+    const float* grid, const float* packed, int X, int Y, int Z, float hi0,
+    float hi1, float hi2, int composite, const uint8_t* active, float* q_obs,
     float* margin_part, float* ee, int C, int T, int d, int nb, int ns,
-    int nx, float dt, float clearance, int skip_rotf, int seg_len,
-    void* stream) {
+    int nx, float dt, float clearance, int skip_rotf, int cpb, int n_slab,
+    void* stream, int* resident) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
+  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
+                         n_params, cpb, n_slab, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
-    return rollout::with_register_counts<kRegisterFloats>(
-        ns, nx, [&](auto k) {
+    return rollout::with_params<kRegisterFloats>(
+        params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
           using K = decltype(k);
-          return launch(GridDist<K::ns, K::nx>{dims, {ns, nx}, composite},
-                        chain, cand, params, n_params, active, q_obs,
-                        margin_part, ee, C, T, dt, clearance, seg_len,
-                        stream);
+          using Par = std::decay_t<decltype(par)>;
+          using World = GridDist<K::ns, K::nx>;
+          return rollout::launch_plan(
+              rollout_grid_kernel<World, decltype(chain), Par>,
+              Par::kStaged ? n_params : 0, d, s, stream, resident,
+              World{dims, {ns, nx}, composite}, chain, par);
         });
   });
 }
 
 // Overlay rows: spheres [C / cands_per_row, ns, 4], boxes [.., nx, 6].
 extern "C" int rollout_grid_rows_launch(
-    const float* cand, const float* params, int n_params, const float* grid,
-    const float* packed, int X, int Y, int Z, float hi0, float hi1,
-    float hi2, const float* spheres, const float* boxes, int cands_per_row,
-    const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
-    int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int seg_len, void* stream) {
+    const float* cand, const float* params, int n_params, int host_params,
+    const float* grid, const float* packed, int X, int Y, int Z, float hi0,
+    float hi1, float hi2, const float* spheres, const float* boxes,
+    int cands_per_row, const uint8_t* active, float* q_obs,
+    float* margin_part, float* ee, int C, int T, int d, int nb, int ns,
+    int nx, float dt, float clearance, int skip_rotf, int cpb, int n_slab,
+    void* stream, int* resident) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
+  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
+                         n_params, cpb, n_slab, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
-    return rollout::with_register_counts<kRegisterFloats>(
-        ns, nx, [&](auto k) {
+    return rollout::with_params<kRegisterFloats>(
+        params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
           using K = decltype(k);
-          return launch(
-              GridRowDist<K::ns, K::nx>{
-                  dims, {spheres, boxes, ns, nx, cands_per_row}},
-              chain, cand, params, n_params, active, q_obs, margin_part, ee,
-              C, T, dt, clearance, seg_len, stream);
+          using Par = std::decay_t<decltype(par)>;
+          using World = GridRowDist<K::ns, K::nx>;
+          return rollout::launch_plan(
+              rollout_grid_kernel<World, decltype(chain), Par>,
+              Par::kStaged ? n_params : 0, d, s, stream, resident,
+              World{dims, {spheres, boxes, ns, nx, cands_per_row}}, chain,
+              par);
         });
   });
 }

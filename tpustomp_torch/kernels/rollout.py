@@ -25,9 +25,16 @@ scenario, and nothing is repeated per candidate.
 
 Both kernels are hand-written CUDA C++ for sm_90a around one shared skeleton
 (``csrc/rollout_common.cuh``; each file's header says what bounds it and
-how the design answers that): one warp walks one candidate over a segment
-of the waypoint axis, one waypoint per lane (the segment plan is
-:func:`_segments`); a grid with a packed corner table is read through it.
+how the design answers that): a block holds a few candidates' joint tile,
+and its warps walk windows of 30 owned (candidate, waypoint) pairs laid end
+to end over the active candidates, a halo lane on either side (the lane
+plan is :func:`_plan`); the robot and a shared world travel in a kernel
+parameter block filled on the host (:func:`_host_params`), read as
+constant-bank operands; a robot or world without host copies, or above the
+block, takes the memory path (:func:`pack_params` on the device, staged in
+shared memory), another instantiation of the same kernel
+(``PARAM_ROUTES`` counts both); a grid with a packed corner table is read
+through it.
 Each source is compiled with nvcc into a
 shared library with a plain C interface at first use, into
 ``tpustomp_torch/_build/``, and called through ctypes.
@@ -59,6 +66,8 @@ as on the TPU (:944-945), never a fallback.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import re
@@ -66,36 +75,42 @@ import shutil
 import subprocess
 import tempfile
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from tpustomp_torch._tensors import host_mirror
 from tpustomp_torch.costs.obstacle import obstacle_cost
 from tpustomp_torch.robot.fk import fk_frames
 from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
                                       grid_clip_hi, world_rows)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (cand, params, n_params, host_params): the arguments every entry point
+# starts with; params is a host pointer when host_params is 1
+_HEAD = [_P, _P, _I, _I]
 # (active, q_obs, margin_part, ee, C, T, d, nb, ns, nx, dt, clearance,
-#  skip_rotf, seg_len, stream): the arguments every entry point ends with
-_TAIL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P]
+#  skip_rotf, cpb, n_slab, stream, resident): the arguments every entry
+# point ends with; resident is null on a launch (rollout_occupancy: an int
+# the call fills instead of launching)
+_TAIL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
 _GRID = [_P, _P, _I, _I, _I, _F, _F, _F]      # grid, packed, X, Y, Z, hi[3]
 _ROWS = [_P, _P, _I]                          # spheres, boxes, cands_per_row
 # kernel variant -> (source in csrc/, C entry point, its argument types)
 _ENTRIES = {
     "rollout_analytic": (
-        "rollout_analytic", "rollout_analytic_launch", [_P, _P, _I] + _TAIL),
+        "rollout_analytic", "rollout_analytic_launch", _HEAD + _TAIL),
     "rollout_analytic:per_cand_world": (
         "rollout_analytic", "rollout_analytic_rows_launch",
-        [_P, _P, _I] + _ROWS + _TAIL),
+        _HEAD + _ROWS + _TAIL),
     "rollout_grid": (
-        "rollout_grid", "rollout_grid_launch",
-        [_P, _P, _I] + _GRID + [_I] + _TAIL),
+        "rollout_grid", "rollout_grid_launch", _HEAD + _GRID + [_I] + _TAIL),
     "rollout_grid:per_cand_overlay": (
         "rollout_grid", "rollout_grid_rows_launch",
-        [_P, _P, _I] + _GRID + _ROWS + _TAIL),
+        _HEAD + _GRID + _ROWS + _TAIL),
 }
 _SOURCES = ("rollout_analytic", "rollout_grid")
 
@@ -104,6 +119,11 @@ _SOURCES = ("rollout_analytic", "rollout_grid")
 # chain; a launch that also writes the end-effector frame adds ":ee".
 LAUNCHES = {name + chain + ee: 0 for name in _ENTRIES
             for chain in ("", ":runtime") for ee in ("", ":ee")}
+# Launches by where their parameters lived: "block", the kernel parameter
+# block filled on the host, or "memory", staged from device memory (a robot
+# or world without host mirrors, or above _PARAM_FLOATS); reset with
+# LAUNCHES.
+PARAM_ROUTES = {"block": 0, "memory": 0}
 # Seconds of each library's first build in this process, by (source, chain).
 BUILD_SECONDS: dict[tuple, float] = {}
 
@@ -113,22 +133,49 @@ _BUILD_DIR = _PKG / "_build"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
-# One warp walks one candidate over a segment of the waypoint axis, a
-# waypoint per lane: its lanes less a halo lane on either side
-# (csrc/rollout_common.cuh kWarp, kSegMax).
+# The lane plan (csrc/rollout_common.cuh kWarp, kWarps, kCore, kMaxCands,
+# kRowFloats): warps of 32 lanes, 8 a block, windows of 30 owned lanes, at
+# most 16 candidates a block, a staged per-row world of at most 16 floats;
+# the parameter block's capacity (kParamFloats).
 _WARP = 32
-_SEG_MAX = _WARP - 2
+_WARPS = 8
+_CORE = _WARP - 2
+_MAX_CANDS = 16
+_ROW_FLOATS = 16
+_PARAM_FLOATS = 768
+# Resident blocks per SM the plan counts on (csrc/rollout_common.cuh
+# kernel_min_blocks of the main instantiations): a batch that would fill
+# fewer than this many blocks on every SM takes fewer candidates a block,
+# so that its warps stay about one window deep (B = 1 keeps its latency).
+_FILL_PER_SM = 4
+# SMs of an H100 SXM: the plan's default when no device is named
+_SMS = 132
+# Shared memory a block may take, in floats: 32 KB, so that four blocks an
+# SM leave L1 to the grid's gathers (a 51 KB block made the dense grid 1.3x
+# slower); with the ee frame 72 KB, three blocks an SM, which holds 8
+# candidates a block at T = 102 (69 KB) and 9 at T = 52 (40 KB).
+_SMEM_BUDGET = 32 * 1024 // 4
+_SMEM_BUDGET_EE = 72 * 1024 // 4
+# With the ee frame a block takes at least this many candidates where the
+# batch allows: the frame's 12 output planes then go out in rows of whole or
+# mostly whole 32-byte sectors (at T = 102, 7 candidates' 28-byte rows made
+# K3:ee 1.3-1.4x slower than 8; at T = 52, 9 beat 8 by 3-8 %).
+_MIN_CANDS_EE = 8
 
 # A static chain's axis component other than exactly 0, +1 or -1
 # (csrc/rollout_common.cuh kOther): read from the parameters at run time.
 _OTHER = 2
 
 _libs: dict[tuple, ctypes.CDLL] = {}
+# _host_params's cache (at most 64 entries): key -> (weak references to
+# the tensors, their versions, the vector or None)
+_HOST_PARAMS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, PARAM_ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -284,9 +331,11 @@ def _world_parts(world):
 
 def pack_params(robot, world) -> torch.Tensor:
     """Robot + world parameters as the kernels' packed float32 vector (layout
-    in the header of csrc/rollout_common.cuh), on the robot's device. A
-    world with a row axis contributes only its grid's origin and resolution:
-    its primitives go to the kernel as their own arrays (_prim_arrays)."""
+    in the header of csrc/rollout_common.cuh), on the robot's device: the
+    memory path's parameters (:func:`_host_params` runs it on the host
+    copies for the parameter block). A world with a row axis
+    contributes only its grid's origin and resolution: its primitives go to
+    the kernel as their own arrays (_prim_arrays)."""
     d = robot.num_joints
     dev = robot.joint_axis.device
     f32 = torch.float32
@@ -326,16 +375,122 @@ def pack_params(robot, world) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
-def _segments(T: int) -> tuple[int, int]:
-    """The kernels' segment plan: (seg_len, n_seg). Segment s owns
-    waypoints [s * seg_len, min(T, (s + 1) * seg_len)); its warp also
-    computes the FK of the waypoint on either side (the halo) for the
-    speed's central difference, and writes its own row of margin_part
-    [n_seg, C]. The fewest segments of at most _SEG_MAX waypoints, of
-    near-equal length (the last may be shorter)."""
-    n_seg = -(-T // _SEG_MAX)
-    seg_len = -(-T // n_seg)
-    return seg_len, n_seg
+def _slab(T: int, n_slab: int, s: int):
+    """Slab s of the waypoint axis (csrc/rollout_common.cuh Slab): owned
+    [t_lo, t_hi) and its rows [a, a + n_seq), the halo waypoints t_lo - 1
+    and t_hi where they exist."""
+    L = -(-T // n_slab)
+    t_lo = s * L
+    t_hi = min(t_lo + L, T)
+    a = max(t_lo - 1, 0)
+    return t_lo, t_hi, a, min(t_hi + 1, T) - a
+
+
+def _smem_floats(staged: int, d: int, cpb: int, T: int, n_slab: int,
+                 ee: bool) -> int:
+    """A block's shared memory in floats (csrc/rollout_common.cuh
+    smem_floats): staged parameters, the joint tile of the largest slab,
+    the cost and margin rows, the staged per-row worlds, the slots, the ee
+    frame."""
+    L = -(-T // n_slab)
+    n_seq = T if n_slab == 1 else min(L + 2, T)
+    return (((staged + 31) & ~31) + d * cpb * n_seq
+            + (2 + (12 if ee else 0)) * cpb * (L | 1)
+            + _MAX_CANDS * _ROW_FLOATS + _MAX_CANDS + 2)
+
+
+def _slots(cpb: int, T: int, n_slab: int) -> int:
+    """Lane slots a block of cpb active candidates holds over its rounds:
+    each round is one window on each of the block's warps, and a warp idle
+    in the last round still holds its registers."""
+    total = 0
+    for s in range(n_slab):
+        windows = -(-cpb * _slab(T, n_slab, s)[3] // _CORE)
+        total += -(-windows // _WARPS) * _WARPS * _WARP
+    return total
+
+
+def _plan(C: int, T: int, d: int, ee: bool = False, staged: int = 0,
+          sms: int = _SMS) -> tuple[int, int]:
+    """The kernels' lane plan: (cpb, n_slab). A block holds cpb consecutive
+    candidates and one of n_slab slabs of the waypoint axis; grid
+    (ceil(C / cpb), n_slab). n_slab is 1 unless one candidate's tile would
+    pass the shared-memory budget (long trajectories). Without ee, cpb is
+    the count up to _MAX_CANDS whose windows fill the block's warps best
+    (fewest lane slots per owned waypoint, :func:`_slots`; the larger on a
+    tie), among the counts whose shared memory fits the budget and, unless
+    there are none, that leave at least _FILL_PER_SM blocks on each of the
+    card's `sms` SMs (a small batch takes fewer candidates a block, so its
+    warps stay about one window deep); with ee, among those of at least
+    _MIN_CANDS_EE where there are any. `staged`: parameters staged in
+    shared memory (the memory path)."""
+    budget = _SMEM_BUDGET_EE if ee else _SMEM_BUDGET
+    n_slab, n = 1, 1
+    while (n_slab < T
+           and _smem_floats(staged, d, 1, T, n_slab, ee) > budget):
+        n += 1
+        n_slab = -(-T // -(-T // n))      # slabs of ceil(T / n), none empty
+    fits = [c for c in range(1, _MAX_CANDS + 1)
+            if _smem_floats(staged, d, c, T, n_slab, ee) <= budget]
+    fill = [c for c in fits if -(-C // c) >= _FILL_PER_SM * sms] or [1]
+    if ee:
+        fill = [c for c in fill if c >= _MIN_CANDS_EE] or fill
+    cpb = min(fill, key=lambda c: (_slots(c, T, n_slab) / (c * T), -c))
+    return cpb, n_slab
+
+
+def _host_params(robot, world, shared: bool):
+    """pack_params's vector, as numpy float32, from the host mirrors of the
+    robot's and the world's tensors (_tensors.host_mirror): the kernel's
+    parameter block. None when a tensor has no mirror (made on the device,
+    or changed in place since it was moved) or the vector exceeds
+    _PARAM_FLOATS: the launch then takes the memory path. `shared`: the
+    world's primitives go in too (not for a world with a row axis). Cached
+    per set of tensors: a hit needs the very tensors, alive, at the same
+    versions."""
+    grid, prims = _world_parts(world)
+    names = ["base_rot", "base_pos", "joint_type", "joint_axis",
+             "joint_offset", "joint_rot", "body_offset", "body_radius"]
+    if robot.body_counts is None:
+        names.append("body_link")
+    parts = {"robot": (robot, names)}
+    if shared and prims is not None:
+        parts["prims"] = (prims, ["sphere_center", "sphere_radius",
+                                  "box_center", "box_half"])
+    if grid is not None:
+        parts["grid"] = (grid, ["origin", "resolution"])
+    tensors = [getattr(obj, n) for obj, fields in parts.values()
+               for n in fields]
+    key = (robot.body_counts, shared, grid is not None,
+           prims is not None) + tuple(id(t) for t in tensors)
+    hit = _HOST_PARAMS.get(key)
+    if hit is not None:
+        refs, versions, out = hit
+        if all(r() is t and t._version == v
+               for r, v, t in zip(refs, versions, tensors)):
+            return out
+    host = [host_mirror(t) for t in tensors]
+    if any(h is None for h in host):
+        return None
+    # the same objects with those fields on the host; a grid's own tensors
+    # and a row world's primitives stay where they are (pack_params reads
+    # only their shapes)
+    it = iter(host)
+    cpu = {k: dataclasses.replace(obj, **{n: torch.from_numpy(next(it))
+                                          for n in fields})
+           for k, (obj, fields) in parts.items()}
+    h_prims = cpu.get("prims", prims)
+    h_world = (h_prims if grid is None else cpu["grid"] if prims is None
+               else dataclasses.replace(world, grid=cpu["grid"],
+                                        overlay=h_prims))
+    out = pack_params(cpu["robot"], h_world).numpy()
+    if out.size > _PARAM_FLOATS:
+        out = None
+    _HOST_PARAMS[key] = (tuple(weakref.ref(t) for t in tensors),
+                         tuple(t._version for t in tensors), out)
+    if len(_HOST_PARAMS) > 64:
+        _HOST_PARAMS.clear()
+    return out
 
 
 def _cands_per_row(world, C: int, cands_per_row):
@@ -438,6 +593,28 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
                    row_active, time_major, want_ee, chain_of(robot))
 
 
+def rollout_occupancy(robot, world, full_trajs: torch.Tensor, dt: float,
+                      clearance: float, row_active=None,
+                      time_major: bool = False, cands_per_row=None,
+                      want_ee: bool = False) -> int:
+    """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    of the kernel :func:`obstacle_cost_batch` launches for these CUDA
+    arguments, at its plan's shared memory; launches nothing and counts
+    nothing (a diagnostic: chip_compare.py records it)."""
+    grid, prims = _world_parts(world)
+    C = full_trajs.shape[-1 if time_major else 0]
+    per = _cands_per_row(world, C, cands_per_row)
+    resident = ctypes.c_int(0)
+    _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
+            row_active, time_major, want_ee, chain_of(robot), resident)
+    return resident.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _prim_arrays(prims):
     """Spheres and boxes as the kernels read them: spheres [..., S, 4]
     (center, radius) and boxes [..., X, 6] (center, half), with a world's
@@ -467,9 +644,10 @@ def _packed_table(grid, g):
 
 
 def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
-            row_active, time_major, want_ee, chain):
+            row_active, time_major, want_ee, chain, resident=None):
     """One launch of the library of `chain` (:func:`chain_of`; None: the
-    runtime chain)."""
+    runtime chain); with `resident` (a ctypes int) the occupancy query of
+    :func:`rollout_occupancy` instead."""
     source = "rollout_analytic" if grid is None else "rollout_grid"
     entry_name = source
     if per is not None:
@@ -487,15 +665,25 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
     if T < 2:
         raise ValueError("need at least 2 waypoints (workspace speed)")
     dev = cand.device
-    params = pack_params(robot, world)
+    # the parameter block from the host mirrors, else the memory path
+    host = _host_params(robot, world, per is None)
+    if host is not None:
+        head = (cand.data_ptr(), host.ctypes.data, host.size, 1)
+        staged, route = 0, "block"
+    else:
+        params = pack_params(robot, world)
+        head = (cand.data_ptr(), params.data_ptr(), params.numel(), 0)
+        staged, route = params.numel(), "memory"
     active = None
     if row_active is not None:
         if row_active.shape != (C,) or row_active.device != dev:
             raise ValueError(f"row_active must be [{C}] on {dev}")
-        active = row_active.to(torch.uint8).contiguous()
-    seg_len, n_seg = _segments(T)
+        active = (row_active.contiguous().view(torch.uint8)
+                  if row_active.dtype == torch.bool
+                  else row_active.to(torch.uint8).contiguous())
+    cpb, n_slab = _plan(C, T, d, want_ee, staged, _sm_count(dev.index))
     q_obs = torch.empty((T, C), dtype=torch.float32, device=dev)
-    margin_part = torch.empty((n_seg, C), dtype=torch.float32, device=dev)
+    margin_part = torch.empty((n_slab, C), dtype=torch.float32, device=dev)
     ee = (torch.empty((12, T, C), dtype=torch.float32, device=dev)
           if want_ee else None)
     ns = 0 if prims is None else prims.sphere_radius.shape[-1]
@@ -504,8 +692,8 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             q_obs.data_ptr(), margin_part.data_ptr(),
             None if ee is None else ee.data_ptr(), C, T, d,
             robot.num_bodies, ns, nx, float(dt), float(clearance),
-            int(bool(robot.rot_fixed_identity)), seg_len)
-    head = (cand.data_ptr(), params.data_ptr(), params.numel())
+            int(bool(robot.rot_fixed_identity)), cpb, n_slab)
+    query = None if resident is None else ctypes.byref(resident)
     rows = ()
     if per is not None:
         spheres, boxes = _prim_arrays(prims)
@@ -515,7 +703,7 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if grid is None:
-            err = entry(*head, *rows, *tail, stream)
+            err = entry(*head, *rows, *tail, stream, query)
         else:
             g = grid.grid.to(torch.float32).contiguous()
             if g.numel() >= 2**31:
@@ -526,12 +714,16 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
                          None if packed is None else packed.data_ptr(),
                          *g.shape, *map(float, grid_clip_hi(g.shape)))
             mid = rows or (int(isinstance(world, CompositeWorld)),)
-            err = entry(*head, *grid_args, *mid, *tail, stream)
+            err = entry(*head, *grid_args, *mid, *tail, stream, query)
     name = (entry_name + ("" if chain is not None else ":runtime")
             + (":ee" if want_ee else ""))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    if resident is not None:
+        return None
     LAUNCHES[name] += 1
+    PARAM_ROUTES[route] += 1
+    margin = margin_part[0] if n_slab == 1 else margin_part.amin(dim=0)
     if want_ee:
-        return q_obs.t(), margin_part.amin(dim=0), ee
-    return q_obs.t(), margin_part.amin(dim=0)
+        return q_obs.t(), margin, ee
+    return q_obs.t(), margin
