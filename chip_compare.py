@@ -29,7 +29,11 @@ default):
             its packed corner table, the shared world of equal rows) and
             the config-4 shape (C = 57,344, T = 102: K3, K4, K1, K5, K2,
             composite, :ee; uniform and solver-like candidates, all rows
-            active and a third masked) and config 2's (B = 1). Median ms of
+            active and a third masked) and config 2's (B = 1); the
+            constraint route (:con, phase 8's cone) at both shapes, where
+            a version without it runs its :ee form (`:con` cases) or its
+            :ee form and the constraint tail on the frame, as its solver
+            did (`:con+tail` cases). Median ms of
             20 launches by CUDA events, in the order other, this, this,
             other; each side's spread; max |this - other|; resident blocks
             per SM (a version's rollout_occupancy(), where it has one); one launch's
@@ -42,7 +46,16 @@ default):
             sys.path), in the order other, this, this, other: replans/s,
             collision and reached rates; then a torch.profiler window of 3
             ticks after 30: the evaluator's ms per launch and share of the
-            device's kernel time.
+            device's kernel time;
+  constrained
+            chip_smoke.py phase 8's runs (config 4's 1,024 problems, config
+            2's planner at 50 iterations without the early stop, the cone)
+            over the box and the voxel tabletop, each version in a process
+            of its own, in the order other, this, this, other: in each,
+            three turns of unconstrained then constrained plan_batch
+            (overhead %, success, mean max cone excess), then one
+            torch.profiler window over each: kernels per iteration, the
+            constrained run's extra kernels per iteration, idle share.
 
 Imports nothing of JAX. Prints one JSON object per result, tagged
 ``[compare:<phase>]``, and the card's name and power limit first and last.
@@ -52,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -66,7 +80,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "episodes")
+PHASES = ("build", "kernels", "episodes", "constrained")
 # the package's own nvcc target (tpustomp_torch/kernels/rollout.py)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 cs = None   # chip_smoke, imported once the package's root is on sys.path
@@ -323,6 +337,15 @@ def launch_info(fn):
     return None
 
 
+def cone(dev):
+    """chip_smoke.py phase 8's "glass of water" cone, on dev."""
+    from tpustomp_torch import OrientationConstraint
+
+    return OrientationConstraint.make(axis_local=(0, 0, 1),
+                                      target_world=(0, 0, 1), tolerance=0.25,
+                                      weight=0.3).to(dev)
+
+
 class Bench:
     """The inputs of chip_smoke.py's kernel and MPC phases, on the card."""
 
@@ -377,6 +400,7 @@ class Bench:
             q=torch.as_tensor(q0, device=dev)[None],
             qN=torch.as_tensor(qN, device=dev)[None])
         self.cfg2 = from_dict(doc("config2_tabletop.yaml")["planner"])
+        self.cone = cone(dev)
 
     def uniform(self, C, T, seed):
         return torch.as_tensor(np.random.default_rng(seed).uniform(
@@ -448,10 +472,6 @@ def kernel_cases(b):
          tmk),
         ("K2 config4 unsorted", unsorted, b.grid, tm4, *c4, tmk),
         ("K5 config4 composite", b.robot, b.composite, tm4, *c4, tmk),
-        ("K3:ee config4", b.robot, b.world, tm4, *c4,
-         dict(tmk, want_ee=True)),
-        ("K5:ee config4", b.robot, b.grid, tm4, *c4,
-         dict(tmk, want_ee=True)),
         ("K5 config4 masked_third", b.robot, b.grid, tm4, *c4, masked4),
         ("K3 config4 solver_like", b.robot, b.world, sm4, *c4, tmk),
         ("K5 config4 solver_like", b.robot, b.grid, sm4, *c4, tmk),
@@ -459,11 +479,62 @@ def kernel_cases(b):
          masked4),
         ("K5 config4 solver_like masked_third", b.robot, b.grid, sm4, *c4,
          masked4),
+        *[(f"{k}{form} config4{tag}", b.robot, w, x, *c4, dict(kw, **extra))
+          for form, extra in ((":ee", dict(want_ee=True)),
+                              (":con", dict(constraints=b.cone)),
+                              (":con+tail", dict(constraints=b.cone,
+                                                 tail=True)))
+          for k, w in (("K3", b.world), ("K5", b.grid))
+          for tag, x, kw in (("", tm4, tmk), (" masked_third", tm4, masked4),
+                             (" solver_like", sm4, tmk))],
+        *[(f"{k}{form} random", b.robot, w, tm5, *c5, dict(k5, **extra))
+          for form, extra in ((":con", dict(constraints=b.cone)),
+                              (":con+tail", dict(constraints=b.cone,
+                                                 tail=True)))
+          for k, w in (("pcw", pcw), ("pco", pco))],
         ("K3 config2 B=1", b.robot, b.world, tm2, *c2, tmk),
         ("K5 config2 B=1", b.robot, b.grid, tm2, *c2, tmk),
         ("K3 config2 B=1 solver_like", b.robot, b.world, sm2, *c2, tmk),
         ("K5 config2 B=1 solver_like", b.robot, b.grid, sm2, *c2, tmk),
     ]
+
+
+def has_con(mod):
+    """Whether the version of kernels/rollout.py `mod` has the constraint
+    route (obstacle_cost_batch's `constraints`)."""
+    return "constraints" in inspect.signature(
+        mod.obstacle_cost_batch).parameters
+
+
+def route(mod, kw):
+    """(the case's kwargs for `mod`, its constraint tail or None). A case
+    with constraints on a version without the constraint route takes that
+    version's :ee form and, with tail=True, the constraint tail on its
+    frame (costs/constraints.py constraint_cost_tm), as its solver did."""
+    kw = dict(kw)
+    tail = kw.pop("tail", False)
+    cons = kw.get("constraints")
+    if cons is None or has_con(mod):
+        return kw, None
+    del kw["constraints"]
+    kw["want_ee"] = True
+    return kw, cons if tail else None
+
+
+def caller(mod, robot, world, x, dt, clearance, kw):
+    """fn() running the case on `mod` (route); returns q_obs, margin and,
+    where there is one, q_con."""
+    from tpustomp_torch.costs.constraints import constraint_cost_tm
+
+    kw, tail = route(mod, kw)
+
+    def fn():
+        out = mod.obstacle_cost_batch(robot, world, x, dt, clearance, **kw)
+        if tail is not None:
+            return out[0], out[1], constraint_cost_tm(robot, tail, out[2])
+        return out
+
+    return fn
 
 
 def kernels_phase(this, other, cases, only=None):
@@ -472,17 +543,17 @@ def kernels_phase(this, other, cases, only=None):
     for label, robot, world, x, dt, clearance, kw in cases:
         if only and not any(o in label for o in only):
             continue
-        f_o, f_t = (lambda m=m: m.obstacle_cost_batch(robot, world, x, dt,
-                                                      clearance, **kw)
+        f_o, f_t = (caller(m, robot, world, x, dt, clearance, kw)
                     for m in (other, this))
         o1 = cs.cuda_time_ms(f_o, 20)
         t1 = cs.cuda_time_ms(f_t, 20)
         t2 = cs.cuda_time_ms(f_t, 20)
         o2 = cs.cuda_time_ms(f_o, 20)
-        a, b = f_o(), f_t()
+        # the outputs both sides have (an :ee frame has no q_con beside it)
+        pairs = [(u, v) for u, v in zip(f_o(), f_t()) if u.shape == v.shape]
         o_ms, t_ms = (o1 + o2) / 2, (t1 + t2) / 2
         blocks = {side: mod.rollout_occupancy(robot, world, x, dt, clearance,
-                                              **kw)
+                                              **route(mod, kw)[0])
                   for side, mod in (("other", other), ("this", this))
                   if hasattr(mod, "rollout_occupancy")}
         say("kernels", case=label, other_ms=[o1, o2], this_ms=[t1, t2],
@@ -490,8 +561,9 @@ def kernels_phase(this, other, cases, only=None):
             speedup=o_ms / t_ms, other_spread_pct=100 * abs(o1 - o2) / o_ms,
             this_spread_pct=100 * abs(t1 - t2) / t_ms,
             max_abs_this_vs_other=max(float((u - v).abs().max())
-                                      for u, v in zip(a, b)),
-            bitwise_equal=all(torch.equal(u, v) for u, v in zip(a, b)),
+                                      for u, v in pairs),
+            bitwise_equal=all(torch.equal(u, v) for u, v in pairs),
+            outputs_compared=len(pairs),
             this_launch=launch_info(f_t), other_launch=launch_info(f_o))
 
 
@@ -555,6 +627,78 @@ def episodes_worker(label):
             top_kernels_ms_count=sorted(top, reverse=True)[:6])
 
 
+def profiled(fn):
+    """(fn(), its torch.profiler window: CUDA kernels launched, their
+    device ms, the idle share of the window's wall)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n_k = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+            n_k += e.count
+    return out, dict(kernels=n_k, device_kernel_ms=busy / 1e3,
+                     wall_ms=1e3 * wall,
+                     idle_pct=100 * (1 - busy / 1e6 / wall))
+
+
+def constrained_worker(label):
+    """One version's chip_smoke.py phase-8 runs, in this process's
+    package: three turns of unconstrained then constrained plan_batch over
+    each tabletop, then a profiler window over each run."""
+    import tpustomp_torch
+    from tpustomp_torch import ProblemSpec, plan_batch
+    from tpustomp_torch.kernels import rollout
+
+    dev = torch.device("cuda")
+    b = Bench(dev)
+    cfg = b.cfg2.replace(max_iterations=50,
+                         max_iterations_after_collision_free=10**6)
+    q0b = b.problems4.q.cpu().numpy()
+    qNb = b.problems4.qN.cpu().numpy()
+    for world, w in (("box", b.world), ("voxel", b.grid)):
+        for turn in range(3):
+            free, wall_f, _ = cs.timed_plan_batch(rollout, b.robot, w, cfg,
+                                                  q0b, qNb)
+            sol, wall_c, launches = cs.timed_plan_batch(
+                rollout, b.robot, w, cfg, q0b, qNb, constraints=b.cone)
+            say("constrained", world=world, version=label, turn=turn,
+                overhead_pct=100.0 * (wall_c / wall_f - 1.0),
+                solves_per_s=b.B4 / wall_c,
+                unconstrained_solves_per_s=b.B4 / wall_f,
+                success_rate=float(sol.success.float().mean()),
+                unconstrained_success_rate=float(
+                    free.success.float().mean()),
+                mean_max_cone_excess_rad=float(cs.cone_excess(
+                    b.robot, sol.trajectory, b.cone).mean()),
+                unconstrained_mean_max_cone_excess_rad=float(cs.cone_excess(
+                    b.robot, free.trajectory, b.cone).mean()),
+                kernel_launches=launches,
+                package=os.path.dirname(tpustomp_torch.__file__))
+        prob = ProblemSpec(q0=q0b, qN=qNb)
+        window = {}
+        for run, kw in (("unconstrained", {}),
+                        ("constrained", dict(constraints=b.cone))):
+            sol, window[run] = profiled(lambda: plan_batch(
+                b.robot, w, prob, cfg, device=dev,
+                generator=torch.Generator(dev).manual_seed(0), **kw))
+            window[run]["kernels_per_iteration"] = (
+                window[run]["kernels"] / (int(sol.iterations.max()) + 1))
+        say("constrained", world=world, version=label, profile=window,
+            extra_kernels_per_iteration=(
+                window["constrained"]["kernels_per_iteration"]
+                - window["unconstrained"]["kernels_per_iteration"]))
+
+
 def main():
     global cs
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -565,7 +709,10 @@ def main():
                     help="kernels phase: only the cases whose label holds "
                          "one of these comma-separated strings")
     ap.add_argument("--worker", choices=("this", "other"),
-                    help="run the episodes of one version in this process")
+                    help="run one version's episodes or constrained runs "
+                         "in this process")
+    ap.add_argument("--worker-phase", choices=("episodes", "constrained"),
+                    default="episodes")
     args = ap.parse_args()
     roots = {"this": ROOT, "other": os.path.abspath(args.against)}
     if not torch.cuda.is_available():
@@ -576,7 +723,8 @@ def main():
         sys.path.insert(0, roots[args.worker])
         import chip_smoke
         cs = chip_smoke
-        episodes_worker(args.worker)
+        {"episodes": episodes_worker,
+         "constrained": constrained_worker}[args.worker_phase](args.worker)
         return
     import chip_smoke
     cs = chip_smoke
@@ -622,11 +770,13 @@ def main():
         kernels_phase(this, other, kernel_cases(Bench(torch.device("cuda"))),
                       [c for c in args.cases.split(",") if c])
         torch.cuda.empty_cache()
-    if "episodes" in phases:
+    for phase in ("episodes", "constrained"):
+        if phase not in phases:
+            continue
         for side in ("other", "this", "this", "other"):
             subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--against", roots["other"], "--worker", side],
-                           check=True)
+                            "--against", roots["other"], "--worker", side,
+                            "--worker-phase", phase], check=True)
     print(smi, flush=True)
 
 

@@ -61,13 +61,25 @@ and fails (non-zero exit, no result line) on any error:
      shape (per-row worlds), with a third of the rows masked: ee to rtol
      1e-5 / atol 2e-5, zeros on masked rows, q_obs and margin bitwise equal
      to the launch without ee; ee, no-ee and plain times;
+  7c. the ``:con`` form of every variant (the constraint route: the
+     constraints' cost computed in the kernel on the frame, q_con [C, T],
+     instead of the frame and the solver's tail on it) at the same shapes,
+     for the cone, a tool-point target and both, a third of the rows
+     masked: q_con against the plain tail on the same launch's :ee frame
+     (rtol 1e-5, atol 1e-6 per unit of weight) and against the plain
+     version (q_con_tolerance: the ee gate carried through the tail),
+     zeros on masked rows, q_obs and margin bitwise the launch without
+     constraints; the memory path (a cone made on the card); :con, :ee and
+     no-constraint times in turns, plain times, resident blocks per SM;
   8. Cartesian constraints and the torque cost on the main path:
      plan_batch on config 4's problems with the "glass of water" cone
      (bench.py's constrained row: config 2 at 50 iterations, no early stop)
      against the same run unconstrained, over the box and the voxel
-     tabletop; a constrained solve_batch over config 5's per-scenario
-     worlds (both static worlds); plan_batch B = 256 with torque weight
-     0.005 (bench.py's torque row);
+     tabletop (only :con launches; the constraint tail's kernels per
+     iteration from a profiler window over each run, at most 2); a
+     constrained solve_batch over config 5's per-scenario worlds (both
+     static worlds); plan_batch B = 256 with torque weight 0.005 (bench.py's
+     torque row);
   9. CHOMP (BASELINE config 3, configs/config3_chomp.yaml): plan on its
      query, plan_batch B = 1024 on jittered problems (success floor 0.9),
      plan_batch B = 256 with the experiment suite's HMC settings;
@@ -75,10 +87,10 @@ and fails (non-zero exit, no result line) on any error:
      B = 8, under the same noise;
  10. the joint chain (TPU K3/K5 static_joints): the phases above run every
      built-in robot on its static chain (the robot compiled in); here each
-     variant and its :ee form on the static chain against the plain version
-     and against the runtime chain (joint_static=None) at the config-4 and
-     config-5 shapes, with both chains' times (arm_7dof; and the URDF torso
-     arm below at the config-4 shape);
+     variant and its :ee and :con forms on the static chain against the
+     plain version and against the runtime chain (joint_static=None) at
+     the config-4 and config-5 shapes, with both chains' times (arm_7dof;
+     and the URDF torso arm below at the config-4 shape);
  10u. plan_batch on config 4's problems with a URDF robot (the arm_7dof
      chain under a prismatic torso lift, one axis negated, a general axis,
      fixed rotations, a fixed tool link; cylinder/box collision geometry),
@@ -86,8 +98,9 @@ and fails (non-zero exit, no result line) on any error:
  10g. a stale joint_static (joint_axis replaced, joint_static kept):
      plan_batch warns and runs only :runtime kernels, equal to the honest
      robot's run;
- 10s. one launch of each variant (and of the sorted runtime route, K1)
-     under torch.cuda.set_sync_debug_mode("error"): no host sync.
+ 10s. one launch of each variant and its :con form (and of the sorted
+     runtime route, K1) under torch.cuda.set_sync_debug_mode("error"): no
+     host sync.
  11. the rest of the planning API, at config 4's full width unless named,
      every entry point called without `device` (it runs on the card):
      goal-tolerance bands (every goal given +-0.1 rad: the resolve over
@@ -151,6 +164,52 @@ TOL = f"q {Q_ATOL}+{Q_RTOL}|q|, margin {M_ATOL}"
 # TPU kernel's ee_out (tests/unit/test_rollout_kernel.py:371-372).
 EE_RTOL, EE_ATOL = 1e-5, 2e-5
 
+# The constraint route's q_con against the plain tail on the kernel's own
+# :ee frame: only acosf against torch's arccos can differ (the route rounds
+# every product and sum on its own, as the tail's elementwise passes do);
+# atol per unit of constraint weight.
+CON_RTOL, CON_ATOL_PER_WEIGHT = 1e-5, 1e-6
+
+
+def q_con_tolerance(robot, constraints, ee):
+    """[C, T] bound on |q_con(kernel) - q_con(plain)| derived from the ee
+    gate: where each entry of the kernel's frame is within EE_ATOL +
+    EE_RTOL·|ee| of the plain frame ee [12, T, C], each constraint's
+    excess moves by at most Δe (orientation: the axis and cos bounds
+    carried through acos, which is monotone, so the exact change of acos
+    over cos ± Δcos; position: the tool point's bound summed over its
+    axes), and its cost w·e² by w·(2e + Δe)·Δe; plus 1e-6·w for the
+    float32 rounding of the tail and CON_RTOL of the cost."""
+    eps = EE_ATOL + EE_RTOL * ee.abs()
+    p, R, e_p, e_R = ee[:3], ee[3:], eps[:3], eps[3:]
+    tol = torch.zeros_like(ee[0])
+    cost = torch.zeros_like(ee[0])
+    for c in constraints:
+        w, t = float(c.weight), c.target_world.tolist()
+        orient = hasattr(c, "axis_local")
+        a = (c.axis_local if orient else robot.ee_offset).tolist()
+        row = [R[3 * i] * a[0] + R[3 * i + 1] * a[1] + R[3 * i + 2] * a[2]
+               for i in range(3)]
+        d_row = [sum(e_R[3 * i + k] * abs(a[k]) for k in range(3))
+                 for i in range(3)]
+        if orient:
+            cos = sum(row[i] * t[i] for i in range(3))
+            d_cos = sum(d_row[i] * abs(t[i]) for i in range(3)) + 1e-6
+            d_e = (torch.arccos(torch.clamp(cos - d_cos, -1.0, 1.0))
+                   - torch.arccos(torch.clamp(cos + d_cos, -1.0, 1.0))
+                   + 1e-6)
+            ang = torch.arccos(torch.clamp(cos, -1.0, 1.0))
+            e = torch.clamp(ang - float(c.tolerance), min=0.0)
+        else:
+            rel = [p[i] + row[i] - t[i] for i in range(3)]
+            d_e = sum(e_p[i] + d_row[i] for i in range(3)) + 1e-6
+            dist = torch.sqrt(sum(r * r for r in rel))
+            e = torch.clamp(dist - float(c.tolerance), min=0.0)
+        tol = tol + w * (2.0 * e + d_e) * d_e + 1e-6 * w
+        cost = cost + w * e * e
+    return (tol + CON_RTOL * cost).t()
+
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, 700 W): float32 outside
 # the tensor cores, and HBM3.
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -158,8 +217,13 @@ PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
 # from the source (csrc/rollout_common.cuh); sin, cos, sqrt and a division
 # count one each. FK: fk_ops below. A body: placement 18, then speed 12 and
 # potential, sum and margin 10, plus its distance: 11 per sphere, 25 per
-# box, 51 per trilinear grid sample. The ee output adds stores only.
+# box, 51 per trilinear grid sample. The ee output adds stores only. The
+# constraint route adds, per constraint, an orientation cone's 28 (R·axis
+# 15, the dot 5, clamp 2, acos, - tolerance, max, square, weight, sum) or a
+# position target's 32 (R·offset + p - target 21, |rel|² 5, sqrt, then as
+# the cone's last five).
 OPS_BODY, OPS_SPHERE, OPS_BOX, OPS_GRID = 40, 11, 25, 51
+OPS_CONE, OPS_POSITION = 28, 32
 OTHER = 2          # a run-time axis component (kernels/rollout.py _OTHER)
 
 
@@ -206,15 +270,18 @@ def fk_ops(rollout, robot, static=True):
     return ops
 
 
-def bound(C, T, d, fk, nb, ns, nx, grid_voxels=0, rows=0, ee=False):
+def bound(C, T, d, fk, nb, ns, nx, grid_voxels=0, rows=0, ee=False,
+          con_ops=None):
     """(bound_ms, bound_by) of one evaluator launch: the larger of its
-    float operations (fk per waypoint: fk_ops) over the fp32 peak and the
-    bytes it must move (the candidates, the grid and per-row primitives
-    read once; q_obs, margin and ee written once) over the memory rate."""
+    float operations (fk per waypoint: fk_ops; con_ops per waypoint on the
+    constraint route) over the fp32 peak and the bytes it must move (the
+    candidates, the grid and per-row primitives read once; q_obs, margin,
+    ee and q_con written once) over the memory rate."""
     per_body = OPS_BODY + OPS_SPHERE * ns + OPS_BOX * nx + (
         OPS_GRID if grid_voxels else 0)
-    ops = C * T * (fk + nb * per_body)
+    ops = C * T * (fk + nb * per_body + (con_ops or 0))
     nbytes = 4 * (C * T * d + C * T + C + (12 * C * T if ee else 0)
+                  + (C * T if con_ops is not None else 0)
                   + grid_voxels + rows * (4 * ns + 6 * nx))
     t_ops, t_bytes = ops / PEAK_FP32_OPS, nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
@@ -397,8 +464,12 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
         err = max(err, check_kernel(f"{name}:candidate_major", rollout,
                                     robot, world, fulls, dt, clearance,
                                     time_major=False, plain=plain))
+        runtime = dataclasses.replace(robot, joint_static=None)
         timing["candidate_major_ms"] = cuda_time_ms(
             lambda: rollout.obstacle_cost_batch(robot, world, fulls, dt,
+                                                clearance), 20)
+        timing["candidate_major_runtime_ms"] = cuda_time_ms(
+            lambda: rollout.obstacle_cost_batch(runtime, world, fulls, dt,
                                                 clearance), 20)
     say(f"kernel_time:{name}", **timing, static_ms=chains["static_ms"],
         runtime_ms=chains["runtime_ms"], card=smi)
@@ -559,6 +630,8 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     # parameter block, none the memory path
     routes = dict(rollout.PARAM_ROUTES)
     assert routes["memory"] == 0 and routes["block"] > 0, routes
+    # the candidate-major launches are the TPU's K4 (the solver's finalize)
+    layouts = dict(rollout.LAYOUTS)
     traj, succ, iters = sol.trajectory, sol.success, sol.iterations
     assert traj.shape == (B, T, d) and succ.shape == (B,), traj.shape
     assert bool(torch.isfinite(traj).all() and torch.isfinite(sol.cost).all())
@@ -566,7 +639,7 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     say(f"plan_batch:{label}", B=B, wall_s=wall, solves_per_s=B / wall,
         success_rate=success_rate, mean_iterations=float(iters.float().mean()),
         max_iterations=int(iters.max()), kernel_launches=launches,
-        param_routes=routes, card=smi)
+        param_routes=routes, layouts=layouts, card=smi)
     assert launches.get(kernel, 0) >= int(iters.max()), launches
     assert sum(launches.values()) == launches[kernel], launches
     assert success_rate >= success_floor, success_rate
@@ -920,6 +993,110 @@ def ee_phase(variant, rollout, robot, world, fulls, dt, clearance, smi,
         plain_ms, ms_smooth
 
 
+def con_check(label, rollout, robot, world, fulls, dt, clearance, cons,
+              active, cands_per_row=None, tag=""):
+    """One :con launch (a third of the rows masked) against: the launch
+    without constraints (q_obs and margin bitwise), the plain tail on the
+    same launch's :ee frame (CON_RTOL, CON_ATOL_PER_WEIGHT: only acosf
+    differs), the plain version on fk_frames (q_con_tolerance, derived from
+    the ee gate), zeros on masked rows. Returns the largest |Δ| of q_obs,
+    margin and q_con against the plain version."""
+    from tpustomp_torch.costs.constraints import constraint_cost_tm
+
+    tm = fulls.permute(2, 1, 0).contiguous()
+    kw = dict(row_active=active, time_major=True, cands_per_row=cands_per_row)
+    q, m, q_con = rollout.obstacle_cost_batch(robot, world, tm, dt, clearance,
+                                              constraints=cons, **kw)
+    q0, m0 = rollout.obstacle_cost_batch(robot, world, tm, dt, clearance,
+                                         **kw)
+    _, _, ee = rollout.obstacle_cost_batch(robot, world, tm, dt, clearance,
+                                           want_ee=True, **kw)
+    q_p, m_p, ee_p = rollout.obstacle_cost_batch_plain(
+        robot, world, fulls, dt, clearance, cands_per_row=cands_per_row,
+        want_ee=True)
+    own = constraint_cost_tm(robot, cons, ee)
+    ref = constraint_cost_tm(robot, cons, ee_p)
+    tol = q_con_tolerance(robot, cons, ee_p)
+    del ee, ee_p
+    torch.cuda.synchronize()
+    weight = sum(float(c.weight) for c in cons)
+    d_own = (q_con - own).abs()[active]
+    own_ok = bool((d_own <= CON_ATOL_PER_WEIGHT * weight
+                   + CON_RTOL * own.abs()[active]).all())
+    d_ref = (q_con - ref).abs()
+    ref_ok = bool((d_ref <= tol)[active].all())
+    dq, dm = (q - q_p).abs()[active], (m - m_p).abs()[active]
+    q_ok = bool((dq <= Q_ATOL + Q_RTOL * q_p.abs()[active]).all()
+                and (dm <= M_ATOL).all())
+    out = dict(C=fulls.shape[0], T=fulls.shape[1],
+               constraints=[type(c).__name__ for c in cons],
+               rows_checked=int(active.sum()),
+               rows_masked=int((~active).sum()),
+               max_abs_dq_con_vs_own_ee_tail=float(d_own.max()),
+               own_tol=f"{CON_ATOL_PER_WEIGHT}*{weight}+{CON_RTOL}|q_con|",
+               bitwise_equal_own_ee_tail=bool(torch.equal(
+                   q_con[active], own[active])),
+               max_abs_dq_con_vs_plain=float(d_ref[active].max()),
+               max_tol_vs_plain=float(tol[active].max()),
+               plain_tol="q_con_tolerance (the ee gate carried through "
+                         "the tail)",
+               max_q_con=float(ref[active].max()),
+               masked_rows_zero=bool((q_con[~active] == 0).all()),
+               q_margin_bitwise_equal_without_con=bool(
+                   torch.equal(q, q0) and torch.equal(m, m0)),
+               max_abs_dq=float(dq.max()), max_abs_dm=float(dm.max()),
+               tol=TOL, finite=bool(torch.isfinite(q_con).all()))
+    say(f"kernel_vs_plain:{label}:con{tag}", **out)
+    assert (own_ok and ref_ok and q_ok and out["masked_rows_zero"]
+            and out["q_margin_bitwise_equal_without_con"] and out["finite"]
+            and out["max_q_con"] > 0.0), out
+    return max(float(dq.max()), float(dm.max()), float(d_ref[active].max()))
+
+
+def con_phase(variant, rollout, robot, world, fulls, dt, clearance, cone,
+              spot, smi, chains, cands_per_row=None, smooth=None):
+    """Phase 7c for one variant's :con form (the constraint route): con_check
+    for the cone alone, the tool-point target alone and both (a third of
+    the rows masked); then :con, :ee and no-constraint times in turns
+    (con, ee, none, none, ee, con), the plain version's and the :con time
+    on solver-like candidates (`smooth`, time-major, where given), beside
+    both chains' times from chain_phase (`chains`). Returns (max_err, ms,
+    plain_ms, ms_smooth or None)."""
+    C = fulls.shape[0]
+    active = ~inactive_rows(C, fulls.device)
+    err = max(con_check(variant, rollout, robot, world, fulls, dt, clearance,
+                        cons, active, cands_per_row, tag)
+              for cons, tag in (((cone,), ""), ((spot,), ":position"),
+                                ((cone, spot), ":both")))
+    tm = fulls.permute(2, 1, 0).contiguous()
+    kw = dict(time_major=True, cands_per_row=cands_per_row)
+    runs = {"con": dict(constraints=cone), "ee": dict(want_ee=True),
+            "none": {}}
+    t = {k: [] for k in runs}
+    for k in ("con", "ee", "none", "none", "ee", "con"):
+        t[k].append(cuda_time_ms(lambda: rollout.obstacle_cost_batch(
+            robot, world, tm, dt, clearance, **runs[k], **kw), 20))
+    ms = sum(t["con"]) / 2
+    plain_ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
+        robot, world, fulls, dt, clearance, cands_per_row=cands_per_row,
+        constraints=cone), 3)
+    ms_smooth = None if smooth is None else cuda_time_ms(
+        lambda: rollout.obstacle_cost_batch(robot, world, smooth, dt,
+                                            clearance, constraints=cone,
+                                            **kw), 20)
+    blocks = {k: rollout.rollout_occupancy(robot, world, tm, dt, clearance,
+                                           **runs[k], **kw) for k in runs}
+    say(f"kernel_time:{variant}:con", C=C, T=fulls.shape[1],
+        con_ms=t["con"], ee_ms=t["ee"], no_con_ms=t["none"],
+        con_over_no_con=ms / (sum(t["none"]) / 2),
+        con_over_ee=ms / (sum(t["ee"]) / 2), plain_ms=plain_ms,
+        con_ms_smooth=ms_smooth, resident_blocks_per_sm=blocks,
+        static_ms=chains["static_ms"], runtime_ms=chains["runtime_ms"],
+        card=smi)
+    torch.cuda.empty_cache()
+    return err, ms, plain_ms, ms_smooth
+
+
 def cone_excess(robot, traj, cone):
     """Per trajectory [B, T, d], the largest angle (rad) by which the
     end-effector axis leaves the cone (0 inside it)."""
@@ -931,13 +1108,51 @@ def cone_excess(robot, traj, cone):
     return torch.clamp(torch.arccos(cos) - cone.tolerance, min=0.0).amax(1)
 
 
+def device_window(fn):
+    """(fn(), CUDA kernels launched in it, their device µs, wall s): one
+    utils.tracing.profile window (torch.profiler, CPU and CUDA activity)."""
+    import tempfile
+
+    from torch.autograd import DeviceType
+
+    from tpustomp_torch.utils import tracing
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with tracing.profile(tmp) as prof:
+            out, wall = synced(fn)
+    busy, n_k = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            busy += getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+            n_k += e.count
+    return out, n_k, busy, wall
+
+
 def constrained_phase(label, kernel, rollout, robot, world, cfg, cone, q0b,
                       qNb, smi):
     """Phase 8: the cone against the same problems and noise unconstrained
-    (equal work: no early stop). Returns the :ee kernel's launches."""
+    (equal work: no early stop); then one profiler window over each run:
+    kernels per iteration, and the constrained run's extra kernels per
+    iteration (the constraint tail's launches; at most 2). Returns the
+    :con kernel's launches."""
+    from tpustomp_torch import ProblemSpec, plan_batch
+
     free, wall_f, _ = timed_plan_batch(rollout, robot, world, cfg, q0b, qNb)
     sol, wall_c, launches = timed_plan_batch(rollout, robot, world, cfg,
                                              q0b, qNb, constraints=cone)
+    dev = robot.joint_axis.device
+    window = {}
+    for run, kw in (("unconstrained", {}), ("constrained",
+                                            dict(constraints=cone))):
+        out, n_k, busy, wall = device_window(lambda: plan_batch(
+            robot, world, ProblemSpec(q0=q0b, qN=qNb), cfg, device=dev,
+            generator=seeded(dev, 0), **kw))
+        window[run] = dict(kernels_per_iteration=n_k / (
+            int(out.iterations.max()) + 1), idle_pct=100 * (
+                1 - busy / 1e6 / wall), device_kernel_ms=busy / 1e3)
+    extra = (window["constrained"]["kernels_per_iteration"]
+             - window["unconstrained"]["kernels_per_iteration"])
     B = q0b.shape[0]
     ex_c = float(cone_excess(robot, sol.trajectory, cone).mean())
     ex_f = float(cone_excess(robot, free.trajectory, cone).mean())
@@ -948,17 +1163,19 @@ def constrained_phase(label, kernel, rollout, robot, world, cfg, cone, q0b,
         unconstrained_success_rate=float(free.success.float().mean()),
         mean_max_cone_excess_rad=ex_c,
         unconstrained_mean_max_cone_excess_rad=ex_f,
-        kernel_launches=launches, card=smi)
+        kernel_launches=launches, profile=window,
+        tail_kernels_per_iteration=extra, card=smi)
     assert launches.get(kernel, 0) >= cfg.max_iterations, launches
     assert sum(launches.values()) == launches[kernel], launches
     assert ex_c < ex_f, (ex_c, ex_f)
+    assert extra <= 2.0, window
     return launches[kernel]
 
 
 def percand_constrained_phase(label, kernel, rollout, robot, cfg5, static,
                               states, cone, smi):
     """Phase 8: one config-5 replan with the cone, every scenario in its
-    own world (solve_batch with world_batched=True: the per-row :ee
+    own world (solve_batch with world_batched=True: the per-row :con
     kernel). Returns its launches."""
     from tpustomp_torch.dynamics.device import device_ops
     from tpustomp_torch.engine import solver
@@ -1117,14 +1334,18 @@ def torso_problems(q0b, qNb):
     return lift(q0b, 0.05), lift(qNb, 0.1)
 
 
-def chain_phase(variant, rollout, robot, world, fulls, dt, clearance,
+def chain_phase(variant, rollout, robot, world, fulls, dt, clearance, cone,
                 cands_per_row=None, tag=""):
     """Phase 10 for one variant: on the same time-major input with a third
     of the rows masked, the static chain (robot) against the plain version
     and against the runtime chain (the robot with joint_static=None), at
-    the kernel-vs-plain tolerance, for the costs and for the :ee form; then
-    both chains' times in turns (static, runtime, runtime, static). Returns
-    {form: dict(static_vs_runtime_max_abs, static_ms, runtime_ms)}."""
+    the kernel-vs-plain tolerance, for the costs, the :ee form and the :con
+    form (the cone; both chains' q_con within q_con_tolerance of the plain
+    tail); then both chains' times in turns (static, runtime, runtime,
+    static). Returns {form: dict(static_vs_runtime_max_abs, static_ms,
+    runtime_ms)}."""
+    from tpustomp_torch.costs.constraints import constraint_cost_tm
+
     runtime = dataclasses.replace(robot, joint_static=None)
     assert rollout.chain_of(robot) is not None
     assert rollout.chain_of(runtime) is None
@@ -1134,17 +1355,20 @@ def chain_phase(variant, rollout, robot, world, fulls, dt, clearance,
     q_p, m_p, ee_p = rollout.obstacle_cost_batch_plain(
         robot, world, fulls, dt, clearance, cands_per_row=cands_per_row,
         want_ee=True)
+    con_p = constraint_cost_tm(robot, (cone,), ee_p)
+    con_tol = q_con_tolerance(robot, (cone,), ee_p)
     out = {}
-    for ee in (False, True):
-        form = variant + (":ee" if ee else "")
-        kw = dict(time_major=True, cands_per_row=cands_per_row)
+    for suffix, extra in (("", {}), (":ee", dict(want_ee=True)),
+                          (":con", dict(constraints=cone))):
+        ee, con = suffix == ":ee", suffix == ":con"
+        form = variant + suffix
+        kw = dict(time_major=True, cands_per_row=cands_per_row, **extra)
         before = dict(rollout.LAUNCHES)
         got = {name: rollout.obstacle_cost_batch(r, world, tm, dt, clearance,
-                                                 row_active=active,
-                                                 want_ee=ee, **kw)
+                                                 row_active=active, **kw)
                for name, r in (("static", robot), ("runtime", runtime))}
         torch.cuda.synchronize()
-        runtime_form = variant + ":runtime" + (":ee" if ee else "")
+        runtime_form = variant + ":runtime" + suffix
         ran = {k: rollout.LAUNCHES[k] - before[k] for k in before
                if rollout.LAUNCHES[k] != before[k]}
         assert ran == {form: 1, runtime_form: 1}, ran
@@ -1162,26 +1386,34 @@ def chain_phase(variant, rollout, robot, world, fulls, dt, clearance,
                               * ee_p[:, :, active].abs()).all())
             res.update(max_abs_dee=float(de.max()),
                        ee_tol=f"{EE_ATOL}+{EE_RTOL}|ee|")
+        if con:
+            dc = (s[2] - con_p).abs()
+            ok = ok and bool((dc <= con_tol)[active].all())
+            res.update(max_abs_dq_con=float(dc[active].max()),
+                       q_con_tol="q_con_tolerance")
         say(f"kernel_vs_plain:{form}:static{tag}", **res, ok=ok)
         # static against runtime: the same tolerance, with q and ee
-        # relative to the runtime chain's values; masked rows zero in both
+        # relative to the runtime chain's values, q_con both within
+        # q_con_tolerance of plain; masked rows zero in both
         diffs = [(a - b).abs() for a, b in zip(s, r)]
         within = bool(
             (diffs[0] <= Q_ATOL + Q_RTOL * r[0].abs()).all()
             and (diffs[1] <= M_ATOL).all()
             and (not ee or (diffs[2] <= EE_ATOL + EE_RTOL
-                            * r[2].abs()).all()))
+                            * r[2].abs()).all())
+            and (not con or ((r[2] - con_p).abs() <= con_tol)[active].all()))
         max_abs = max(float(x.max()) for x in diffs)
         bitwise = all(torch.equal(a, b) for a, b in zip(s, r))
         say(f"kernel_vs_kernel:{form}:static_vs_runtime{tag}", rows=C,
             max_abs_q=float(diffs[0].max()), max_abs_margin=float(
                 diffs[1].max()),
             max_abs_ee=float(diffs[2].max()) if ee else None,
+            max_abs_q_con=float(diffs[2].max()) if con else None,
             max_abs=max_abs, within_tol=within, bitwise_equal=bitwise)
         assert ok and within, (form, res)
         del got, s, r, diffs
         launch = {name: (lambda r=r: rollout.obstacle_cost_batch(
-            r, world, tm, dt, clearance, want_ee=ee, **kw))
+            r, world, tm, dt, clearance, **kw))
             for name, r in (("static", robot), ("runtime", runtime))}
         t = [cuda_time_ms(launch[k], 20)
              for k in ("static", "runtime", "runtime", "static")]
@@ -1191,7 +1423,7 @@ def chain_phase(variant, rollout, robot, world, fulls, dt, clearance,
         say(f"kernel_time:{form}:chains{tag}", C=C, T=fulls.shape[1],
             static_ms=[t[0], t[3]], runtime_ms=[t[1], t[2]],
             runtime_over_static=(t[1] + t[2]) / (t[0] + t[3]))
-    del q_p, m_p, ee_p
+    del q_p, m_p, ee_p, con_p, con_tol
     torch.cuda.empty_cache()
     return out
 
@@ -1233,16 +1465,18 @@ def guard_phase(rollout, robot, world, cfg, q0b, qNb):
 
 
 def sync_free_phase(rollout, cases, dt, clearance):
-    """Phase 10s: one launch of each case under
+    """Phase 10s: one launch of each case (label, robot, world, tm,
+    cands_per_row[, constraints: the :con form]) under
     torch.cuda.set_sync_debug_mode("error"), which raises on any host sync
     in the launch path."""
-    for label, robot, world, tm, per in cases:
+    for label, robot, world, tm, per, *cons in cases:
         torch.cuda.synchronize()
         before = dict(rollout.LAUNCHES)
         torch.cuda.set_sync_debug_mode("error")
         try:
             rollout.obstacle_cost_batch(robot, world, tm, dt, clearance,
-                                        time_major=True, cands_per_row=per)
+                                        time_major=True, cands_per_row=per,
+                                        constraints=cons[0] if cons else None)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
@@ -1911,7 +2145,8 @@ def main():
     sys.path.insert(0, ROOT)
     import yaml
 
-    from tpustomp_torch import NoiseConfig, OrientationConstraint
+    from tpustomp_torch import (NoiseConfig, OrientationConstraint,
+                                PositionConstraint)
     from tpustomp_torch._tensors import map_tensors
     from tpustomp_torch.api.config import CostWeights, PlannerConfig, from_dict
     from tpustomp_torch.engine.mpc import _tick_world_batch
@@ -1957,6 +2192,13 @@ def main():
             time.perf_counter() - t0, 3))
     composite = CompositeWorld.make(
         grid, spheres=[((0.35, 0.3, 0.55), 0.12)]).to(dev)
+    # phase 8's "glass of water" cone (bench.py's constrained row) and a
+    # tool-point target: the constraint route's inputs
+    cone = OrientationConstraint.make(axis_local=(0, 0, 1),
+                                      target_world=(0, 0, 1), tolerance=0.25,
+                                      weight=0.3).to(dev)
+    spot = PositionConstraint.make((0.7, 0.1, 0.9), tolerance=0.05,
+                                   weight=2.0).to(dev)
     B = int(doc4["batch"]["scenarios_per_chip"])
     C = B * (1 + cfg4.num_rollouts + cfg4.noise.num_rollouts_reused)
     T = cfg4.num_timesteps + 2
@@ -1973,14 +2215,14 @@ def main():
     chain_res = {}
     for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
         chain_res.update(chain_phase(name, rollout, robot, w, fulls, dt,
-                                     clearance))
+                                     clearance, cone))
     lo_u = urdf_robot.joint_lower.cpu().numpy()
     hi_u = urdf_robot.joint_upper.cpu().numpy()
     fulls_u = torch.as_tensor(np.random.default_rng(3).uniform(
         lo_u, hi_u, (C, T, urdf_robot.num_joints)).astype(np.float32),
         device=dev)
     chain_phase("rollout_analytic", rollout, urdf_robot, world, fulls_u, dt,
-                clearance, tag=":torso_arm_urdf")
+                clearance, cone, tag=":torso_arm_urdf")
     del fulls_u
     # config 4's problems (the CLI's --seed 0 jitter) and, for the kernels'
     # ms_smooth, solver-like candidates on them (min-jerk + sigma L z)
@@ -2012,6 +2254,20 @@ def main():
         *table[name + ":ee"], smooth_ms[name + ":ee"] = ee_phase(
             name, rollout, robot, w, fulls, dt, clearance, smi,
             chain_res[name + ":ee"], smooth=smooth4)
+    # --- 7c. the :con forms (the constraint route) at the config-4 shape -------
+    for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
+        *table[name + ":con"], smooth_ms[name + ":con"] = con_phase(
+            name, rollout, robot, w, fulls, dt, clearance, cone, spot, smi,
+            chain_res[name + ":con"], smooth=smooth4)
+    # ... and on the memory path: the cone made on the card (no host copy)
+    made_cone = dataclasses.replace(cone, weight=cone.weight.clone())
+    rollout.reset_launches()
+    err = con_check("rollout_analytic", rollout, robot, world,
+                    fulls[:EDGE_C], dt, clearance, (made_cone, spot),
+                    ~inactive_rows(EDGE_C, dev), tag=":memory_path")
+    assert rollout.PARAM_ROUTES["memory"] == 1, rollout.PARAM_ROUTES
+    e, k_ms, p_ms = table["rollout_analytic:con"]
+    table["rollout_analytic:con"] = (max(e, err), k_ms, p_ms)
     del smooth4
     # --- 3e. the lane plan's edges; the memory path ---------------------------
     err = edges_phase(rollout, robot, world, grid, smi)
@@ -2023,7 +2279,10 @@ def main():
     sync_cases = [("rollout_analytic", robot, world, tm_small, None),
                   ("rollout_grid", robot, grid, tm_small, None),
                   ("rollout_analytic:runtime", shuffled(robot, 0), world,
-                   tm_small, None)]
+                   tm_small, None),
+                  ("rollout_analytic:con", robot, world, tm_small, None,
+                   cone),
+                  ("rollout_grid:con", robot, grid, tm_small, None, cone)]
     del fulls, tm_small
     torch.cuda.empty_cache()
 
@@ -2042,7 +2301,8 @@ def main():
             name, rollout, robot, _tick_world_batch(
                 states5.sphere_center.to(dev),
                 torch.tensor([0.12], device=dev), static),
-            fulls, cfg5.dt, cfg5.collision_clearance, cands_per_row=per5))
+            fulls, cfg5.dt, cfg5.collision_clearance, cone,
+            cands_per_row=per5))
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
         *table[name], smooth_ms[name] = percand_phase(
@@ -2059,13 +2319,24 @@ def main():
                 torch.tensor([0.12], device=dev), static),
             fulls, cfg5.dt, cfg5.collision_clearance, smi,
             chain_res[name + ":ee"], cands_per_row=per5)
+    # --- 7c. the :con forms of the per-row variants at the config-5 shape ---
+    for name, static in (("rollout_analytic:per_cand_world", world),
+                         ("rollout_grid:per_cand_overlay", grid)):
+        *table[name + ":con"], _ = con_phase(
+            name, rollout, robot, _tick_world_batch(
+                states5.sphere_center.to(dev),
+                torch.tensor([0.12], device=dev), static),
+            fulls, cfg5.dt, cfg5.collision_clearance, cone, spot, smi,
+            chain_res[name + ":con"], cands_per_row=per5)
     rows5 = 200
     tm5 = fulls[:rows5 * per5].permute(2, 1, 0).contiguous()
     for name, static in (("rollout_analytic:per_cand_world", world),
                          ("rollout_grid:per_cand_overlay", grid)):
-        sync_cases.append((name, robot, _tick_world_batch(
+        rows_world = _tick_world_batch(
             states5.sphere_center[:rows5].to(dev),
-            torch.tensor([0.12], device=dev), static), tm5, per5))
+            torch.tensor([0.12], device=dev), static)
+        sync_cases += [(name, robot, rows_world, tm5, per5),
+                       (name + ":con", robot, rows_world, tm5, per5, cone)]
     sync_free_phase(rollout, sync_cases, cfg5.dt, cfg5.collision_clearance)
     del fulls, tm5, sync_cases
     torch.cuda.empty_cache()
@@ -2112,21 +2383,18 @@ def main():
     mpc_cuda_vs_cpu_phase("config5_grid", robot, cfg5, grid, eight)
 
     # --- 8. constraints and torque on the main path ------------------------
-    cone = OrientationConstraint.make(axis_local=(0, 0, 1),
-                                      target_world=(0, 0, 1), tolerance=0.25,
-                                      weight=0.3).to(dev)
     # bench.py:193-196: config 2 at 50 iterations without the early stop,
     # so both runs do the same work
     cfg_con = cfg2.replace(max_iterations=50,
                            max_iterations_after_collision_free=10**6)
-    launches["rollout_analytic:ee"] = constrained_phase(
-        "config4_constrained", "rollout_analytic:ee", rollout, robot, world,
+    launches["rollout_analytic:con"] = constrained_phase(
+        "config4_constrained", "rollout_analytic:con", rollout, robot, world,
         cfg_con, cone, q0b, qNb, smi)
-    launches["rollout_grid:ee"] = constrained_phase(
-        "config4_grid_constrained", "rollout_grid:ee", rollout, robot, grid,
+    launches["rollout_grid:con"] = constrained_phase(
+        "config4_grid_constrained", "rollout_grid:con", rollout, robot, grid,
         cfg_con, cone, q0b, qNb, smi)
-    for name, static in (("rollout_analytic:per_cand_world:ee", world),
-                         ("rollout_grid:per_cand_overlay:ee", grid)):
+    for name, static in (("rollout_analytic:per_cand_world:con", world),
+                         ("rollout_grid:per_cand_overlay:con", grid)):
         launches[name] = percand_constrained_phase(
             "config5_constrained" + ("_grid" if static is grid else ""),
             name, rollout, robot, cfg5, static, states5, cone, smi)
@@ -2216,6 +2484,11 @@ def main():
         "rollout_grid:per_cand_overlay:ee":
             f"{pallas}:770 + _grid_finish per_cand + ee_out frame",
     }
+    # the constraint route: ee_out and the constraint tail on its frame
+    # (tpustomp/costs/constraints.py:112-117, engine/solver.py:540-543)
+    for name in list(replaces)[:4]:
+        replaces[name + ":con"] = (replaces[name + ":ee"]
+                                   + " + constraint_cost_tm tail")
     # each kernel's bound at the shape it was timed at, on the chain it ran
     # (arm_7dof's static chain)
     voxels = grid.grid.numel()
@@ -2235,15 +2508,20 @@ def main():
     print(smi, flush=True)
     rows = []
     for name in replaces:
-        base = name[:-3] if name.endswith(":ee") else name
-        bound_ms, bound_by = bound(d=d, fk=fk, nb=nb,
-                                   ee=name.endswith(":ee"), **shapes[base])
+        base = name.removesuffix(":ee").removesuffix(":con")
+        # the :con forms' times are the cone's (the main path's constraint)
+        bound_ms, bound_by = bound(
+            d=d, fk=fk, nb=nb, ee=name.endswith(":ee"),
+            con_ops=OPS_CONE if name.endswith(":con") else None,
+            **shapes[base])
         rows.append({
             "name": name,
             "route": "cuda",
             "source": f"tpustomp_torch/csrc/{name.split(':')[0]}.cu",
             "replaces": replaces[name],
-            "launches": launches[name],
+            # the :ee forms are off the main path: the constraint route
+            # replaced them there
+            "launches": launches.get(name, 0),
             "max_abs_err": table[name][0],
             "ms": table[name][1],
             "plain_ms": table[name][2],

@@ -1,6 +1,7 @@
 """On the card: the CUDA evaluator kernels (rollout_analytic, rollout_grid,
 their per-row-world variants rollout_analytic:per_cand_world and
-rollout_grid:per_cand_overlay, and the ``:ee`` form of all four, on a
+rollout_grid:per_cand_overlay, and the ``:ee`` and ``:con`` (constraint
+route) forms of all four, on a
 robot's static chain and on the runtime chain) against their plain PyTorch
 version and each other (mirrors the kernel phases of chip_smoke.py),
 including the edges of the skeleton's lane plan (waypoint counts around
@@ -519,7 +520,7 @@ class _HMCBank(_NoiseBank):
                                   "chomp", "hmc"])
 def test_new_modes_cuda_match_cpu(cuda_device, mode):
     """Constrained and torque-weighted STOMP, CHOMP and HMC on the card
-    (kernels, :ee forms for constraints) against the CPU run under the
+    (kernels, :con forms for constraints) against the CPU run under the
     same draws: success and iterations equal, trajectory atol 1e-4."""
     cfg = _slice_config(mode)
     robot = tmodel.arm_7dof()
@@ -547,7 +548,7 @@ def test_new_modes_cuda_match_cpu(cuda_device, mode):
     gpu = plan_batch(robot, world, prob, cfg, device=cuda_device,
                      noise_fn=noise(cuda_device),
                      constraints=cons).to("cpu")
-    kernel = "rollout_analytic" + (":ee" if cons is not None else "")
+    kernel = "rollout_analytic" + (":con" if cons is not None else "")
     assert tr.LAUNCHES[kernel] - before[kernel] >= int(cpu.iterations.max())
     assert torch.equal(gpu.success, cpu.success)
     assert torch.equal(gpu.iterations, cpu.iterations)
@@ -1309,3 +1310,174 @@ def test_occupancy_query_launches_nothing(cuda_device):
     assert tr.rollout_occupancy(robot, world, cand, 0.05, 0.05) >= 4
     assert sum(tr.LAUNCHES.values()) == 0
     assert tr.PARAM_ROUTES == {"block": 0, "memory": 0}
+
+
+# The constraint route (:con): the cone of chip_smoke.py phase 8 and a
+# tool-point target, alone and together
+_CON_KINDS = ("orientation", "position", "both")
+
+
+def _con_constraints(kind, device):
+    from tpustomp_torch import PositionConstraint
+
+    cons = []
+    if kind in ("orientation", "both"):
+        cons.append(OrientationConstraint.make(tolerance=0.25, weight=0.3))
+    if kind in ("position", "both"):
+        cons.append(PositionConstraint.make((0.7, 0.1, 0.9), tolerance=0.05,
+                                            weight=2.0))
+    return tuple(c.to(device) for c in cons)
+
+
+def _check_con(robot, world, cand, tm, dt, cons, active, per, q_con, q, m,
+               ee):
+    """q_con of one :con launch against the plain tail on the same launch's
+    :ee frame ee (rtol 1e-5, atol 1e-6 per unit of weight: only acosf
+    differs) and against the plain version on fk_frames, within the bound
+    derived from the ee gate (chip_smoke.py q_con_tolerance); zeros on
+    masked rows; q_obs/margin (q, m) bitwise the launch without
+    constraints."""
+    from chip_smoke import (CON_ATOL_PER_WEIGHT, CON_RTOL,
+                            q_con_tolerance)
+    from tpustomp_torch.costs.constraints import constraint_cost_tm
+
+    kw = dict(row_active=active, time_major=True, cands_per_row=per)
+    q0, m0 = tr.obstacle_cost_batch(robot, world, tm, dt, 0.05, **kw)
+    assert torch.equal(q, q0) and torch.equal(m, m0)
+    own = constraint_cost_tm(robot, cons, ee)
+    torch.testing.assert_close(
+        q_con[active], own[active], rtol=CON_RTOL,
+        atol=CON_ATOL_PER_WEIGHT * sum(float(c.weight) for c in cons))
+    _, _, ee_p = tr.obstacle_cost_batch_plain(robot, world, cand, dt, 0.05,
+                                              cands_per_row=per, want_ee=True)
+    ref = constraint_cost_tm(robot, cons, ee_p)
+    tol = q_con_tolerance(robot, cons, ee_p)
+    assert bool(((q_con - ref).abs() <= tol)[active].all())
+    assert bool((q_con[~active] == 0).all())
+    assert float(ref[active].max()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", _CON_KINDS)
+@pytest.mark.parametrize("variant", sorted(_EE_WORLDS))
+def test_con_variants_match_plain(cuda_device, variant, kind):
+    """The :con form of every variant at its main path's shape (config 4's
+    C = 57,344 x T = 102 for a shared world, config 5's 210,000 x 52 for
+    per-row worlds), a third of the rows masked, on the static and the
+    runtime chain (each launch counted under its own name): _check_con."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    runtime = dataclasses.replace(robot, joint_static=None)
+    per5 = 21
+    if variant.endswith(("per_cand_world", "per_cand_overlay")):
+        C, T, per = 210000, 52, per5
+        world = _row_world(_EE_WORLDS[variant], C // per, 7, ns=1,
+                           nx=2).to(cuda_device)
+    else:
+        C, T, per = 57344, 102, None
+        world = (AnalyticWorld.make(**_WORLDS["boxes"])
+                 if variant == "rollout_analytic"
+                 else _voxel_world("grid")).to(cuda_device)
+    cons = _con_constraints(kind, cuda_device)
+    cand = _cands(robot, C, T, 12, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[::3] = False
+    kw = dict(row_active=active, time_major=True, cands_per_row=per)
+    for r, name in ((robot, variant + ":con"),
+                    (runtime, variant + ":runtime:con")):
+        before = dict(tr.LAUNCHES)
+        q, m, q_con = tr.obstacle_cost_batch(r, world, tm, 0.05, 0.05,
+                                             constraints=cons, **kw)
+        ran = {k: tr.LAUNCHES[k] - before[k] for k in before
+               if tr.LAUNCHES[k] != before[k]}
+        assert ran == {name: 1}, ran
+        _, _, ee = tr.obstacle_cost_batch(r, world, tm, 0.05, 0.05,
+                                          want_ee=True, **kw)
+        _check_con(r, world, cand, tm, 0.05, cons, active, per, q_con, q, m,
+                   ee)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["world", "robot", "device_made",
+                                  "constraint_made_on_card"])
+def test_con_memory_path_matches_plain(cuda_device, case):
+    """The :con form on the memory path (a robot or world above the
+    parameter block, a robot without host copies, or a constraint made on
+    the card): every launch on that route, _check_con's checks."""
+    if case == "constraint_made_on_card":
+        robot = tmodel.arm_7dof().to(cuda_device)
+        world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+        cons = _con_constraints("both", cuda_device)
+        cons = (dataclasses.replace(cons[0], weight=cons[0].weight.clone()),
+                cons[1])
+    else:
+        robot, world = _above_the_block(case, cuda_device)
+        cons = _con_constraints("both", cuda_device)
+    C, T = _EDGE_C, 33
+    cand = _cands(robot, C, T, 4, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[::3] = False
+    tr.reset_launches()
+    q, m, q_con = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
+                                         row_active=active, time_major=True,
+                                         constraints=cons)
+    assert tr.PARAM_ROUTES == {"block": 0, "memory": 1}
+    assert sum(v for k, v in tr.LAUNCHES.items() if k.endswith(":con")) == 1
+    _, _, ee = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
+                                      row_active=active, time_major=True,
+                                      want_ee=True)
+    _check_con(robot, world, cand, tm, 0.15, cons, active, None, q_con, q,
+               m, ee)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [2, 3, 31, 33, 101, 103])
+def test_con_lane_plan_edges_and_planar_2r(cuda_device, T):
+    """The :con form at the lane plan's edges (a ragged C, a masked third)
+    for arm_7dof on both tabletops, and for planar_2r (a cone on its first
+    link axis, a tool-point target): _check_con's checks."""
+    from tpustomp_torch import PositionConstraint
+
+    for robot, cons in (
+            (tmodel.arm_7dof(), _con_constraints("both", "cpu")),
+            (tmodel.planar_2r(), (
+                OrientationConstraint.make((1, 0, 0), (0.6, 0.8, 0.0), 0.3,
+                                           0.7),
+                PositionConstraint.make((1.0, 1.0, 0.0), 0.05, 1.5)))):
+        robot = robot.to(cuda_device)
+        cons = tuple(c.to(cuda_device) for c in cons)
+        cand = _cands(robot, _EDGE_C, T, 9, cuda_device)
+        tm = cand.permute(2, 1, 0).contiguous()
+        active = torch.ones(_EDGE_C, dtype=torch.bool, device=cuda_device)
+        active[::3] = False
+        for world in (AnalyticWorld.make(**_WORLDS["boxes"]),
+                      _voxel_world("grid")):
+            world = world.to(cuda_device)
+            kw = dict(row_active=active, time_major=True)
+            q, m, q_con = tr.obstacle_cost_batch(robot, world, tm, 0.05, 0.05,
+                                                 constraints=cons, **kw)
+            _, _, ee = tr.obstacle_cost_batch(robot, world, tm, 0.05, 0.05,
+                                              want_ee=True, **kw)
+            _check_con(robot, world, cand, tm, 0.05, cons, active, None,
+                       q_con, q, m, ee)
+
+
+@pytest.mark.cuda
+def test_con_route_plans_as_without_ee(cuda_device):
+    """The route's launch takes the lane plan without ee (7 candidates at
+    T = 102) and 4 resident blocks an SM at config 4, where the :ee form
+    takes 8 candidates and fewer blocks; no launch is counted."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    cons = _con_constraints("orientation", cuda_device)
+    cand = _cands(robot, 57344, 102, 1, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    tr.reset_launches()
+    blocks = {k: tr.rollout_occupancy(robot, world, tm, 0.05, 0.05,
+                                      time_major=True, **kw)
+              for k, kw in (("none", {}), ("con", dict(constraints=cons)),
+                            ("ee", dict(want_ee=True)))}
+    assert blocks["con"] == blocks["none"] >= 4 > blocks["ee"], blocks
+    assert sum(tr.LAUNCHES.values()) == 0

@@ -250,14 +250,19 @@ def test_reset_launches():
     tr.LAUNCHES["rollout_grid:ee"] += 1
     tr.LAUNCHES["rollout_analytic:runtime"] += 1
     tr.LAUNCHES["rollout_grid:per_cand_overlay:runtime:ee"] += 1
+    tr.LAUNCHES["rollout_analytic:con"] += 1
+    tr.LAUNCHES["rollout_grid:per_cand_overlay:runtime:con"] += 1
+    tr.LAYOUTS["candidate_major"] += 1
     tr.reset_launches()
+    assert tr.LAYOUTS == {"time_major": 0, "candidate_major": 0}
     # each variant counts its launches on the static and on the runtime
-    # chain, with and without the ee output, apart
+    # chain, without an extra output, with the ee output and on the
+    # constraint route, apart
     variants = ("rollout_analytic", "rollout_grid",
                 "rollout_analytic:per_cand_world",
                 "rollout_grid:per_cand_overlay")
-    assert tr.LAUNCHES == {v + chain + ee: 0 for v in variants
+    assert tr.LAUNCHES == {v + chain + form: 0 for v in variants
                            for chain in ("", ":runtime")
-                           for ee in ("", ":ee")}
+                           for form in ("", ":ee", ":con")}
     # every variant is an entry point of one of the two sources
     assert {src for src, _, _ in tr._ENTRIES.values()} == set(tr._SOURCES)

@@ -89,11 +89,12 @@ def test_library_per_source_and_chain():
 
 def test_launch_names():
     """Static-chain launches count under <variant>, runtime-chain ones
-    under <variant>:runtime, each with its :ee form."""
+    under <variant>:runtime, each with its :ee and its :con form."""
     for v in tr._ENTRIES:
-        for key in (v, v + ":ee", v + ":runtime", v + ":runtime:ee"):
+        for key in (v, v + ":ee", v + ":con", v + ":runtime",
+                    v + ":runtime:ee", v + ":runtime:con"):
             assert tr.LAUNCHES[key] >= 0
-    assert len(tr.LAUNCHES) == 4 * len(tr._ENTRIES)
+    assert len(tr.LAUNCHES) == 6 * len(tr._ENTRIES)
 
 
 def _stale(m, robot, kind):

@@ -14,7 +14,10 @@
 //       rollout_analytic_rows_launch below;
 //   K3 with ee_out=True (:410-418, :472-474, :672-682, :736-740) — the
 //       end-effector frame [12, T, C] beside the costs, for Cartesian
-//       constraints: either entry point with a non-null ee.
+//       constraints: either entry point with a non-null ee; or, with a
+//       non-null q_con, the frame's one consumer folded in (the solver's
+//       constraint tail, costs/constraints.py constraint_cost_tm): the
+//       constraints' cost [T, C] instead of the frame.
 // The computation, layout and parameter format are rollout_common.cuh's;
 // this file supplies the distance: the min over the world's spheres and
 // boxes.
@@ -60,7 +63,8 @@ rollout_analytic_kernel(
 
 // Every entry point ends with the same tail: active (or null), q_obs,
 // margin_part ([n_slab, C]), ee ([12, T, C], or null: no frame output),
-// then the shapes, the scalars, the lane plan (cpb, n_slab:
+// q_con ([T, C], or null: no constraint route; n_con constraints, the last
+// section of params), then the shapes, the scalars, the lane plan (cpb, n_slab:
 // kernels/rollout.py _plan), the stream, and `resident`: null for a launch,
 // else the occupancy query of rollout_common.cuh launch_plan. params is a host pointer to n_params floats
 // for the parameter block when host_params is 1 (n_params <= kParamFloats),
@@ -70,11 +74,13 @@ rollout_analytic_kernel(
 // A world shared by every candidate: its primitives are in params.
 extern "C" int rollout_analytic_launch(
     const float* cand, const float* params, int n_params, int host_params,
-    const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
-    int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int cpb, int n_slab, void* stream, int* resident) {
-  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
-                         n_params, cpb, n_slab, dt, clearance};
+    const uint8_t* active, float* q_obs, float* margin_part, float* ee,
+    float* q_con, int C, int T, int d, int nb, int ns, int nx, int n_con,
+    float dt, float clearance, int skip_rotf, int cpb, int n_slab,
+    void* stream, int* resident) {
+  const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
+                         q_con, C,      T,     n_params,    cpb,
+                         n_slab, n_con, dt,    clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
@@ -94,11 +100,13 @@ extern "C" int rollout_analytic_launch(
 extern "C" int rollout_analytic_rows_launch(
     const float* cand, const float* params, int n_params, int host_params,
     const float* spheres, const float* boxes, int cands_per_row,
-    const uint8_t* active, float* q_obs, float* margin_part, float* ee, int C,
-    int T, int d, int nb, int ns, int nx, float dt, float clearance,
-    int skip_rotf, int cpb, int n_slab, void* stream, int* resident) {
-  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
-                         n_params, cpb, n_slab, dt, clearance};
+    const uint8_t* active, float* q_obs, float* margin_part, float* ee,
+    float* q_con, int C, int T, int d, int nb, int ns, int nx, int n_con,
+    float dt, float clearance, int skip_rotf, int cpb, int n_slab,
+    void* stream, int* resident) {
+  const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
+                         q_con, C,      T,     n_params,    cpb,
+                         n_slab, n_con, dt,    clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {

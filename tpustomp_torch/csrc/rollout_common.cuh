@@ -15,6 +15,9 @@
 // and, when the caller passes an ee buffer (the TPU kernel's ee_out), the
 // last joint's frame per waypoint, 12 planes of [T, C]:
 //     ee[k, t, c]  k = 0..2 position, k = 3..11 rotation (row-major)
+// or, when it passes a q_con buffer (the constraint route), the Cartesian
+// constraints' cost on that frame, one plane of [T, C]:
+//     q_con[t, c]  = sum over the n_con constraints of weight * excess^2
 // Numerics follow tpustomp_torch/costs/obstacle.py (the plain version the
 // kernels are held to): accurate sincosf/sqrtf and IEEE division (no fast
 // math); nvcc's default FMA contraction moves results by about 1 ULP per
@@ -48,7 +51,8 @@
 //     candidates (28 windows: half the warps idle in the 4th round); at
 //     T = 52 9 candidates, 16 windows, 1.094 against 1.231. With the ee
 //     frame it takes at least 8 (8 at T = 102, 9 at T = 52), so the
-//     frame's 12 planes go out in rows of mostly whole 32-byte sectors.
+//     frame's 12 planes go out in rows of mostly whole 32-byte sectors;
+//     the constraint route plans as without ee.
 //   * Activity skip: the lanes go over the block's active candidates only
 //     (a ballot of the mask), so masked rows cost no FK; they are written
 //     as zeros.
@@ -82,6 +86,15 @@
 //     (the position constraint applies it): 48 bytes of stores per
 //     (candidate, waypoint) and no arithmetic, so q_obs and margin are the
 //     same with or without it.
+//   * The constraint route (constraint_cost below) is what the ee frame's
+//     one consumer, the solver's constraint tail (costs/constraints.py
+//     constraint_cost_tm), computes from it, run on the (R, p) still in
+//     registers: one plane of 4 bytes per (candidate, waypoint) goes out
+//     instead of twelve, the block stages 3 planes instead of 14 (so the
+//     lane plan and residency are those without ee), and the tail's ~30
+//     elementwise passes over [T, C] are gone from the solver's loop. Its
+//     arithmetic runs after the costs' and touches none of their
+//     registers, so q_obs and margin are again the same with or without it.
 // The arithmetic per (candidate, waypoint) is the segment plan's, operation
 // for operation and body for body, so q_obs and margin are bitwise those of
 // the kernels this replaced. cp.async / TMA for the joint tile is not used:
@@ -116,6 +129,11 @@
 //     4 per sphere (center[3], radius), then 6 per box (center[3], half[3]),
 //     then for grid worlds the grid origin[3] and resolution. A per-row
 //     world holds no primitives here (ns = nx = 0 in this section).
+//   the last kConFloats*n_con floats: the constraint section (constraint
+//     route only), kConFloats per constraint: type (0 orientation, 1
+//     position), a[3], b[3], tolerance, weight; an orientation constraint's
+//     a is its axis_local and b its target_world, a position constraint's
+//     a is the robot's ee_offset and b its target_world.
 
 #pragma once
 
@@ -136,6 +154,7 @@ constexpr int kParamFloats = 768;      // the parameter block: 3 KB, within
                                        // the classic 4 KB of kernel parameters
 constexpr int kAny = -1;               // a primitive count known at run time
 constexpr int kRowFloats = 16;         // a staged per-row world, at most
+constexpr int kConFloats = 9;          // a constraint in the parameters
 constexpr float kBig = 1e6f;           // empty-set distance, as the reference
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -348,7 +367,9 @@ struct Shape {
   float* q_obs;                 // [T, C]
   float* margin_part;           // [n_slab, C]
   float* ee;                    // [12, T, C] or nullptr
+  float* q_con;                 // [T, C] or nullptr: the constraint route
   int C, T, n_params, cpb, n_slab;
+  int n_con;                    // constraints: the parameters' last section
   float dt, clearance;
 };
 
@@ -370,17 +391,18 @@ struct Slab {
 // Shared memory of one block, in floats, for the largest slab (L owned
 // rows and both halos): the staged parameters (memory path), the joint tile
 // [d][cpb][n_seq], the cost and margin rows [cpb][opitch], the staged
-// per-row worlds [kMaxCands][kRowFloats], the active slots and mask, and
-// with ee the frame [12][cpb][opitch] (opitch = n_own | 1: odd, few bank
-// conflicts). kernels/rollout.py _smem_floats is the same.
+// per-row worlds [kMaxCands][kRowFloats], the active slots and mask, then
+// with ee the frame [12][cpb][opitch] and with the constraint route the
+// q_con rows [cpb][opitch] (opitch = n_own | 1: odd, few bank conflicts).
+// kernels/rollout.py _smem_floats is the same.
 inline size_t smem_floats(int staged_params, int d, int cpb, int T,
-                          int n_slab, bool ee) {
+                          int n_slab, bool ee, bool con) {
   const int L = (T + n_slab - 1) / n_slab;
   const size_t n_seq = n_slab == 1 ? T : (L + 2 < T ? L + 2 : T);
   const size_t opitch = L | 1;
   return (size_t)((staged_params + 31) & ~31) + (size_t)d * cpb * n_seq
-         + (2 + (ee ? 12 : 0)) * cpb * opitch + kMaxCands * kRowFloats
-         + kMaxCands + 2;
+         + (2 + (ee ? 12 : 0) + (con ? 1 : 0)) * cpb * opitch
+         + kMaxCands * kRowFloats + kMaxCands + 2;
 }
 
 // ---- Joint chains -----------------------------------------------------------
@@ -726,6 +748,58 @@ struct BodyCost {
   }
 };
 
+// The constraint route: the summed cost of the n_con constraints in K
+// (kConFloats each, the parameters' constraint section) at one waypoint's
+// end-effector frame (R, p), in the operation order of the plain tail
+// (costs/constraints.py _cost_from_frame):
+//   orientation: ach = R·a, cos = clamp(ach·b, -1, 1),
+//                excess = max(acos(cos) - tolerance, 0);
+//   position:    rel = p + R·a - b, excess = max(sqrt(rel·rel) - tolerance, 0);
+// each adds weight·excess², from 0 in the constraints' order. Every product,
+// sum and difference is rounded on its own (__fmul_rn, __fadd_rn,
+// __fsub_rn: no FMA contraction), so on the same frame the route differs
+// from the plain tail only by acosf against torch's arccos (a few ULP;
+// sqrtf is IEEE-rounded in both).
+__device__ __forceinline__ float dot3(float x0, float x1, float x2,
+                                      float y0, float y1, float y2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(x0, y0), __fmul_rn(x1, y1)),
+                   __fmul_rn(x2, y2));
+}
+
+__device__ __forceinline__ float constraint_cost(const float* K, int n_con,
+                                                 const float (&R)[9],
+                                                 const float (&p)[3]) {
+  float total = 0.0f;
+  for (int k = 0; k < n_con; ++k) {
+    const float* c = K + kConFloats * k;
+    const float a0 = c[1], a1 = c[2], a2 = c[3];
+    float excess;
+    if (c[0] == 0.0f) {
+      const float ach0 = dot3(R[0], R[1], R[2], a0, a1, a2);
+      const float ach1 = dot3(R[3], R[4], R[5], a0, a1, a2);
+      const float ach2 = dot3(R[6], R[7], R[8], a0, a1, a2);
+      const float cosang =
+          fminf(fmaxf(dot3(ach0, ach1, ach2, c[4], c[5], c[6]), -1.0f),
+                1.0f);
+      excess = fmaxf(__fsub_rn(acosf(cosang), c[7]), 0.0f);
+    } else {
+      float rel[3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        rel[i] = __fsub_rn(
+            __fadd_rn(__fadd_rn(__fadd_rn(p[i], __fmul_rn(R[3 * i], a0)),
+                                __fmul_rn(R[3 * i + 1], a1)),
+                      __fmul_rn(R[3 * i + 2], a2)),
+            c[4 + i]);
+      const float dist = sqrtf(dot3(rel[0], rel[1], rel[2], rel[0], rel[1],
+                                    rel[2]));
+      excess = fmaxf(__fsub_rn(dist, c[7]), 0.0f);
+    }
+    total = __fadd_rn(total, __fmul_rn(c[8], __fmul_rn(excess, excess)));
+  }
+  return total;
+}
+
 // The kernel body; launched as a grid of (ceil(C / cpb), n_slab) blocks of
 // kBlock threads. World is a policy with stage() and
 //   __device__ Dist at(const float* W, int c, const float* row) const
@@ -821,12 +895,22 @@ __device__ __forceinline__ void evaluate(const World& world,
 #pragma unroll
         for (int k = 0; k < 9; ++k) e[(3 + k) * plane] = R[k];
       }
+      if (s.q_con != nullptr) {
+        // the constraint section ends the parameters; q_con's rows follow
+        // the frame's (none without ee). Both pointers are formed here,
+        // not before the loop, where they held registers across the walk
+        // and made a runtime-chain composite instantiation spill.
+        const float* K = P + s.n_params - kConFloats * s.n_con;
+        float* c_st = ee_st + (s.ee != nullptr ? 12 * cpb * opitch : 0);
+        c_st[o] = constraint_cost(K, s.n_con, R, p);
+      }
     }
   }
   __syncthreads();
 
   // the owned rows, cpb candidates a row; inactive columns are zeros
   const size_t plane = (size_t)T * C;
+  const float* c_st = ee_st + (s.ee != nullptr ? 12 * cpb * opitch : 0);
   if (r0 < r_step && cc < n_c) {
     for (int r = r0; r < n_own; r += r_step) {
       const size_t o = (size_t)(sl.t_lo + r) * C + c0 + cc;
@@ -835,6 +919,7 @@ __device__ __forceinline__ void evaluate(const World& world,
       if (s.ee != nullptr)
         for (int k = 0; k < 12; ++k)
           s.ee[k * plane + o] = mine ? ee_st[k * cpb * opitch + so] : 0.0f;
+      if (s.q_con != nullptr) s.q_con[o] = mine ? c_st[so] : 0.0f;
     }
   }
   // warp w: the margins over the slab of candidates c0 + w, c0 + w + 8, ..
@@ -878,7 +963,8 @@ inline int launch_plan(Kernel kernel, int staged_params, int d,
                        Args&&... args) {
   if (s.C <= 0) return 0;
   const size_t smem = smem_floats(staged_params, d, s.cpb, s.T, s.n_slab,
-                                  s.ee != nullptr) * sizeof(float);
+                                  s.ee != nullptr, s.q_con != nullptr)
+                      * sizeof(float);
   const int err = prepare(kernel, smem, s);
   if (err != 0) return err;
   if (resident != nullptr)

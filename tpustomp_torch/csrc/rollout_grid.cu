@@ -16,9 +16,11 @@
 //       as rollout_analytic.cu's per-row worlds are (rollout_common.cuh
 //       RowPrims); the grid stays shared.
 // Both entry points also write the end-effector frame when given an ee
-// buffer (rollout_common.cuh). The TPU's grid path has no such output (the
-// JAX package runs a second, vmapped FK for constraints over voxel worlds);
-// here the frame comes out of the same FK.
+// buffer, or the constraints' cost when given a q_con buffer (the
+// constraint route, rollout_common.cuh). The TPU's grid path has no such
+// output (the JAX package runs a second, vmapped FK for constraints over
+// voxel worlds); here the frame, and the constraints' cost on it, come out
+// of the same FK.
 // The TPU split exists only because Mosaic has no arbitrary gather; here the
 // trilinear sample sits inside the fused loop of rollout_common.cuh, and no
 // [B, 4, C, T] intermediate exists.
@@ -190,13 +192,14 @@ extern "C" int rollout_grid_launch(
     const float* cand, const float* params, int n_params, int host_params,
     const float* grid, const float* packed, int X, int Y, int Z, float hi0,
     float hi1, float hi2, int composite, const uint8_t* active, float* q_obs,
-    float* margin_part, float* ee, int C, int T, int d, int nb, int ns,
-    int nx, float dt, float clearance, int skip_rotf, int cpb, int n_slab,
-    void* stream, int* resident) {
+    float* margin_part, float* ee, float* q_con, int C, int T, int d, int nb,
+    int ns, int nx, int n_con, float dt, float clearance, int skip_rotf,
+    int cpb, int n_slab, void* stream, int* resident) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
-  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
-                         n_params, cpb, n_slab, dt, clearance};
+  const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
+                         q_con, C,      T,     n_params,    cpb,
+                         n_slab, n_con, dt,    clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
@@ -217,13 +220,14 @@ extern "C" int rollout_grid_rows_launch(
     const float* grid, const float* packed, int X, int Y, int Z, float hi0,
     float hi1, float hi2, const float* spheres, const float* boxes,
     int cands_per_row, const uint8_t* active, float* q_obs,
-    float* margin_part, float* ee, int C, int T, int d, int nb, int ns,
-    int nx, float dt, float clearance, int skip_rotf, int cpb, int n_slab,
-    void* stream, int* resident) {
+    float* margin_part, float* ee, float* q_con, int C, int T, int d, int nb,
+    int ns, int nx, int n_con, float dt, float clearance, int skip_rotf,
+    int cpb, int n_slab, void* stream, int* resident) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
-  const rollout::Shape s{cand, active, q_obs, margin_part, ee, C, T,
-                         n_params, cpb, n_slab, dt, clearance};
+  const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
+                         q_con, C,      T,     n_params,    cpb,
+                         n_slab, n_con, dt,    clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {

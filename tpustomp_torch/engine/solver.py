@@ -55,7 +55,7 @@ import torch
 from tpustomp_torch._tensors import map_tensors
 from tpustomp_torch.api.config import PlannerConfig, check_supported
 from tpustomp_torch.api.problem import IterationMetrics, Solution
-from tpustomp_torch.costs.constraints import as_tuple, constraint_cost_tm
+from tpustomp_torch.costs.constraints import as_tuple
 from tpustomp_torch.costs.smoothness import (smoothness_cost,
                                              smoothness_cost_per_timestep_tm)
 from tpustomp_torch.costs.torque import torque_cost
@@ -148,12 +148,13 @@ def _check_fp32_matmul(device: torch.device) -> None:
 
 def _obstacle_rows(robot, world, cfg: PlannerConfig, fulls, row_active=None,
                    time_major: bool = False, cands_per_row=None,
-                   want_ee: bool = False):
+                   constraints=()):
     """The evaluator (kernels/rollout.obstacle_cost_batch: the CUDA kernel
-    for CUDA tensors, its plain version on the CPU), with the end-effector
-    frame when want_ee. obstacle_backend="xla" names the plain path, so it
-    is refused off the CPU: the card never silently runs without the
-    kernel."""
+    for CUDA tensors, its plain version on the CPU): (q_obs, margin), and
+    the constraints' cost rows q_con when there are constraints (a tuple:
+    the kernels' constraint route). obstacle_backend="xla" names the plain
+    path, so it is refused off the CPU: the card never silently runs
+    without the kernel."""
     if cfg.obstacle_backend == "xla" and fulls.device.type != "cpu":
         raise ValueError("obstacle_backend='xla' selects the plain "
                          "evaluator, which runs on the CPU only; use 'auto' "
@@ -161,7 +162,17 @@ def _obstacle_rows(robot, world, cfg: PlannerConfig, fulls, row_active=None,
     return obstacle_cost_batch(robot, world, fulls, cfg.dt,
                                cfg.collision_clearance,
                                row_active=row_active, time_major=time_major,
-                               cands_per_row=cands_per_row, want_ee=want_ee)
+                               cands_per_row=cands_per_row,
+                               constraints=constraints or None)
+
+
+def _add_weighted(S: torch.Tensor, q: torch.Tensor, w: float) -> torch.Tensor:
+    """S + w·q. One launch on the card (torch.add's alpha); on the CPU w·q
+    is rounded before the sum, as the reference computes it, where
+    torch.add's alpha would fuse a multiply-add."""
+    if S.device.type == "cpu":
+        return S + w * q
+    return torch.add(S, q, alpha=w)
 
 
 def init_state(robot: RobotSpec, cfg: PlannerConfig, q0: torch.Tensor,
@@ -257,9 +268,10 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
     evaluator's time-major layout. Returns step(state, iteration) -> state;
     `iteration` is the batch loop's count, handed to noise_fn.
     world_batched: the world has one row per scenario (world_rows == B).
-    constraints: their cost rows come from the evaluator's end-effector
-    frame (the reference's time-major path); a torque weight adds the RNE
-    rows of every candidate (as its scenario-major path does).
+    constraints: their cost rows come from the evaluator (its constraint
+    route: the reference's time-major path on the end-effector frame, in
+    the kernel); a torque weight adds the RNE rows of every candidate (as
+    its scenario-major path does).
     hyper: per-scenario noise_scale / h / decay (HyperParams), or None for
     the config's values."""
     cons = as_tuple(constraints)
@@ -320,15 +332,15 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
             robot, world, cfg, full,
             row_active=active[:, None].expand(B, C).reshape(B * C),
             time_major=True, cands_per_row=C if world_batched else None,
-            want_ee=bool(cons))
+            constraints=cons)
         q_obs = outs[0].reshape(B, C, T)
         margins = outs[1].reshape(B, C)
         ctrl_all = smoothness_cost_per_timestep_tm(ops, cand_tm, Q0, QN)
         S_all = w_obs * q_obs
         q_con = None
         if cons:
-            q_con = constraint_cost_tm(robot, cons, outs[2]).reshape(B, C, T)
-            S_all = S_all + w_con * q_con
+            q_con = outs[2].reshape(B, C, T)
+            S_all = _add_weighted(S_all, q_con, w_con)
         if w_tau > 0.0:
             S_all = S_all + w_tau * torque_cost(
                 robot, full.permute(2, 1, 0), cfg.dt).reshape(B, C, T)
@@ -404,21 +416,20 @@ def _evaluate(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
               ops: DeviceOps, Q0, QN, theta, row_active=None):
     """The reference's per-trajectory ``_evaluate`` for B trajectories at
     once, theta [B, N, d]: ONE evaluator call over the B rows (with the
-    end-effector frame when there are constraints). Returns (full
+    constraint route when there are constraints). Returns (full
     trajectories [B, T, d], total cost [B], margin [B], (obstacle,
     smoothness, constraint) sums [B]). A world with B rows evaluates each
     trajectory against its own row. row_active as for the evaluator."""
     cons = as_tuple(constraints)
     fulls = full_trajectory(theta, Q0, QN)                        # [B, T, d]
     outs = _obstacle_rows(robot, world, cfg, fulls, row_active=row_active,
-                          want_ee=bool(cons))
+                          constraints=cons)
     q_obs, margin = outs[0], outs[1]
     S = cfg.weights.obstacle * q_obs
     q_con_sum = torch.zeros_like(margin)
     if cons:
-        q_con = constraint_cost_tm(robot, cons, outs[2])
-        S = S + cfg.weights.constraint * q_con
-        q_con_sum = torch.sum(q_con, dim=1)
+        S = _add_weighted(S, outs[2], cfg.weights.constraint)
+        q_con_sum = torch.sum(outs[2], dim=1)
     if cfg.weights.torque > 0.0:
         S = S + cfg.weights.torque * torque_cost(robot, fulls, cfg.dt)
     ctrl = smoothness_cost(ops, theta, Q0, QN)

@@ -42,8 +42,13 @@ shared library with a plain C interface at first use, into
 Every variant has an ``:ee`` form (K3 with ``ee_out=True``): the same
 launch with an end-effector frame output ``ee [12, T, C]`` (rows 0-2 the
 last joint's position, 3-11 its rotation, row-major; zeros on inactive
-rows), which Cartesian constraints read (costs/constraints.py
-``constraint_cost_tm``). Asking for it changes neither q_obs nor margin.
+rows), from which costs/constraints.py ``constraint_cost_tm`` computes
+Cartesian constraints' cost. Every variant also has a ``:con`` form, the
+constraint route the solver takes: the same launch with the constraints'
+parameters appended to its parameters (:func:`pack_params`) and that cost,
+``q_con [C, T]``, computed on the frame in registers and written as one
+plane instead of the frame's twelve. Asking for either changes neither
+q_obs nor margin.
 
 The joint chain (the TPU kernels' ``static_joints``, :355, :372-391,
 :536-571). A robot with ``joint_static`` and ``body_counts`` runs its static
@@ -60,7 +65,7 @@ as on the TPU (:944-945), never a fallback.
   the CPU. For CUDA tensors it launches a kernel, or raises; it never falls
   back. ``LAUNCHES`` counts each kernel variant's launches: ``<variant>`` on
   the static chain, ``<variant>:runtime`` on the runtime chain, each with
-  its ``:ee`` form.
+  its ``:ee`` and its ``:con`` form.
 """
 
 from __future__ import annotations
@@ -83,6 +88,8 @@ import numpy as np
 import torch
 
 from tpustomp_torch._tensors import host_mirror
+from tpustomp_torch.costs.constraints import (OrientationConstraint, as_tuple,
+                                              constraint_cost_tm)
 from tpustomp_torch.costs.obstacle import obstacle_cost
 from tpustomp_torch.robot.fk import fk_frames
 from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
@@ -92,11 +99,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (cand, params, n_params, host_params): the arguments every entry point
 # starts with; params is a host pointer when host_params is 1
 _HEAD = [_P, _P, _I, _I]
-# (active, q_obs, margin_part, ee, C, T, d, nb, ns, nx, dt, clearance,
-#  skip_rotf, cpb, n_slab, stream, resident): the arguments every entry
-# point ends with; resident is null on a launch (rollout_occupancy: an int
-# the call fills instead of launching)
-_TAIL = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P]
+# (active, q_obs, margin_part, ee, q_con, C, T, d, nb, ns, nx, n_con, dt,
+#  clearance, skip_rotf, cpb, n_slab, stream, resident): the arguments every
+# entry point ends with; resident is null on a launch (rollout_occupancy: an
+# int the call fills instead of launching)
+_TAIL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+         _P, _P]
 _GRID = [_P, _P, _I, _I, _I, _F, _F, _F]      # grid, packed, X, Y, Z, hi[3]
 _ROWS = [_P, _P, _I]                          # spheres, boxes, cands_per_row
 # kernel variant -> (source in csrc/, C entry point, its argument types)
@@ -116,14 +124,20 @@ _SOURCES = ("rollout_analytic", "rollout_grid")
 
 # Kernel launches per kernel variant since import (or reset_launches()):
 # "<variant>" on a robot's static chain, "<variant>:runtime" on the runtime
-# chain; a launch that also writes the end-effector frame adds ":ee".
-LAUNCHES = {name + chain + ee: 0 for name in _ENTRIES
-            for chain in ("", ":runtime") for ee in ("", ":ee")}
+# chain; a launch that also writes the end-effector frame adds ":ee", one
+# that writes the constraints' cost (the constraint route) ":con".
+LAUNCHES = {name + chain + form: 0 for name in _ENTRIES
+            for chain in ("", ":runtime") for form in ("", ":ee", ":con")}
 # Launches by where their parameters lived: "block", the kernel parameter
 # block filled on the host, or "memory", staged from device memory (a robot
 # or world without host mirrors, or above _PARAM_FLOATS); reset with
 # LAUNCHES.
 PARAM_ROUTES = {"block": 0, "memory": 0}
+# Launches by the layout the candidates came in: "time_major" ([d, T, C],
+# the kernels' own) or "candidate_major" ([C, T, d], permuted on the device
+# first: the TPU's K4, which the solver's finalize takes); reset with
+# LAUNCHES.
+LAYOUTS = {"time_major": 0, "candidate_major": 0}
 # Seconds of each library's first build in this process, by (source, chain).
 BUILD_SECONDS: dict[tuple, float] = {}
 
@@ -143,6 +157,8 @@ _CORE = _WARP - 2
 _MAX_CANDS = 16
 _ROW_FLOATS = 16
 _PARAM_FLOATS = 768
+# A constraint in the parameters' constraint section (kConFloats)
+_CON_FLOATS = 9
 # Resident blocks per SM the plan counts on (csrc/rollout_common.cuh
 # kernel_min_blocks of the main instantiations): a batch that would fill
 # fewer than this many blocks on every SM takes fewer candidates a block,
@@ -152,8 +168,9 @@ _FILL_PER_SM = 4
 _SMS = 132
 # Shared memory a block may take, in floats: 32 KB, so that four blocks an
 # SM leave L1 to the grid's gathers (a 51 KB block made the dense grid 1.3x
-# slower); with the ee frame 72 KB, three blocks an SM, which holds 8
-# candidates a block at T = 102 (69 KB) and 9 at T = 52 (40 KB).
+# slower; the constraint route's one extra plane fits it: 30 KB at T = 102);
+# with the ee frame 72 KB, three blocks an SM, which holds 8 candidates a
+# block at T = 102 (69 KB) and 9 at T = 52 (40 KB).
 _SMEM_BUDGET = 32 * 1024 // 4
 _SMEM_BUDGET_EE = 72 * 1024 // 4
 # With the ee frame a block takes at least this many candidates where the
@@ -173,7 +190,7 @@ _HOST_PARAMS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PARAM_ROUTES):
+    for counts in (LAUNCHES, PARAM_ROUTES, LAYOUTS):
         for name in counts:
             counts[name] = 0
 
@@ -329,13 +346,15 @@ def _world_parts(world):
     return grid, prims
 
 
-def pack_params(robot, world) -> torch.Tensor:
+def pack_params(robot, world, constraints=()) -> torch.Tensor:
     """Robot + world parameters as the kernels' packed float32 vector (layout
     in the header of csrc/rollout_common.cuh), on the robot's device: the
     memory path's parameters (:func:`_host_params` runs it on the host
     copies for the parameter block). A world with a row axis
     contributes only its grid's origin and resolution: its primitives go to
-    the kernel as their own arrays (_prim_arrays)."""
+    the kernel as their own arrays (_prim_arrays). `constraints` (a tuple,
+    as costs/constraints.py as_tuple) append the constraint route's
+    section, _CON_FLOATS each."""
     d = robot.num_joints
     dev = robot.joint_axis.device
     f32 = torch.float32
@@ -372,6 +391,14 @@ def pack_params(robot, world) -> torch.Tensor:
     if grid is not None:
         parts += [grid.origin.to(f32).reshape(3),
                   grid.resolution.to(f32).reshape(1)]
+    for c in constraints:
+        orient = isinstance(c, OrientationConstraint)
+        parts += [torch.full((1,), 0.0 if orient else 1.0, dtype=f32,
+                             device=dev),
+                  (c.axis_local if orient else robot.ee_offset).to(
+                      f32).reshape(3),
+                  c.target_world.to(f32).reshape(3),
+                  c.tolerance.to(f32).reshape(1), c.weight.to(f32).reshape(1)]
     return torch.cat(parts).contiguous()
 
 
@@ -387,15 +414,15 @@ def _slab(T: int, n_slab: int, s: int):
 
 
 def _smem_floats(staged: int, d: int, cpb: int, T: int, n_slab: int,
-                 ee: bool) -> int:
+                 ee: bool, con: bool = False) -> int:
     """A block's shared memory in floats (csrc/rollout_common.cuh
     smem_floats): staged parameters, the joint tile of the largest slab,
     the cost and margin rows, the staged per-row worlds, the slots, the ee
-    frame."""
+    frame, the constraint route's q_con rows."""
     L = -(-T // n_slab)
     n_seq = T if n_slab == 1 else min(L + 2, T)
     return (((staged + 31) & ~31) + d * cpb * n_seq
-            + (2 + (12 if ee else 0)) * cpb * (L | 1)
+            + (2 + (12 if ee else 0) + (1 if con else 0)) * cpb * (L | 1)
             + _MAX_CANDS * _ROW_FLOATS + _MAX_CANDS + 2)
 
 
@@ -411,7 +438,7 @@ def _slots(cpb: int, T: int, n_slab: int) -> int:
 
 
 def _plan(C: int, T: int, d: int, ee: bool = False, staged: int = 0,
-          sms: int = _SMS) -> tuple[int, int]:
+          sms: int = _SMS, con: bool = False) -> tuple[int, int]:
     """The kernels' lane plan: (cpb, n_slab). A block holds cpb consecutive
     candidates and one of n_slab slabs of the waypoint axis; grid
     (ceil(C / cpb), n_slab). n_slab is 1 unless one candidate's tile would
@@ -423,15 +450,16 @@ def _plan(C: int, T: int, d: int, ee: bool = False, staged: int = 0,
     card's `sms` SMs (a small batch takes fewer candidates a block, so its
     warps stay about one window deep); with ee, among those of at least
     _MIN_CANDS_EE where there are any. `staged`: parameters staged in
-    shared memory (the memory path)."""
+    shared memory (the memory path). The constraint route (`con`: one more
+    staged plane) plans as without ee."""
     budget = _SMEM_BUDGET_EE if ee else _SMEM_BUDGET
     n_slab, n = 1, 1
     while (n_slab < T
-           and _smem_floats(staged, d, 1, T, n_slab, ee) > budget):
+           and _smem_floats(staged, d, 1, T, n_slab, ee, con) > budget):
         n += 1
         n_slab = -(-T // -(-T // n))      # slabs of ceil(T / n), none empty
     fits = [c for c in range(1, _MAX_CANDS + 1)
-            if _smem_floats(staged, d, c, T, n_slab, ee) <= budget]
+            if _smem_floats(staged, d, c, T, n_slab, ee, con) <= budget]
     fill = [c for c in fits if -(-C // c) >= _FILL_PER_SM * sms] or [1]
     if ee:
         fill = [c for c in fill if c >= _MIN_CANDS_EE] or fill
@@ -439,30 +467,37 @@ def _plan(C: int, T: int, d: int, ee: bool = False, staged: int = 0,
     return cpb, n_slab
 
 
-def _host_params(robot, world, shared: bool):
+def _host_params(robot, world, shared: bool, constraints=()):
     """pack_params's vector, as numpy float32, from the host mirrors of the
-    robot's and the world's tensors (_tensors.host_mirror): the kernel's
-    parameter block. None when a tensor has no mirror (made on the device,
-    or changed in place since it was moved) or the vector exceeds
-    _PARAM_FLOATS: the launch then takes the memory path. `shared`: the
-    world's primitives go in too (not for a world with a row axis). Cached
-    per set of tensors: a hit needs the very tensors, alive, at the same
-    versions."""
+    robot's, the world's and the constraints' tensors
+    (_tensors.host_mirror): the kernel's parameter block. None when a
+    tensor has no mirror (made on the device, or changed in place since it
+    was moved) or the vector exceeds _PARAM_FLOATS: the launch then takes
+    the memory path. `shared`: the world's primitives go in too (not for a
+    world with a row axis). `constraints` (a tuple): the constraint route's
+    section. Cached per set of tensors: a hit needs the very tensors,
+    alive, at the same versions."""
     grid, prims = _world_parts(world)
     names = ["base_rot", "base_pos", "joint_type", "joint_axis",
              "joint_offset", "joint_rot", "body_offset", "body_radius"]
     if robot.body_counts is None:
         names.append("body_link")
+    orient = tuple(isinstance(c, OrientationConstraint) for c in constraints)
+    if not all(orient):
+        names.append("ee_offset")       # the position constraints' tool point
     parts = {"robot": (robot, names)}
     if shared and prims is not None:
         parts["prims"] = (prims, ["sphere_center", "sphere_radius",
                                   "box_center", "box_half"])
     if grid is not None:
         parts["grid"] = (grid, ["origin", "resolution"])
+    for i, (c, o) in enumerate(zip(constraints, orient)):
+        parts[f"con{i}"] = (c, ["axis_local"] * o + [
+            "target_world", "tolerance", "weight"])
     tensors = [getattr(obj, n) for obj, fields in parts.values()
                for n in fields]
-    key = (robot.body_counts, shared, grid is not None,
-           prims is not None) + tuple(id(t) for t in tensors)
+    key = (robot.body_counts, shared, grid is not None, prims is not None,
+           orient) + tuple(id(t) for t in tensors)
     hit = _HOST_PARAMS.get(key)
     if hit is not None:
         refs, versions, out = hit
@@ -483,7 +518,8 @@ def _host_params(robot, world, shared: bool):
     h_world = (h_prims if grid is None else cpu["grid"] if prims is None
                else dataclasses.replace(world, grid=cpu["grid"],
                                         overlay=h_prims))
-    out = pack_params(cpu["robot"], h_world).numpy()
+    out = pack_params(cpu["robot"], h_world, tuple(
+        cpu[f"con{i}"] for i in range(len(constraints)))).numpy()
     if out.size > _PARAM_FLOATS:
         out = None
     _HOST_PARAMS[key] = (tuple(weakref.ref(t) for t in tensors),
@@ -522,15 +558,30 @@ def ee_frames(robot, fulls: torch.Tensor) -> torch.Tensor:
     return frame.permute(2, 1, 0).contiguous()
 
 
+def _con_args(constraints, want_ee: bool):
+    """The constraints as a tuple (as_tuple), or None for no constraint
+    route; refuses asking for both routes."""
+    if constraints is None:
+        return None
+    if want_ee:
+        raise ValueError("want_ee and constraints are exclusive: the "
+                         "constraint route computes the cost on the frame "
+                         "instead of writing it")
+    return as_tuple(constraints)
+
+
 def obstacle_cost_batch_plain(robot, world, full_trajs: torch.Tensor,
                               dt: float, clearance: float,
                               time_major: bool = False, cands_per_row=None,
-                              want_ee: bool = False):
+                              want_ee: bool = False, constraints=None):
     """The plain PyTorch version of the kernels: body_positions_traj → sdf →
     potential × speed (costs/obstacle.py). full_trajs [C, T, d], or
     [d, T, C] with time_major=True -> (q_obs [C, T], margin [C]), plus
-    ee [12, T, C] (:func:`ee_frames`) with want_ee=True. A world with R
-    rows is broadcast over its rows' candidates, not repeated."""
+    ee [12, T, C] (:func:`ee_frames`) with want_ee=True, or with
+    `constraints` (not None) their cost on that frame, q_con [C, T]
+    (costs/constraints.py constraint_cost_tm). A world with R rows is
+    broadcast over its rows' candidates, not repeated."""
+    cons = _con_args(constraints, want_ee)
     fulls = full_trajs.permute(2, 1, 0) if time_major else full_trajs
     C, T, d = fulls.shape
     per = _cands_per_row(world, C, cands_per_row)
@@ -540,13 +591,15 @@ def obstacle_cost_batch_plain(robot, world, full_trajs: torch.Tensor,
         q, m = obstacle_cost(robot, world, fulls.reshape(C // per, per, T, d),
                              dt, clearance)
         q, m = q.reshape(C, T), m.reshape(C)
+    if cons is not None:
+        return q, m, constraint_cost_tm(robot, cons, ee_frames(robot, fulls))
     return (q, m, ee_frames(robot, fulls)) if want_ee else (q, m)
 
 
 def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
                         clearance: float, row_active=None,
                         time_major: bool = False, cands_per_row=None,
-                        want_ee: bool = False):
+                        want_ee: bool = False, constraints=None):
     """Batched obstacle cost, the contract of the JAX package's
     ``obstacle_cost_batch_pallas``: an AnalyticWorld, a GridSDF or a
     CompositeWorld, shared by every candidate or with a row axis on its
@@ -555,14 +608,20 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
     full_trajs: [C, T, d], or the time-major [d, T, C] with time_major=True
     (the layout the kernels read; the batched solver builds it directly).
     Returns (q_obs [C, T], margin [C]); with want_ee=True also the
-    end-effector frame ee [12, T, C] (the ``:ee`` form of the kernel).
+    end-effector frame ee [12, T, C] (the ``:ee`` form of the kernel); with
+    `constraints` (None, one OrientationConstraint / PositionConstraint or
+    a tuple of them; not None takes this route) instead their summed cost
+    on that frame, q_con [C, T] (the ``:con`` form: the constraint route,
+    costs/constraints.py constraint_cost_tm in the kernel). The two are
+    exclusive.
 
     A world with R rows evaluates candidate c against row
     c // cands_per_row; R * cands_per_row must be C. cands_per_row=None is
     1: every candidate its own world.
 
     row_active: optional [C] bool. Rows whose flag is False MAY come back as
-    zeros, ee included (the kernels skip them); callers must discard them.
+    zeros, ee and q_con included (the kernels skip them); callers must
+    discard them.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel of
     the world's kind on the robot's chain (:func:`chain_of`), or raise —
@@ -576,27 +635,31 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
     dev = full_trajs.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
+    cons = _con_args(constraints, want_ee)
     grid, prims = _world_parts(world)
     C = full_trajs.shape[-1 if time_major else 0]
     per = _cands_per_row(world, C, cands_per_row)
     for name, t in (("robot", robot.joint_axis),
                     ("grid", None if grid is None else grid.grid),
-                    ("world", None if prims is None else prims.box_half)):
+                    ("world", None if prims is None else prims.box_half),
+                    *(("constraint", c.target_world) for c in cons or ())):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} tensors are on {t.device}, "
                              f"trajectories on {dev}")
     if dev.type == "cpu":
         return obstacle_cost_batch_plain(robot, world, full_trajs, dt,
                                          clearance, time_major=time_major,
-                                         cands_per_row=per, want_ee=want_ee)
+                                         cands_per_row=per, want_ee=want_ee,
+                                         constraints=cons)
     return _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
-                   row_active, time_major, want_ee, chain_of(robot))
+                   row_active, time_major, want_ee, chain_of(robot),
+                   cons=cons)
 
 
 def rollout_occupancy(robot, world, full_trajs: torch.Tensor, dt: float,
                       clearance: float, row_active=None,
                       time_major: bool = False, cands_per_row=None,
-                      want_ee: bool = False) -> int:
+                      want_ee: bool = False, constraints=None) -> int:
     """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
     of the kernel :func:`obstacle_cost_batch` launches for these CUDA
     arguments, at its plan's shared memory; launches nothing and counts
@@ -606,7 +669,8 @@ def rollout_occupancy(robot, world, full_trajs: torch.Tensor, dt: float,
     per = _cands_per_row(world, C, cands_per_row)
     resident = ctypes.c_int(0)
     _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
-            row_active, time_major, want_ee, chain_of(robot), resident)
+            row_active, time_major, want_ee, chain_of(robot), resident,
+            _con_args(constraints, want_ee))
     return resident.value
 
 
@@ -644,9 +708,10 @@ def _packed_table(grid, g):
 
 
 def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
-            row_active, time_major, want_ee, chain, resident=None):
+            row_active, time_major, want_ee, chain, resident=None, cons=None):
     """One launch of the library of `chain` (:func:`chain_of`; None: the
-    runtime chain); with `resident` (a ctypes int) the occupancy query of
+    runtime chain), with the constraint route when `cons` is a tuple;
+    with `resident` (a ctypes int) the occupancy query of
     :func:`rollout_occupancy` instead."""
     source = "rollout_analytic" if grid is None else "rollout_grid"
     entry_name = source
@@ -666,12 +731,12 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
         raise ValueError("need at least 2 waypoints (workspace speed)")
     dev = cand.device
     # the parameter block from the host mirrors, else the memory path
-    host = _host_params(robot, world, per is None)
+    host = _host_params(robot, world, per is None, cons or ())
     if host is not None:
         head = (cand.data_ptr(), host.ctypes.data, host.size, 1)
         staged, route = 0, "block"
     else:
-        params = pack_params(robot, world)
+        params = pack_params(robot, world, cons or ())
         head = (cand.data_ptr(), params.data_ptr(), params.numel(), 0)
         staged, route = params.numel(), "memory"
     active = None
@@ -681,18 +746,23 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
         active = (row_active.contiguous().view(torch.uint8)
                   if row_active.dtype == torch.bool
                   else row_active.to(torch.uint8).contiguous())
-    cpb, n_slab = _plan(C, T, d, want_ee, staged, _sm_count(dev.index))
+    cpb, n_slab = _plan(C, T, d, want_ee, staged, _sm_count(dev.index),
+                        con=cons is not None)
     q_obs = torch.empty((T, C), dtype=torch.float32, device=dev)
     margin_part = torch.empty((n_slab, C), dtype=torch.float32, device=dev)
     ee = (torch.empty((12, T, C), dtype=torch.float32, device=dev)
           if want_ee else None)
+    q_con = (None if cons is None
+             else torch.empty((T, C), dtype=torch.float32, device=dev))
     ns = 0 if prims is None else prims.sphere_radius.shape[-1]
     nx = 0 if prims is None else prims.box_half.shape[-2]
     tail = (None if active is None else active.data_ptr(),
             q_obs.data_ptr(), margin_part.data_ptr(),
-            None if ee is None else ee.data_ptr(), C, T, d,
-            robot.num_bodies, ns, nx, float(dt), float(clearance),
-            int(bool(robot.rot_fixed_identity)), cpb, n_slab)
+            None if ee is None else ee.data_ptr(),
+            None if q_con is None else q_con.data_ptr(), C, T, d,
+            robot.num_bodies, ns, nx, len(cons or ()), float(dt),
+            float(clearance), int(bool(robot.rot_fixed_identity)), cpb,
+            n_slab)
     query = None if resident is None else ctypes.byref(resident)
     rows = ()
     if per is not None:
@@ -716,14 +786,17 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             mid = rows or (int(isinstance(world, CompositeWorld)),)
             err = entry(*head, *grid_args, *mid, *tail, stream, query)
     name = (entry_name + ("" if chain is not None else ":runtime")
-            + (":ee" if want_ee else ""))
+            + (":ee" if want_ee else "" if cons is None else ":con"))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if resident is not None:
         return None
     LAUNCHES[name] += 1
     PARAM_ROUTES[route] += 1
+    LAYOUTS["time_major" if time_major else "candidate_major"] += 1
     margin = margin_part[0] if n_slab == 1 else margin_part.amin(dim=0)
     if want_ee:
         return q_obs.t(), margin, ee
+    if q_con is not None:
+        return q_obs.t(), margin, q_con.t()
     return q_obs.t(), margin
