@@ -29,7 +29,14 @@ default):
             its packed corner table, the shared world of equal rows) and
             the config-4 shape (C = 57,344, T = 102: K3, K4, K1, K5, K2,
             composite, :ee; uniform and solver-like candidates, all rows
-            active and a third masked) and config 2's (B = 1); the
+            active and a third masked), config 3's (C = B = 1,024: K3, K4,
+            K5 in both layouts) and config 2's (B = 1); the config-5 flush
+            (C = 10,000 per-row, both layouts); every parameter trigger
+            (chip_smoke.py param_triggers) at configs 4 and 3, between
+            two launches of the same robot and world moved with .to(); a
+            world built on the card anew, or changed in place, at every
+            call (`every_call` cases, configs 4, 3 and 2), also timed as
+            calls back to back without synchronisation; the
             constraint route (:con, phase 8's cone) at both shapes, where
             a version without it runs its :ee form (`:con` cases) or its
             :ee form and the constraint tail on the frame, as its solver
@@ -64,6 +71,7 @@ Imports nothing of JAX. Prints one JSON object per result, tagged
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import inspect
 import json
@@ -125,7 +133,8 @@ def build_phase(label, pkg, tmp, loops_of=(), chains=(("runtime", ()),),
     under tmp, for each (chain label, extra nvcc flags) of chains, all at
     once; prints registers, spills and stack per kernel, the SASS loops
     of the kernels whose name holds a string of loops_of, and on the chain
-    labelled account_chain the instruction accounting of ACCOUNTED.
+    labelled account_chain (a label, or a tuple of them) the instruction
+    accounting of ACCOUNTED.
     Returns {(chain, kernel): instructions of one pass}."""
     csrc = os.path.join(pkg, "csrc")
     procs, passes = {}, {}
@@ -157,22 +166,43 @@ def build_phase(label, pkg, tmp, loops_of=(), chains=(("runtime", ()),),
         for name, info in zip(demangle(kernels), kernels.values()):
             say("build", version=label, chain=chain,
                 kernel=signature_name(name), **info)
-        if loops_of or chain == account_chain:
+        account = chain in (account_chain if isinstance(account_chain, tuple)
+                            else (account_chain,))
+        if loops_of or account:
             passes.update({(chain, k): v for k, v in sass_loops(
-                cubin, loops_of, ACCOUNTED if chain == account_chain
-                else ()).items()})
+                cubin, loops_of, account).items()})
     return passes
 
 
-# The instantiations of the accounting, by the world type in their name:
-# K3 and K5 on a shared world (2 boxes; the grid), and the per-row variants
-# at config 5 (1 sphere and 2 boxes; the grid with 1 overlay sphere), at the
-# shape each runs on the main path (C, T).
-ACCOUNTED = {"SharedPrims<(int)0, (int)2>": ("K3", 57344, 102),
-             "GridDist<(int)0, (int)0>": ("K5", 57344, 102),
-             "RowPrims<(int)1, (int)2>": ("K3-pcw", 210000, 52),
-             "GridRowDist<(int)1, (int)0>": ("K5-pco", 210000, 52)}
+# The instantiations of the accounting, by the world type and the parameter
+# route (the kernel's last template argument) in their name: K3 and K5 on a
+# shared world (2 boxes; the grid), and the per-row variants at config 5 (1
+# sphere and 2 boxes; the grid with 1 overlay sphere), on the parameter
+# block, at the shape each runs on the main path (C, T); and the routes K1,
+# K2 and the other parameter triggers take: the memory path (ParamPtr, the
+# world's counts at run time), and in a version that has it the large
+# parameter block (LargeParamBlock, the world's counts at run time).
+ACCOUNTED = {
+    ("SharedPrims<(int)0, (int)2>", "ParamBlock"): ("K3", 57344, 102),
+    ("GridDist<(int)0, (int)0>", "ParamBlock"): ("K5", 57344, 102),
+    ("RowPrims<(int)1, (int)2>", "ParamBlock"): ("K3-pcw", 210000, 52),
+    ("GridRowDist<(int)1, (int)0>", "ParamBlock"): ("K5-pco", 210000, 52),
+    ("SharedPrims<(int)-1, (int)-1>", "ParamBlock"):
+        ("K3-any-block", 57344, 102),
+    ("SharedPrims<(int)-1, (int)-1>", "ParamPtr"): ("K3-memory", 57344, 102),
+    ("GridDist<(int)-1, (int)-1>", "ParamPtr"): ("K5-memory", 57344, 102),
+    ("SharedPrims<(int)-1, (int)-1>", "LargeParamBlock"):
+        ("K3-large", 57344, 102),
+    ("GridDist<(int)-1, (int)-1>", "LargeParamBlock"):
+        ("K5-large", 57344, 102),
+}
 SMS, SCHEDULERS = 132, 4     # H100 SXM: SMs, warp schedulers per SM
+
+
+def accounted_as(demangled):
+    """The ACCOUNTED key of a demangled kernel name, or None."""
+    return next((k for k in ACCOUNTED if k[0] in demangled
+                 and f"rollout::{k[1]}>" in demangled), None)
 
 
 def lane_fks(mod, C, T, d=7, ee=False, active=None):
@@ -204,8 +234,7 @@ def issue_figure(label, mod, passes, clock_mhz):
     time the card's schedulers take to issue the kernel's warp instructions
     at one a cycle (a diagnostic beside the work-based bound)."""
     for (chain, kernel), n in sorted(passes.items()):
-        key = next(k for k in ACCOUNTED if k in kernel)
-        name, C, T = ACCOUNTED[key]
+        name, C, T = ACCOUNTED[accounted_as(kernel)]
         ratio = lane_fk_ratio(mod, C, T)
         say("build", version=label, chain=chain, accounted=name, C=C, T=T,
             pass_instructions=n, lane_fks_per_owned_waypoint=ratio,
@@ -242,10 +271,10 @@ def opcode_classes(texts):
     return classes, ops
 
 
-def sass_loops(cubin, loops_of, account=()):
+def sass_loops(cubin, loops_of, account=False):
     """Backward branches of the kernels whose mangled name holds one of
-    loops_of: (loop start, branch address, instructions). For the kernels
-    whose demangled name holds one of `account`, the instructions of one
+    loops_of: (loop start, branch address, instructions). With `account`,
+    for the kernels of ACCOUNTED (accounted_as), the instructions of one
     pass by class: of the hot code (up to the last EXIT), the largest loop
     when it holds at least half of it (a warp's loop over windows), else
     all of it (one waypoint a lane); each sincosf / sqrtf / division
@@ -258,10 +287,7 @@ def sass_loops(cubin, loops_of, account=()):
     for part in sass.split("Function : ")[1:]:
         name = part.split("\n", 1)[0].strip()
         demangled = signature_name(demangle([name])[0])
-        # the parameter-block route where a version has two (the memory
-        # path's ParamPtr instantiations are off the main path)
-        accounted = (any(a in demangled for a in account)
-                     and "ParamPtr" not in demangled)
+        accounted = account and accounted_as(demangled) is not None
         if not any(m in name for m in loops_of) and not accounted:
             continue
         ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)
@@ -322,12 +348,18 @@ def launch_info(fn):
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     for e in events:
         if e.get("cat") == "kernel" and "rollout_" in e.get("name", ""):
             a = e.get("args", {})
             out = {k: a.get(k) for k in (
                 "registers per thread", "shared memory", "block",
                 "est. achieved occupancy %")}
+            # every kernel of the call: a layout copy before the evaluator
+            # shows here
+            out["kernels_in_call"] = len(kernels)
+            out["other_kernels"] = [k[:60] for k in kernels
+                                    if "rollout_" not in k]
             occ, block = out["est. achieved occupancy %"], out["block"]
             if occ is not None and block:
                 warps = -(-int(np.prod(block)) // 32)
@@ -443,7 +475,57 @@ def kernel_cases(b):
     # the shared world of equal rows as a user's .to() brings it (the
     # parameter block) and as built on the card (the memory path)
     shared = cs.shared_row(b.same_rows)
+    # config 3's CHOMP shape (C = B = 1,024, T = 102: every finalize and
+    # CHOMP step evaluates one candidate a scenario) and config 5's flush
+    # (C = B = 10,000 per-row, T = 52, candidate-major: _flush_margin_batch)
+    fulls3 = b.uniform(b.B4, cfg4.num_timesteps + 2, 3)
+    tm3 = fulls3.permute(2, 1, 0).contiguous()
+    flush5 = b.uniform(b.B5, cfg5.num_timesteps + 2, 6)
+    flush_tm5 = flush5.permute(2, 1, 0).contiguous()
+    flush_rows = b.row_world            # B5 rows: one candidate each
+    one = dict(cands_per_row=1)
+    # each shape's triggers on the tabletop world between two runs of the
+    # same robot and world moved with .to() (the 3 KB block), so each is
+    # timed beside the block in neighbouring turns; then the sets above the
+    # block (they have no 3 KB twin)
+    listed = cs.param_triggers(b.robot, b.world) + [
+        ("above_block:robot489", cs.big_robot(dev, 163), b.world)]
+    small = [t for t in listed if not t[0].startswith("above_block")]
+    triggers = [
+        (f"K3 {shape} trigger {label}", r, w, x, *c4, tmk)
+        for shape, x in (("config4", tm4), ("config3", tm3))
+        for label, r, w in [("block_first", b.robot, b.world), *small,
+                            ("block_last", b.robot, b.world),
+                            *[t for t in listed if t not in small]]]
+    # a set without host copies as a user's loop makes it at every call: a
+    # world built on the card anew (new tensors, so a new key each time), or
+    # the same world changed in place (a new version each time)
+    in_place = b.world.to("cpu").to(dev)
+    every_call = [
+        (f"K3 {shape} every_call {how}", b.robot,
+         in_place if how == "in_place" else b.world, x, *c,
+         dict(tmk, every_call=how))
+        for shape, x, c in (("config4", tm4, c4), ("config3", tm3, c4),
+                            ("config2 B=1", tm2, c2))
+        for how in ("new_set", "in_place")]
     return [
+        *triggers,
+        *every_call,
+        ("K2 config4 unsorted memory_path", cs.made_on_card(unsorted),
+         b.grid, tm4, *c4, tmk),
+        ("K3 config3", b.robot, b.world, tm3, *c4, tmk),
+        ("K4 config3 candidate_major", b.robot, b.world, fulls3, *c4, {}),
+        ("K5 config3", b.robot, b.grid, tm3, *c4, tmk),
+        ("K5 config3 candidate_major", b.robot, b.grid, fulls3, *c4, {}),
+        ("K5 config4 candidate_major", b.robot, b.grid, fulls4, *c4, {}),
+        ("pcw config5 flush", b.robot, flush_rows["box"], flush_tm5, *c5,
+         dict(tmk, **one)),
+        ("K4 pcw config5 flush candidate_major", b.robot, flush_rows["box"],
+         flush5, *c5, one),
+        ("pco config5 flush", b.robot, flush_rows["voxel"], flush_tm5, *c5,
+         dict(tmk, **one)),
+        ("K4 pco config5 flush candidate_major", b.robot,
+         flush_rows["voxel"], flush5, *c5, one),
         ("pcw random", b.robot, pcw, tm5, *c5, k5),
         ("pcw solver_like", b.robot, pcw, sm5, *c5, k5),
         ("pco random", b.robot, pco, tm5, *c5, k5),
@@ -492,6 +574,14 @@ def kernel_cases(b):
                               (":con+tail", dict(constraints=b.cone,
                                                  tail=True)))
           for k, w in (("pcw", pcw), ("pco", pco))],
+        # the 31 KB parameter's cost a launch: robots just within and just
+        # above the 3 KB block (156 and 159 bodies on the runtime chain:
+        # 768 and 780 floats with the tabletop)
+        *[(f"K3 {shape} payload {label}", cs.big_robot(dev, n), b.world, x,
+           *c, tmk)
+          for shape, x, c in (("config2 B=1", tm2, c2), ("config4", tm4, c4))
+          for label, n in (("block_156_bodies", 52),
+                           ("large_block_159_bodies", 53))],
         ("K3 config2 B=1", b.robot, b.world, tm2, *c2, tmk),
         ("K5 config2 B=1", b.robot, b.grid, tm2, *c2, tmk),
         ("K3 config2 B=1 solver_like", b.robot, b.world, sm2, *c2, tmk),
@@ -512,6 +602,7 @@ def route(mod, kw):
     version's :ee form and, with tail=True, the constraint tail on its
     frame (costs/constraints.py constraint_cost_tm), as its solver did."""
     kw = dict(kw)
+    kw.pop("every_call", None)
     tail = kw.pop("tail", False)
     cons = kw.get("constraints")
     if cons is None or has_con(mod):
@@ -523,18 +614,45 @@ def route(mod, kw):
 
 def caller(mod, robot, world, x, dt, clearance, kw):
     """fn() running the case on `mod` (route); returns q_obs, margin and,
-    where there is one, q_con."""
+    where there is one, q_con. With every_call="new_set" each call first
+    builds the world's box_half anew on the card, with "in_place" it
+    multiplies it by 1 in place (a new version, the same values)."""
     from tpustomp_torch.costs.constraints import constraint_cost_tm
 
+    every = kw.get("every_call")
     kw, tail = route(mod, kw)
 
     def fn():
-        out = mod.obstacle_cost_batch(robot, world, x, dt, clearance, **kw)
+        w = world
+        if every == "new_set":
+            w = dataclasses.replace(world, box_half=world.box_half.clone())
+        elif every == "in_place":
+            world.box_half.mul_(1.0)
+        out = mod.obstacle_cost_batch(robot, w, x, dt, clearance, **kw)
         if tail is not None:
             return out[0], out[1], constraint_cost_tm(robot, tail, out[2])
         return out
 
     return fn
+
+
+def back_to_back_ms(fn, calls=20, reps=5):
+    """Median over reps of the milliseconds a call of fn() takes within
+    calls issued back to back between two CUDA events (no synchronisation
+    between them), after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return sorted(times)[reps // 2]
 
 
 def kernels_phase(this, other, cases, only=None):
@@ -556,6 +674,15 @@ def kernels_phase(this, other, cases, only=None):
                                               **route(mod, kw)[0])
                   for side, mod in (("other", other), ("this", this))
                   if hasattr(mod, "rollout_occupancy")}
+        if "every_call" in kw:
+            # calls back to back, as a loop issues them: a host sync in the
+            # launch (a read of the parameters) waits for the work queued
+            # before it
+            ob1, tb1, tb2, ob2 = (back_to_back_ms(f)
+                                  for f in (f_o, f_t, f_t, f_o))
+            say("kernels", case=label + " back_to_back",
+                other_ms=[ob1, ob2], this_ms=[tb1, tb2],
+                speedup=(ob1 + ob2) / (tb1 + tb2))
         say("kernels", case=label, other_ms=[o1, o2], this_ms=[t1, t2],
             resident_blocks_per_sm=blocks,
             speedup=o_ms / t_ms, other_spread_pct=100 * abs(o1 - o2) / o_ms,
@@ -744,6 +871,9 @@ def main():
             for label, robot in (("arm_7dof", arm_7dof()),
                                  ("torso_arm_urdf",
                                   load_urdf(cs.torso_arm_urdf())))]
+        say("build", nvcc=subprocess.run(
+            [cuda_tool("nvcc"), "--version"], capture_output=True,
+            text=True).stdout.strip().splitlines()[-2:])
         clock = float(subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.max.sm",
              "--format=csv,noheader,nounits"], check=True,
@@ -751,12 +881,13 @@ def main():
         other_pkg = os.path.join(roots["other"], "tpustomp_torch")
         with tempfile.TemporaryDirectory() as tmp:
             passes = build_phase("other", other_pkg, tmp, chains=chains[:2],
-                                 account_chain="arm_7dof")
+                                 account_chain=("arm_7dof", "runtime"))
             issue_figure("other", load_wrapper(other_pkg, "rollout_other"),
                          passes, clock)
             passes = build_phase("this", os.path.join(ROOT, "tpustomp_torch"),
                                  tmp, loops_of=("RowPrims", "GridRowDist"),
-                                 chains=chains, account_chain="arm_7dof")
+                                 chains=chains,
+                                 account_chain=("arm_7dof", "runtime"))
             issue_figure("this", this, passes, clock)
     if "kernels" in phases:
         from tpustomp_torch.kernels import rollout as this

@@ -13,19 +13,31 @@ and fails (non-zero exit, no result line) on any error:
      shape (C = 1024 scenarios x 56 candidates = 57,344 trajectories,
      T = 102) on the tabletop boxes: time-major input with all rows active
      and with about a third inactive (K3), the candidate-major [C, T, d]
-     input (K4), and a robot with shuffled bodies and no body_counts (K1);
-     kernel and plain times (CUDA events);
+     input (K4, staged by the kernel: at C and at config 3's C = 1,024,
+     bitwise the time-major launch, one kernel in its profiler window),
+     and a robot with shuffled bodies and no body_counts (K1); kernel and
+     plain times (CUDA events);
   3g. rollout_grid against the plain version at the same shape on the
      config-2 tabletop voxelized by the port's signed EDT (64x80x48 at
      2.5 cm): all rows active and masked (K5 + tail), the grid plus an
-     overlay sphere (CompositeWorld), shuffled bodies (K2), the packed
-     corner table against the dense grid (bitwise); times, also on
-     solver-like candidates (config 4's problems: min-jerk + sigma L z);
+     overlay sphere (CompositeWorld), shuffled bodies (K2), the
+     candidate-major input (K4's grid form, as for the analytic kernel),
+     the packed corner table against the dense grid (bitwise); times, also
+     on solver-like candidates (config 4's problems: min-jerk + sigma L
+     z);
   3e. both kernels and their :ee forms against plain at the lane plan's
      edges (T in {2, 3, 31, 32, 33, 101, 102, 103}, a ragged C of 4,229
      with 7-8 candidates a block, a third of the rows masked, both chains),
-     and the memory path: a world and a robot too large for the kernel
-     parameter block, and a robot built on the card (no host copies);
+     and the parameter routes: a world, an overlay and a robot above the
+     3 KB parameter block (the large block), a world and a robot built on
+     the card, a world changed in place, K1 / K2 sorted on the card (the
+     memory path at a set's first launch, then the block after one device
+     read), robot and world moved under
+     inference_mode and a world above the large block (the memory path),
+     each counted on its route and timed;
+  3s. two worlds built on the card, launched at once on two streams: each
+     result bitwise its own single-stream launch (and its first launch,
+     on the memory path);
   3m. the per-row-world variants (rollout_analytic:per_cand_world,
      rollout_grid:per_cand_overlay) against the plain version at the
      config-5 shape (B = 10,000 scenarios x 21 candidates = 210,000
@@ -99,8 +111,9 @@ and fails (non-zero exit, no result line) on any error:
      plan_batch warns and runs only :runtime kernels, equal to the honest
      robot's run;
  10s. one launch of each variant and its :con form (and of the sorted
-     runtime route, K1) under torch.cuda.set_sync_debug_mode("error"): no
-     host sync.
+     runtime route, K1; a world built on the card, after its one device
+     read; another at its first launch, on the memory path) under
+     torch.cuda.set_sync_debug_mode("error"): no host sync.
  11. the rest of the planning API, at config 4's full width unless named,
      every entry point called without `device` (it runs on the card):
      goal-tolerance bands (every goal given +-0.1 rad: the resolve over
@@ -134,7 +147,9 @@ The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
 and plain ms, the least time the card could take for the same work on the
 chain it ran: bound_ms, bound_by; the runtime chain's ms and the largest
-|static - runtime|; ms_smooth on solver-like candidates where measured);
+|static - runtime|; ms_smooth on solver-like candidates where measured;
+for the shared-world kernels K4's candidate-major ms at both C and its
+main-path launches, and K1 / K2's ms);
 the last line is {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -346,6 +361,54 @@ def made_on_card(robot):
     return dataclasses.replace(robot, body_offset=robot.body_offset.clone())
 
 
+def big_world(world, n=200, seed=7):
+    """n spheres beside the tabletop world's boxes, moved to its device
+    with .to(): a world above the kernel parameter block (768 floats)."""
+    from tpustomp_torch.world.sdf import AnalyticWorld
+
+    rng = np.random.default_rng(seed)
+    spheres = [(tuple(rng.uniform(-0.8, 0.8, 3)), rng.uniform(0.05, 0.2))
+               for _ in range(n)]
+    return AnalyticWorld.make(spheres=spheres, boxes=[
+        (tuple(b.tolist()), tuple(h.tolist()))
+        for b, h in zip(world.box_center.cpu(), world.box_half.cpu())]).to(
+            world.box_half.device)
+
+
+def big_robot(dev, spheres_per_link=70):
+    """arm_7dof with 70 spheres on each of its three long links (210
+    bodies) on the runtime chain, moved to dev with .to(): a robot above
+    the kernel parameter block."""
+    from tpustomp_torch.robot.model import arm_7dof
+
+    return dataclasses.replace(arm_7dof(spheres_per_link=spheres_per_link),
+                               joint_static=None).to(dev)
+
+
+def param_triggers(robot, world):
+    """(label, robot, world) for each way a launch's parameters leave the
+    3 KB parameter block of a robot and world moved with .to(): a world
+    and a robot above it (200 spheres; 490 bodies), the world and the
+    robot built on the card (no host copy), the world changed in place
+    since it was moved (a stale host copy), and both moved under
+    torch.inference_mode() (no version counter)."""
+    dev = robot.joint_axis.device
+    changed = world.to("cpu").to(dev)
+    changed.box_half.mul_(1.0)                  # same values, new version
+    with torch.inference_mode():
+        inf_robot, inf_world = robot.to("cpu").to(dev), world.to(
+            "cpu").to(dev)
+    return [
+        ("above_block:world", robot, big_world(world)),
+        ("above_block:robot", big_robot(dev), world),
+        ("made_on_card:world", robot, dataclasses.replace(
+            world, box_half=world.box_half.clone())),
+        ("made_on_card:robot", made_on_card(robot), world),
+        ("changed_in_place", robot, changed),
+        ("inference_mode", inf_robot, inf_world),
+    ]
+
+
 def check_kernel(label, rollout, robot, world, fulls, dt, clearance,
                  active=None, time_major=True, plain=None, cands_per_row=None):
     """The kernel against the plain version on the same inputs; returns the
@@ -420,13 +483,26 @@ def packed_vs_dense(label, rollout, robot, world, tm, dt, clearance,
         robot, dense, tm, dt, clearance, time_major=True, **kw), 20)
 
 
+# Config 3's CHOMP shape: every finalize and CHOMP step evaluates one
+# candidate a scenario, C = B = 1,024 (candidate-major: the TPU's K4)
+K4_SMALL_C = 1024
+# Candidate-major launches (K4) of each kernel over the main-path phases
+# (rollout.LAYOUTS, read with their launches)
+K4_LAUNCHES = {}
+# Launches of robots with unsorted bodies (the TPU's K1 / K2) of each kernel
+# over the same phases (rollout.BODY_ORDER)
+UNSORTED_LAUNCHES = {}
+
+
 def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
                  chains, smooth):
     """Phases 3 and 3g for one kernel: time-major with all rows active and
-    masked, candidate-major (the analytic kernel only: K4) and shuffled
-    bodies; then kernel and plain times, and the kernel's on solver-like
-    candidates (`smooth`, time-major), beside both chains' times from
-    chain_phase (`chains`). Returns (max_err, ms, plain_ms, ms_smooth)."""
+    masked, candidate-major (K4, staged by the kernel: at C and at
+    K4_SMALL_C, bitwise the time-major launch, no other kernel in its
+    window) and shuffled bodies; then kernel and plain times, and the
+    kernel's on solver-like candidates (`smooth`, time-major), beside both
+    chains' times from chain_phase (`chains`). Returns (max_err, ms,
+    plain_ms, ms_smooth, the kernel_time line's timings)."""
     C = fulls.shape[0]
     plain = rollout.obstacle_cost_batch_plain(robot, world, fulls, dt,
                                               clearance)
@@ -460,20 +536,42 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
     if name == "rollout_grid":
         timing["dense_grid_ms"] = packed_vs_dense(name, rollout, robot,
                                                   world, tm, dt, clearance)
-    if name == "rollout_analytic":
-        err = max(err, check_kernel(f"{name}:candidate_major", rollout,
-                                    robot, world, fulls, dt, clearance,
-                                    time_major=False, plain=plain))
-        runtime = dataclasses.replace(robot, joint_static=None)
-        timing["candidate_major_ms"] = cuda_time_ms(
-            lambda: rollout.obstacle_cost_batch(robot, world, fulls, dt,
+    # K4: the candidate-major input, staged by the kernel, at config 4's C
+    # and at config 3's C = B = 1,024; bitwise the time-major launch, and
+    # no kernel but the evaluator in its profiler window
+    runtime = dataclasses.replace(robot, joint_static=None)
+    small = fulls[:K4_SMALL_C]
+    err = max(err, check_kernel(f"{name}:candidate_major", rollout, robot,
+                                world, fulls, dt, clearance,
+                                time_major=False, plain=plain),
+              check_kernel(f"{name}:candidate_major:C={K4_SMALL_C}", rollout,
+                           robot, world, small, dt, clearance,
+                           time_major=False))
+    same = all(torch.equal(a, b) for x in (fulls, small) for a, b in zip(
+        rollout.obstacle_cost_batch(robot, world, x, dt, clearance),
+        rollout.obstacle_cost_batch(robot, world, x.permute(2, 1, 0)
+                                    .contiguous(), dt, clearance,
+                                    time_major=True)))
+    _, n_kernels, _, _ = device_window(lambda: rollout.obstacle_cost_batch(
+        robot, world, fulls, dt, clearance))
+    say(f"kernel_vs_kernel:{name}:candidate_major_vs_time_major",
+        C=[C, K4_SMALL_C], bitwise_equal=same,
+        kernels_in_candidate_major_call=n_kernels)
+    assert same and n_kernels == 1, (same, n_kernels)
+    small_tm = small.permute(2, 1, 0).contiguous()
+    for tag, r in (("", robot), ("_runtime", runtime)):
+        timing[f"candidate_major{tag}_ms"] = cuda_time_ms(
+            lambda: rollout.obstacle_cost_batch(r, world, fulls, dt,
                                                 clearance), 20)
-        timing["candidate_major_runtime_ms"] = cuda_time_ms(
-            lambda: rollout.obstacle_cost_batch(runtime, world, fulls, dt,
-                                                clearance), 20)
+    timing[f"candidate_major_ms_C{K4_SMALL_C}"] = cuda_time_ms(
+        lambda: rollout.obstacle_cost_batch(robot, world, small, dt,
+                                            clearance), 20)
+    timing[f"time_major_ms_C{K4_SMALL_C}"] = cuda_time_ms(
+        lambda: rollout.obstacle_cost_batch(robot, world, small_tm, dt,
+                                            clearance, time_major=True), 20)
     say(f"kernel_time:{name}", **timing, static_ms=chains["static_ms"],
         runtime_ms=chains["runtime_ms"], card=smi)
-    return err, kernel_ms, plain_ms, timing["kernel_ms_smooth"]
+    return err, kernel_ms, plain_ms, timing["kernel_ms_smooth"], timing
 
 
 # Waypoint counts at the lane plan's edges (windows of 30 owned lanes) and
@@ -481,17 +579,27 @@ def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
 # candidate boundaries at every T that is not a multiple of 30.
 EDGE_TS = (2, 3, 31, 32, 33, 101, 102, 103)
 EDGE_C = 4229
+# A world above the large parameter block (1,950 spheres: 7,956 floats
+# with arm_7dof), checked on fewer candidates (its plain version holds a
+# [C·T·12, 1,950] distance table)
+ABOVE_LARGE_SPHERES, ABOVE_LARGE_C = 1950, 512
 
 
 def edges_phase(rollout, robot, world, grid, smi):
     """Phase 3e: K3 and K5 and their :ee forms against the plain version at
     the lane plan's edges (EDGE_TS, EDGE_C, a third of the rows masked:
-    zeros there), on the static and the runtime chain; then the memory
-    path (csrc/rollout_common.cuh ParamPtr) for a world and a robot too
-    large for the parameter block, and for a robot built on the device
-    (no host copies): each against plain, and counted as such. Returns
-    the largest max |Δ| of q_obs and margin at the edges (the memory
-    path's, on other robots and worlds, stay in their own lines)."""
+    zeros there), on the static and the runtime chain; then the parameter
+    routes (kernels/rollout.py param_route): a world, an overlay and a
+    robot above the 3 KB parameter block (the large block), a world and a
+    robot built on the card, a world changed in place since it was moved,
+    K1 and K2 sorted on the card (the memory path at a set's first launch,
+    then the block, after one device read), both
+    moved under inference_mode and a world above the large block (the
+    memory path, csrc/rollout_common.cuh ParamPtr): each against plain,
+    counted on its route, timed beside the route it took before (all the
+    memory path). Returns the largest max |Δ| of q_obs and margin at the
+    edges (the routes', on other robots and worlds, stay in their own
+    lines)."""
     dev = robot.joint_axis.device
     runtime = dataclasses.replace(robot, joint_static=None)
     active = ~inactive_rows(EDGE_C, dev)
@@ -544,45 +652,60 @@ def edges_phase(rollout, robot, world, grid, smi):
             chains=["static", "runtime"],
             forms=["costs", "ee masked"], tol=TOL,
             ee_tol=f"{EE_ATOL}+{EE_RTOL}|ee|", ok=True)
-    # the memory path: the parameters staged from device memory
-    rng = np.random.default_rng(7)
-    from tpustomp_torch.robot.model import arm_7dof
-    from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld
+    # the parameter routes: every way a launch leaves the 3 KB block of a
+    # robot and world moved with .to() (each of them the memory path in
+    # the version before the large block and the device read), on the
+    # route it takes now; and K1 / K2 sorted on the card
+    from tpustomp_torch.world.sdf import CompositeWorld
 
-    spheres = [(tuple(rng.uniform(-0.8, 0.8, 3)), rng.uniform(0.05, 0.2))
-               for _ in range(200)]
-    big_world = AnalyticWorld.make(spheres=spheres, boxes=[
-        (tuple(b.tolist()), tuple(h.tolist()))
-        for b, h in zip(world.box_center.cpu(), world.box_half.cpu())]).to(dev)
-    big_robot = dataclasses.replace(arm_7dof(spheres_per_link=70),
-                                    joint_static=None).to(dev)
-    device_made = made_on_card(shuffled(robot, 0))
+    route_of = {"above_block": "large_block", "made_on_card": "block",
+                "changed_in_place": "block", "inference_mode": "memory"}
+    unsorted = made_on_card(shuffled(robot, 0))
+    cases = [("rollout_analytic", label, r, w, route_of[label.split(":")[0]])
+             for label, r, w in param_triggers(robot, world)] + [
+        ("rollout_grid", "above_block:overlay", robot,
+         CompositeWorld(grid=grid, overlay=big_world(world)), "large_block"),
+        ("rollout_analytic", "made_on_card:unsorted_robot", unsorted, world,
+         "block"),
+        ("rollout_grid", "made_on_card:unsorted_robot", unsorted, grid,
+         "block"),
+        ("rollout_analytic", "above_large_block", robot,
+         big_world(world, n=ABOVE_LARGE_SPHERES), "memory")]
     fulls = torch.as_tensor(np.random.default_rng(11).uniform(
         robot.joint_lower.cpu().numpy(), robot.joint_upper.cpu().numpy(),
         (EDGE_C, 33, 7)).astype(np.float32), device=dev)
-    cases = (("rollout_analytic", "world_above_the_block", robot, big_world),
-             ("rollout_grid", "overlay_above_the_block", robot,
-              CompositeWorld(grid=grid, overlay=big_world)),
-             ("rollout_analytic", "robot_above_the_block", big_robot, world),
-             ("rollout_analytic", "robot_made_on_the_card", device_made,
-              world))
     x = fulls.permute(2, 1, 0).contiguous()
-    for name, label, r, w in cases:
+    for name, label, r, w, route in cases:
+        # the set above the large block: 1,950 spheres a body, fewer rows
+        C = ABOVE_LARGE_C if label == "above_large_block" else EDGE_C
         n = len(rollout.pack_params(r, w))
+        read0 = rollout.PARAM_READS["device"]
+        # a set without host copies: its first launch on the memory path
+        # (no host sync), its second reads it once, then none
+        device_set = route != "memory" and label.startswith(
+            ("made_on_card", "changed_in_place"))
         for ee, mask in ((False, None), (True, active)):
             before = dict(rollout.PARAM_ROUTES)
-            err, dee = check(f"{name}:{label}", r, w, fulls, 5.0 / 32, mask,
-                             ee)
+            err, dee = check(f"{name}:{label}", r, w, fulls[:C], 5.0 / 32,
+                             None if mask is None else mask[:C], ee)
             routes = {k: rollout.PARAM_ROUTES[k] - before[k]
                       for k in before}
+            took = "memory" if device_set and not ee else route
             ms = cuda_time_ms(lambda: rollout.obstacle_cost_batch(
-                r, w, x, 5.0 / 32, 0.05, row_active=mask, time_major=True,
-                want_ee=ee), 20)
-            say(f"kernel_vs_plain:{name}:memory_path:{label}"
-                + (":ee" if ee else ""), C=EDGE_C, T=33, n_params=n,
-                param_block_floats=rollout._PARAM_FLOATS, routes=routes,
+                r, w, x[..., :C], 5.0 / 32, 0.05,
+                row_active=None if mask is None else mask[:C],
+                time_major=True, want_ee=ee), 20)
+            say(f"kernel_vs_plain:{name}:param_route:{label}"
+                + (":ee" if ee else ""), C=C, T=33, n_params=n,
+                param_block_floats=rollout._PARAM_FLOATS,
+                large_block_floats=rollout._LARGE_PARAM_FLOATS,
+                route=route, checked_launch_route=took,
+                parent_route="memory", routes=routes,
+                device_reads=rollout.PARAM_READS["device"] - read0,
                 max_abs=err, max_abs_ee=dee, tol=TOL, ms=ms, card=smi)
-            assert routes == {"block": 0, "memory": 1}, routes
+            assert routes == {k: int(k == took) for k in routes}, routes
+        reads = rollout.PARAM_READS["device"] - read0
+        assert reads == int(device_set), (label, reads)
     del fulls, x
     torch.cuda.empty_cache()
     return worst
@@ -630,8 +753,15 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     # parameter block, none the memory path
     routes = dict(rollout.PARAM_ROUTES)
     assert routes["memory"] == 0 and routes["block"] > 0, routes
-    # the candidate-major launches are the TPU's K4 (the solver's finalize)
+    # from the host copies: no launch read the device (no host sync)
+    assert rollout.PARAM_READS["device"] == 0, rollout.PARAM_READS
+    # the candidate-major launches are the TPU's K4 (the solver's
+    # _evaluate: finalize, CHOMP steps)
     layouts = dict(rollout.LAYOUTS)
+    K4_LAUNCHES[kernel] = (K4_LAUNCHES.get(kernel, 0)
+                           + layouts["candidate_major"])
+    UNSORTED_LAUNCHES[kernel] = (UNSORTED_LAUNCHES.get(kernel, 0)
+                                 + rollout.BODY_ORDER["unsorted"])
     traj, succ, iters = sol.trajectory, sol.success, sol.iterations
     assert traj.shape == (B, T, d) and succ.shape == (B,), traj.shape
     assert bool(torch.isfinite(traj).all() and torch.isfinite(sol.cost).all())
@@ -823,14 +953,16 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls,
     assert contract and vs_shared
     kernel_ms = cuda_time_ms(lambda: run(world, per), 20)
     tm_smooth = smooth.permute(2, 1, 0).contiguous()
+    # the shared row built on the card (no host copy): the block, after one
+    # read of its device vector (the memory path before it)
+    made = shared_row(same)
     timing = dict(
         C=C, T=fulls.shape[1], cands_per_row=per, kernel_ms=kernel_ms,
         kernel_ms_smooth=cuda_time_ms(lambda: rollout.obstacle_cost_batch(
             robot, world, tm_smooth, dt, clearance, time_major=True,
             cands_per_row=per), 20),
         shared_world_kernel_ms=cuda_time_ms(lambda: run(shared), 20),
-        shared_world_memory_path_ms=cuda_time_ms(
-            lambda: run(shared_row(same)), 20),
+        shared_world_built_on_card_ms=cuda_time_ms(lambda: run(made), 20),
         plain_ms=cuda_time_ms(lambda: rollout.obstacle_cost_batch_plain(
             robot, world, fulls, dt, clearance, cands_per_row=per), 5))
     if name.startswith("rollout_grid"):
@@ -871,6 +1003,11 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(rollout.LAUNCHES)
+    layouts = dict(rollout.LAYOUTS)           # candidate-major: the flush
+    K4_LAUNCHES[variant] = (K4_LAUNCHES.get(variant, 0)
+                            + layouts["candidate_major"])
+    UNSORTED_LAUNCHES[variant] = (UNSORTED_LAUNCHES.get(variant, 0)
+                                  + rollout.BODY_ORDER["unsorted"])
     draws = dict(mpc.NOISE_DRAWS)
     draw_mb = (states.q.shape[1] * B * cfg5.num_rollouts
                * cfg5.num_timesteps * 4 / 1e6)
@@ -889,6 +1026,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
                               if (reached >= 0).any() else None),
         mean_goal_distance=float((out.q - out.qN).norm(dim=1).mean()),
         kernel_launches=launches, launches_per_tick=launches[variant] / ticks,
+        layouts=layouts,
         noise_draws_used=draws["used"], noise_draws_padded=draws["padded"],
         padded_draw_mb=draws["padded"] * draw_mb,
         max_obstacle_drift=drift, finite=finite, card=smi)
@@ -1462,6 +1600,48 @@ def guard_phase(rollout, robot, world, cfg, q0b, qNb):
         kernel_launches=launches, only_runtime_kernels=only_runtime,
         trajectory_equal_to_honest=same)
     assert warned and only_runtime and same
+
+
+def two_stream_phase(rollout, robot, world, fulls, dt, clearance, smi):
+    """Two worlds built on the card (no host copies: each takes the
+    memory path at its first launch and the parameter block after one read
+    of its device vector at its second, bitwise the first), launched at the
+    same time on two streams, three times: each result bitwise its own
+    single-stream launch (every launch carries its parameters by value)."""
+    dev = robot.joint_axis.device
+    worlds = [dataclasses.replace(world, box_half=world.box_half * f)
+              for f in (1.0, 1.4)]
+    first = [rollout.obstacle_cost_batch(robot, w, fulls, dt, clearance)
+             for w in worlds]
+    ref = [rollout.obstacle_cost_batch(robot, w, fulls, dt, clearance)
+           for w in worlds]
+    torch.cuda.synchronize()
+    first_same = all(torch.equal(a, b) for o, r in zip(first, ref)
+                     for a, b in zip(o, r))
+    del first
+    streams = [torch.cuda.Stream(dev) for _ in worlds]
+    rollout.reset_launches()
+    same = True
+    for _ in range(3):
+        outs = []
+        for w, st in zip(worlds, streams):
+            st.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(st):
+                outs.append(rollout.obstacle_cost_batch(robot, w, fulls, dt,
+                                                        clearance))
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(a, b) for o, r in zip(outs, ref)
+                            for a, b in zip(o, r))
+    differ = not torch.equal(ref[0][0], ref[1][0])
+    say("two_streams:rollout_analytic", C=fulls.shape[0], worlds=2,
+        turns=3, bitwise_equal_to_single_stream=same,
+        first_launch_bitwise_equal=first_same,
+        worlds_give_different_costs=differ,
+        param_routes=dict(rollout.PARAM_ROUTES),
+        device_reads=rollout.PARAM_READS["device"], card=smi)
+    assert same and differ and first_same
+    assert rollout.PARAM_ROUTES["block"] == 6, rollout.PARAM_ROUTES
+    assert rollout.PARAM_READS["device"] == 0     # read once, before
 
 
 def sync_free_phase(rollout, cases, dt, clearance):
@@ -2238,9 +2418,9 @@ def main():
                                 qN=torch.as_tensor(qNb, device=dev))
     smooth4 = solver_like(robot, cfg4, problems4, C // B).permute(
         2, 1, 0).contiguous()
-    smooth_ms = {}
+    smooth_ms, timings = {}, {}
     for name, w in (("rollout_analytic", world), ("rollout_grid", grid)):
-        *table[name], smooth_ms[name] = kernel_phase(
+        *table[name], smooth_ms[name], timings[name] = kernel_phase(
             name, rollout, robot, w, fulls, dt, clearance, smi,
             chain_res[name], smooth4)
     err = check_kernel("rollout_grid:composite", rollout, robot, composite,
@@ -2259,24 +2439,50 @@ def main():
         *table[name + ":con"], smooth_ms[name + ":con"] = con_phase(
             name, rollout, robot, w, fulls, dt, clearance, cone, spot, smi,
             chain_res[name + ":con"], smooth=smooth4)
-    # ... and on the memory path: the cone made on the card (no host copy)
+    # ... with a cone made on the card (no host copy: the block, after one
+    # read of its device vector at its second launch; its first, here
+    # before the counts, takes the memory path) and moved under
+    # inference_mode (the memory path)
     made_cone = dataclasses.replace(cone, weight=cone.weight.clone())
-    rollout.reset_launches()
-    err = con_check("rollout_analytic", rollout, robot, world,
-                    fulls[:EDGE_C], dt, clearance, (made_cone, spot),
-                    ~inactive_rows(EDGE_C, dev), tag=":memory_path")
-    assert rollout.PARAM_ROUTES["memory"] == 1, rollout.PARAM_ROUTES
-    e, k_ms, p_ms = table["rollout_analytic:con"]
-    table["rollout_analytic:con"] = (max(e, err), k_ms, p_ms)
+    rollout.obstacle_cost_batch(robot, world, fulls[:EDGE_C], dt, clearance,
+                                constraints=(made_cone, spot))
+    with torch.inference_mode():
+        inf_cone = cone.to("cpu").to(dev)
+    for tag, c, route, reads in ((":device_read", made_cone, "block", 1),
+                                 (":memory_path", inf_cone, "memory", 0)):
+        rollout.reset_launches()
+        err = con_check("rollout_analytic", rollout, robot, world,
+                        fulls[:EDGE_C], dt, clearance, (c, spot),
+                        ~inactive_rows(EDGE_C, dev), tag=tag)
+        # the :con launch on its route; the two without constraints take
+        # the block
+        memory = int(route == "memory")
+        assert rollout.PARAM_ROUTES == {
+            "block": 3 - memory, "large_block": 0, "memory": memory}, (
+            rollout.PARAM_ROUTES)
+        assert rollout.PARAM_READS["device"] == reads, rollout.PARAM_READS
+        e, k_ms, p_ms = table["rollout_analytic:con"]
+        table["rollout_analytic:con"] = (max(e, err), k_ms, p_ms)
     del smooth4
-    # --- 3e. the lane plan's edges; the memory path ---------------------------
+    # --- 3e. the lane plan's edges; the parameter routes ----------------------
     err = edges_phase(rollout, robot, world, grid, smi)
     for name in ("rollout_analytic", "rollout_grid"):
         e, k_ms, p_ms = table[name]
         table[name] = (max(e, err), k_ms, p_ms)
+    # --- 3s. two streams, two worlds built on the card ------------------------
+    two_stream_phase(rollout, robot, world, fulls, dt, clearance, smi)
     # --- 10s. no host sync in a launch ----------------------------------------
     tm_small = fulls[:4096].permute(2, 1, 0).contiguous()
+    # a world built on the card, after the one read of its vector (its
+    # second launch); another at its first launch (the memory path)
+    made_world = dataclasses.replace(world, box_half=world.box_half.clone())
+    for _ in range(2):
+        rollout.obstacle_cost_batch(robot, made_world, tm_small, dt,
+                                    clearance, time_major=True)
+    new_world = dataclasses.replace(world, box_half=world.box_half.clone())
     sync_cases = [("rollout_analytic", robot, world, tm_small, None),
+                  ("rollout_analytic", robot, made_world, tm_small, None),
+                  ("rollout_analytic", robot, new_world, tm_small, None),
                   ("rollout_grid", robot, grid, tm_small, None),
                   ("rollout_analytic:runtime", shuffled(robot, 0), world,
                    tm_small, None),
@@ -2534,6 +2740,20 @@ def main():
         })
         if name in smooth_ms:
             rows[-1]["ms_smooth"] = smooth_ms[name]
+        if name in timings:
+            # K4 (candidate-major, staged by the kernel) and K1 / K2 (bodies
+            # sorted on the card): their launches over the main-path runs
+            # that read K4's (rollout.BODY_ORDER)
+            t = timings[name]
+            rows[-1].update(
+                candidate_major_ms=t["candidate_major_ms"],
+                candidate_major_ms_C1024=t[
+                    f"candidate_major_ms_C{K4_SMALL_C}"],
+                time_major_ms_C1024=t[f"time_major_ms_C{K4_SMALL_C}"],
+                unsorted_bodies_ms=t["unsorted_bodies_ms"],
+                unsorted_bodies_launches=UNSORTED_LAUNCHES[name])
+        if name in K4_LAUNCHES:
+            rows[-1]["candidate_major_launches"] = K4_LAUNCHES[name]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,15 +199,18 @@ def test_constraint_section_size_matches_the_kernel():
 
 
 def test_host_params_cache_never_serves_a_stale_constraint():
-    """A constraint changed in place since it was moved has no host copy
-    (the memory path); a new constraint object gives its own block; one
-    made on the device gives none; the robot's ee_offset is read only for a
-    position constraint."""
+    """The launch's block is built once per set of tensors (_launch_params's
+    cache); a constraint changed in place since it was moved has no host
+    copy (the launch reads the device instead); a new constraint object
+    gives its own block; one made on the device gives none; the robot's
+    ee_offset is read only for a position constraint."""
     robot = tmodel.arm_7dof().to("meta")
     world = _world("analytic").to("meta")
     cone = tcon.OrientationConstraint.make(tolerance=0.25).to("meta")
-    first = tr._host_params(robot, world, True, (cone,))
-    assert tr._host_params(robot, world, True, (cone,)) is first
+    first = tr._launch_params(robot, world, True, (cone,))[1]
+    assert tr._launch_params(robot, world, True, (cone,))[1] is first
+    assert np.array_equal(tr._host_params(robot, world, True, (cone,)),
+                          first)
     bare = tr._host_params(robot, world, True)
     assert first.size == bare.size + 9
     wider = tcon.OrientationConstraint.make(tolerance=0.4).to("meta")

@@ -40,6 +40,8 @@ from tpustomp_torch.robot import model as tmodel
 from tpustomp_torch.world.edt import occupancy_from_analytic, signed_edt
 from tpustomp_torch.world.sdf import AnalyticWorld, CompositeWorld
 
+from tests.test_torch_param_routes import NO_KERNEL_OPS, device_ops
+
 Q_TOL = dict(atol=1e-5, rtol=1e-5)
 M_ATOL = 1e-6
 
@@ -203,12 +205,15 @@ def test_grid_kernel_row_active(cuda_device, kind):
 @pytest.mark.parametrize("kind", ["analytic", "grid"])
 def test_kernels_take_unsorted_bodies(cuda_device, kind):
     """Robots with body_counts=None and bodies out of link order (the TPU's
-    rolled kernels K1/K2): the wrapper sorts them on the device."""
+    rolled kernels K1/K2): the wrapper sorts them on the device, and the
+    launch is counted as one of unsorted bodies (BODY_ORDER)."""
     robot = _shuffled(tmodel.arm_7dof(), 1).to(cuda_device)
     world = (AnalyticWorld.make(**_WORLDS["boxes"]) if kind == "analytic"
              else _voxel_world("grid")).to(cuda_device)
     cand = _cands(robot, 2000, 102, 4, cuda_device)
+    tr.reset_launches()
     q_k, m_k = tr.obstacle_cost_batch(robot, world, cand, 0.05, 0.05)
+    assert tr.BODY_ORDER == {"sorted": 0, "unsorted": 1}
     q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.05, 0.05)
     torch.testing.assert_close(q_k, q_p, **Q_TOL)
     torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
@@ -1243,13 +1248,24 @@ def _above_the_block(case, device):
     return robot, world
 
 
+# The parameter route each case of _above_the_block takes: the large
+# block above the 3 KB one, and a robot built on the card the 3 KB block
+# from its second launch, by one read of its device-packed vector (its
+# first takes the memory path; kernels/rollout.py param_route,
+# _launch_params).
+_ROUTE_OF = {"world": "large_block", "overlay": "large_block",
+             "robot": "large_block", "device_made": "block"}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["world", "overlay", "robot", "device_made"])
 def test_memory_path_matches_plain(cuda_device, case):
-    """The memory path (parameters staged from device memory), taken for a
-    robot or world above the parameter block or without host copies,
-    against the plain version, with ee and a masked third; every launch is
-    counted on that route and none on the parameter block."""
+    """The routes that once took the memory path (a robot or world above
+    the parameter block, a robot without host copies), against the plain
+    version, with ee and a masked third: every launch is counted on the
+    large block, or for the robot built on the card the first on the
+    memory path and the second on the block after one read of its device
+    vector, bitwise the first on the rows both compute."""
     robot, world = _above_the_block(case, cuda_device)
     C, T = _EDGE_C, 33
     cand = _cands(robot, C, T, 4, cuda_device)
@@ -1264,7 +1280,11 @@ def test_memory_path_matches_plain(cuda_device, case):
     q_a, m_a, ee = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
                                           row_active=active, time_major=True,
                                           want_ee=True)
-    assert tr.PARAM_ROUTES == {"block": 0, "memory": 2}
+    device = int(case == "device_made")
+    routes = {"block": 0, "large_block": 0, "memory": device}
+    routes[_ROUTE_OF[case]] += 2 - device
+    assert tr.PARAM_ROUTES == routes
+    assert tr.PARAM_READS["device"] == device
     torch.cuda.synchronize()
     torch.testing.assert_close(q_k, q_p, **Q_TOL)
     torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
@@ -1278,7 +1298,8 @@ def test_memory_path_matches_plain(cuda_device, case):
 def test_main_path_takes_the_parameter_block(cuda_device):
     """A robot and world moved to the card with .to() launch with the
     parameter block on every variant, and a world updated in place since
-    takes the memory path (its host copy is stale)."""
+    (its host copy is stale) launches on the memory path once, then on the
+    block after one read of its device vector, with the new values."""
     robot = tmodel.arm_7dof().to(cuda_device)
     world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
     grid = _voxel_world("grid").to(cuda_device)
@@ -1287,14 +1308,19 @@ def test_main_path_takes_the_parameter_block(cuda_device):
     tr.reset_launches()
     for w, per in ((world, None), (grid, None), (rows, 21)):
         tr.obstacle_cost_batch(robot, w, cand, 0.1, 0.05, cands_per_row=per)
-    assert tr.PARAM_ROUTES == {"block": 3, "memory": 0}
+    assert tr.PARAM_ROUTES == {"block": 3, "large_block": 0, "memory": 0}
+    assert tr.PARAM_READS["device"] == 0
     q_b, _ = tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
     world.box_half.mul_(1.5)
     q_m, _ = tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+    assert tr.PARAM_ROUTES == {"block": 4, "large_block": 0, "memory": 1}
+    assert tr.PARAM_READS["device"] == 0
+    q_r, _ = tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
     q_p, _ = tr.obstacle_cost_batch_plain(robot, world, cand, 0.1, 0.05)
-    assert tr.PARAM_ROUTES == {"block": 4, "memory": 1}
-    torch.testing.assert_close(q_m, q_p, **Q_TOL)
-    assert not torch.equal(q_m, q_b)
+    assert tr.PARAM_ROUTES == {"block": 5, "large_block": 0, "memory": 1}
+    assert tr.PARAM_READS["device"] == 1
+    torch.testing.assert_close(q_r, q_p, **Q_TOL)
+    assert torch.equal(q_r, q_m) and not torch.equal(q_r, q_b)
 
 
 @pytest.mark.cuda
@@ -1309,7 +1335,37 @@ def test_occupancy_query_launches_nothing(cuda_device):
     tr.reset_launches()
     assert tr.rollout_occupancy(robot, world, cand, 0.05, 0.05) >= 4
     assert sum(tr.LAUNCHES.values()) == 0
-    assert tr.PARAM_ROUTES == {"block": 0, "memory": 0}
+    assert tr.PARAM_ROUTES == {"block": 0, "large_block": 0, "memory": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["made_on_card:world", "made_on_card:robot",
+                                   "changed_in_place", "above_block:world",
+                                   "above_large_block"])
+def test_occupancy_query_reads_no_device_value(cuda_device, label,
+                                              monkeypatch):
+    """The occupancy query of a set without host copies, or above either
+    block, takes its route from shapes alone: it packs nothing on the
+    device (pack_params is made to fail), reads no device vector
+    (PARAM_READS) and counts no launch; the set's first launch after it
+    reads nothing either, its second makes the set's one read."""
+    robot, world = _trigger(label, cuda_device)
+    cand = _cands(robot, 700, 52, 1, cuda_device)
+    tr.reset_launches()
+
+    def no_pack(*args, **kwargs):
+        raise AssertionError("the occupancy query packed the parameters")
+
+    with monkeypatch.context() as m:
+        m.setattr(tr, "pack_params", no_pack)
+        blocks = tr.rollout_occupancy(robot, world, cand, 0.1, 0.05)
+    assert blocks >= 2
+    assert tr.PARAM_READS["device"] == 0
+    assert sum(tr.LAUNCHES.values()) == 0
+    tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+    assert tr.PARAM_READS["device"] == 0
+    tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+    assert tr.PARAM_READS["device"] == _TRIGGER_ROUTE[label][1]
 
 
 # The constraint route (:con): the cone of chip_smoke.py phase 8 and a
@@ -1402,9 +1458,11 @@ def test_con_variants_match_plain(cuda_device, variant, kind):
 @pytest.mark.parametrize("case", ["world", "robot", "device_made",
                                   "constraint_made_on_card"])
 def test_con_memory_path_matches_plain(cuda_device, case):
-    """The :con form on the memory path (a robot or world above the
-    parameter block, a robot without host copies, or a constraint made on
-    the card): every launch on that route, _check_con's checks."""
+    """The :con form on the routes that once took the memory path (a robot
+    or world above the parameter block: the large block; a robot without
+    host copies, or a constraint made on the card: the memory path at the
+    first launch, then the block from one read of the device vector,
+    bitwise the first): every launch on that route, _check_con's checks."""
     if case == "constraint_made_on_card":
         robot = tmodel.arm_7dof().to(cuda_device)
         world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
@@ -1420,11 +1478,19 @@ def test_con_memory_path_matches_plain(cuda_device, case):
     active = torch.ones(C, dtype=torch.bool, device=cuda_device)
     active[::3] = False
     tr.reset_launches()
+    first = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
+                                   row_active=active, time_major=True,
+                                   constraints=cons)
     q, m, q_con = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
                                          row_active=active, time_major=True,
                                          constraints=cons)
-    assert tr.PARAM_ROUTES == {"block": 0, "memory": 1}
-    assert sum(v for k, v in tr.LAUNCHES.items() if k.endswith(":con")) == 1
+    device = int(case in ("device_made", "constraint_made_on_card"))
+    routes = {"block": 0, "large_block": 0, "memory": device}
+    routes[_ROUTE_OF.get(case, "block")] += 2 - device
+    assert tr.PARAM_ROUTES == routes
+    assert tr.PARAM_READS["device"] == device
+    assert sum(v for k, v in tr.LAUNCHES.items() if k.endswith(":con")) == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, (q, m, q_con)))
     _, _, ee = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
                                       row_active=active, time_major=True,
                                       want_ee=True)
@@ -1481,3 +1547,172 @@ def test_con_route_plans_as_without_ee(cuda_device):
                             ("ee", dict(want_ee=True)))}
     assert blocks["con"] == blocks["none"] >= 4 > blocks["ee"], blocks
     assert sum(tr.LAUNCHES.values()) == 0
+
+
+# Every way a launch's parameters leave the 3 KB block of a robot and world
+# moved with .to() (chip_smoke.py param_triggers), a world above the large
+# block too, and the route each takes, with the device reads it makes on
+# its first launch (none on the second).
+_TRIGGER_ROUTE = {"above_block:world": ("large_block", 0),
+                  "above_block:robot": ("large_block", 0),
+                  "made_on_card:world": ("block", 1),
+                  "made_on_card:robot": ("block", 1),
+                  "changed_in_place": ("block", 1),
+                  "inference_mode": ("memory", 0),
+                  "above_large_block": ("memory", 0)}
+
+
+def _trigger(label, device):
+    from chip_smoke import big_world, param_triggers
+
+    robot = tmodel.arm_7dof().to(device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(device)
+    if label == "above_large_block":
+        from chip_smoke import ABOVE_LARGE_SPHERES
+
+        return robot, big_world(world, n=ABOVE_LARGE_SPHERES)
+    return {k: (r, w) for k, r, w in param_triggers(robot, world)}[label]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(_TRIGGER_ROUTE))
+def test_param_triggers_match_plain(cuda_device, label):
+    """Each trigger on its route (PARAM_ROUTES, PARAM_READS; a set without
+    host copies on the memory path at its first launch, the time-major
+    one) against the plain version in both layouts, with a masked third;
+    the candidate-major launch bitwise the time-major one."""
+    robot, world = _trigger(label, cuda_device)
+    route, reads = _TRIGGER_ROUTE[label]
+    assert tr.param_route(robot, world) == route
+    # the plain version holds a [C·T·12, spheres] distance table
+    C, T = (512 if label == "above_large_block" else _EDGE_C), 33
+    cand = _cands(robot, C, T, 5, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[::3] = False
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.15, 0.05)
+    tr.reset_launches()
+    q_k, m_k = tr.obstacle_cost_batch(robot, world, tm, 0.15, 0.05,
+                                      time_major=True)
+    q_c, m_c = tr.obstacle_cost_batch(robot, world, cand, 0.15, 0.05)
+    q_a, m_a = tr.obstacle_cost_batch(robot, world, cand, 0.15, 0.05,
+                                      row_active=active)
+    first = int(reads == 1)
+    routes = {"block": 0, "large_block": 0, "memory": first}
+    routes[route] += 3 - first
+    assert tr.PARAM_ROUTES == routes
+    assert tr.PARAM_READS["device"] == reads
+    assert tr.LAYOUTS == {"time_major": 1, "candidate_major": 2}
+    torch.testing.assert_close(q_k, q_p, **Q_TOL)
+    torch.testing.assert_close(m_k, m_p, atol=M_ATOL, rtol=0)
+    assert torch.equal(q_c, q_k) and torch.equal(m_c, m_k)
+    assert torch.equal(q_a[active], q_k[active])
+    assert bool((q_a[~active] == 0).all()) and bool((m_a[~active] == 0).all())
+
+
+@pytest.mark.cuda
+def test_device_made_world_changed_in_place_gets_new_result(cuda_device):
+    """A world built on the card, launched twice (the memory path, then
+    the block after one read), changed in place, launched twice again: the
+    new version's launches get the new values (a second device read),
+    never the first version's block; each version's two launches are
+    bitwise equal."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    world = dataclasses.replace(world, box_half=world.box_half.clone())
+    cand = _cands(robot, 700, 52, 2, cuda_device)
+    tr.reset_launches()
+    q_1 = [tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+           for _ in range(2)]
+    world.box_half.mul_(1.5)
+    q_2 = [tr.obstacle_cost_batch(robot, world, cand, 0.1, 0.05)
+           for _ in range(2)]
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.1, 0.05)
+    assert tr.PARAM_READS["device"] == 2
+    assert tr.PARAM_ROUTES == {"block": 2, "large_block": 0, "memory": 2}
+    for q, m in q_2:
+        torch.testing.assert_close(q, q_p, **Q_TOL)
+        torch.testing.assert_close(m, m_p, atol=M_ATOL, rtol=0)
+    for a, b in (q_1, q_2):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert not torch.equal(q_1[1][0], q_2[1][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["rollout_analytic", "rollout_grid",
+                                     "rollout_analytic:per_cand_world",
+                                     "rollout_grid:per_cand_overlay"])
+@pytest.mark.parametrize("C,T", [(1024, 102), (4229, 33), (37, 2)])
+def test_candidate_major_equals_time_major(cuda_device, variant, C, T):
+    """K4: the candidate-major launch's q_obs and margin (and with
+    constraints q_con) are bitwise the time-major launch's on the same
+    candidates, on both chains, for both sources, with a masked third;
+    against plain; and on a shared world it launches the evaluator and
+    runs no other op on the card but allocations and views (no layout
+    copy before it; a per-row world's launch also concatenates its
+    primitive rows)."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    per = 1 if variant.endswith(("world", "overlay")) else None
+    if per is None:
+        world = (AnalyticWorld.make(**_WORLDS["boxes"])
+                 if variant == "rollout_analytic" else _voxel_world("grid"))
+    else:
+        world = _row_world("analytic" if "analytic" in variant
+                           else "composite", C, 3, ns=1)
+    world = world.to(cuda_device)
+    cand = _cands(robot, C, T, C + T, cuda_device)
+    tm = cand.permute(2, 1, 0).contiguous()
+    active = torch.ones(C, dtype=torch.bool, device=cuda_device)
+    active[1::3] = False
+    cons = _con_constraints("both", cuda_device)
+    q_p, m_p = tr.obstacle_cost_batch_plain(robot, world, cand, 0.15, 0.05,
+                                            cands_per_row=per)
+    for r in (robot, dataclasses.replace(robot, joint_static=None)):
+        for kw in ({}, dict(row_active=active), dict(constraints=cons)):
+            a = tr.obstacle_cost_batch(r, world, tm, 0.15, 0.05,
+                                       time_major=True, cands_per_row=per,
+                                       **kw)
+            b = tr.obstacle_cost_batch(r, world, cand, 0.15, 0.05,
+                                       cands_per_row=per, **kw)
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), (r, kw)
+        torch.testing.assert_close(b[0], q_p, **Q_TOL)
+        torch.testing.assert_close(b[1], m_p, atol=M_ATOL, rtol=0)
+    if per is not None:
+        return
+    before = sum(tr.LAUNCHES.values())
+    _, ops = device_ops(lambda: tr.obstacle_cost_batch(
+        robot, world, cand, 0.15, 0.05), "cuda")
+    assert sum(tr.LAUNCHES.values()) == before + 1
+    assert set(ops) <= NO_KERNEL_OPS, ops
+
+
+@pytest.mark.cuda
+def test_two_streams_with_device_made_worlds(cuda_device):
+    """Two worlds built on the card, each launched on its own stream at
+    the same time: each result bitwise its own single-stream launch (each
+    launch carries its parameters by value, read once per world at its
+    second launch; the first, on the memory path, bitwise too)."""
+    robot = tmodel.arm_7dof().to(cuda_device)
+    base = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    worlds = [dataclasses.replace(base, box_half=base.box_half * f)
+              for f in (1.0, 1.4)]
+    cand = _cands(robot, 20000, 102, 7, cuda_device)
+    first = [tr.obstacle_cost_batch(robot, w, cand, 0.05, 0.05)
+             for w in worlds]
+    ref = [tr.obstacle_cost_batch(robot, w, cand, 0.05, 0.05)
+           for w in worlds]
+    torch.cuda.synchronize()
+    for got, want in zip(first, ref):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    streams = [torch.cuda.Stream(cuda_device) for _ in worlds]
+    outs = [None, None]
+    for _ in range(3):
+        for i, (w, st) in enumerate(zip(worlds, streams)):
+            st.wait_stream(torch.cuda.current_stream(cuda_device))
+            with torch.cuda.stream(st):
+                outs[i] = tr.obstacle_cost_batch(robot, w, cand, 0.05, 0.05)
+        torch.cuda.synchronize()
+        for got, want in zip(outs, ref):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    assert not torch.equal(ref[0][0], ref[1][0])

@@ -82,12 +82,14 @@ def test_host_params_of_a_row_world_hold_the_robot_only():
 
 
 def test_host_params_size_limit():
-    """A world whose block would pass kParamFloats takes the memory path
-    (None), and so does a robot with that many bodies; a world just within
-    the block does not."""
+    """A world whose vector would pass kParamFloats takes the large block
+    (the same vector, route "large_block"), and so does a robot with that
+    many bodies; a world just within the block takes the block; a set
+    above kLargeParamFloats has no block (None: the memory path)."""
     robot = tmodel.arm_7dof()
     base = tr.pack_params(robot, AnalyticWorld.make()).numel()
     fit = (tr._PARAM_FLOATS - base) // 4
+    large = (tr._LARGE_PARAM_FLOATS - base) // 4
     rng = np.random.default_rng(1)
 
     def spheres(n):
@@ -95,22 +97,33 @@ def test_host_params_size_limit():
                                             0.1) for _ in range(n)])
 
     meta = robot.to("meta")
-    assert tr._host_params(meta, spheres(fit).to("meta"), True).size == (
-        base + 4 * fit)
-    assert tr._host_params(meta, spheres(fit + 1).to("meta"), True) is None
-    big = tmodel.arm_7dof(spheres_per_link=tr._PARAM_FLOATS // 12)
-    assert tr._host_params(big.to("meta"), AnalyticWorld.make().to("meta"),
-                           True) is None
+    for n, route in ((fit, "block"), (fit + 1, "large_block"),
+                     (large, "large_block")):
+        world = spheres(n).to("meta")
+        assert tr._host_params(meta, world, True).size == base + 4 * n
+        assert tr.param_route(meta, world) == route
+    world = spheres(large + 1).to("meta")
+    assert tr._host_params(meta, world, True) is None
+    assert tr.param_route(meta, world) == "memory"
+    empty = AnalyticWorld.make().to("meta")
+    for per_link, route in ((tr._PARAM_FLOATS // 12, "large_block"),
+                            (tr._LARGE_PARAM_FLOATS // 12, "memory")):
+        big = tmodel.arm_7dof(spheres_per_link=per_link).to("meta")
+        assert tr.param_route(big, empty) == route
+        assert (tr._host_params(big, empty, True) is None) == (
+            route == "memory")
 
 
 def test_host_params_cache_never_serves_a_stale_world():
-    """The block is built once per set of tensors; a new world object gives
-    its own block, a tensor changed in place since it was moved gives none
-    (the memory path), and a tensor made on the device has no host copy."""
+    """The block is built once per set of tensors (_launch_params's cache);
+    a new world object gives its own block, a tensor changed in place since
+    it was moved gives none (the launch reads the device instead), and a
+    tensor made on the device has no host copy."""
     robot = tmodel.arm_7dof().to("meta")
     world = _world("analytic").to("meta")
-    first = tr._host_params(robot, world, True)
-    assert tr._host_params(robot, world, True) is first
+    first = tr._launch_params(robot, world, True)[1]
+    assert tr._launch_params(robot, world, True)[1] is first
+    assert np.array_equal(tr._host_params(robot, world, True), first)
     moved = AnalyticWorld.make(boxes=[((0.1, 0.2, 0.3), (0.2, 0.2, 0.2))])
     other = tr._host_params(robot, moved.to("meta"), True)
     assert np.array_equal(other, tr.pack_params(tmodel.arm_7dof(),
@@ -148,16 +161,23 @@ def test_lane_plan_lanes_per_waypoint_at_the_main_shapes():
 
 def test_to_inside_inference_mode_takes_the_memory_path():
     """Tensors moved under torch.inference_mode() keep no version counter:
-    .to() works as outside it and keeps no host copy, so the launch takes
-    the memory path (no parameter block)."""
+    .to() works as outside it and keeps no host copy, and no read of the
+    device may be cached for them, so the launch takes the memory path (no
+    parameter block), inside the mode and outside it."""
     with torch.inference_mode():
         robot = tmodel.arm_7dof().to("meta")
         world = _world("composite").to("meta")
         assert robot.joint_axis.is_inference()
         assert host_mirror(robot.joint_axis) is None
         assert tr._host_params(robot, world, True) is None
+        assert tr.param_route(robot, world) == "memory"
     assert host_mirror(world.grid.origin) is None
     assert tr._host_params(robot, world, True) is None
+    assert tr.param_route(robot, world) == "memory"
+    # one inference tensor is enough
+    plain = tmodel.arm_7dof().to("meta")
+    assert tr.param_route(plain, _world("composite").to("meta")) == "block"
+    assert tr.param_route(plain, world) == "memory"
 
 
 def test_lane_plan_fill_follows_the_sm_count():

@@ -14,8 +14,9 @@ import torch
 # made on the device, or changed in place since (its version moved), has
 # none; so has one moved under torch.inference_mode() (it keeps no version).
 # Grids, other large tensors and bfloat16 ones (numpy has no such type) are
-# not copied.
-MIRROR_MAX = 4096           # elements
+# not copied; the limit holds any one tensor of a set that fits the kernels'
+# large parameter block (kernels/rollout.py _LARGE_PARAM_FLOATS).
+MIRROR_MAX = 8192           # elements
 _MIRRORS: dict[int, tuple] = {}
 
 
@@ -37,7 +38,9 @@ def host_mirror(t: torch.Tensor):
     """The numpy copy of device tensor `t` kept when to_device moved it
     there, or None: no copy, or `t` changed in place since. A write that
     does not move `t._version` is not seen: through ``t.data``, a DLPack
-    or other alias sharing its storage, or a kernel writing its pointer."""
+    or other alias sharing its storage, or a kernel writing its pointer.
+    The same holds for a set made on the device: kernels/rollout.py
+    _launch_params reads its values once per version."""
     entry = _MIRRORS.get(id(t))
     if entry is None or entry[0]() is not t or entry[1] != t._version:
         return None

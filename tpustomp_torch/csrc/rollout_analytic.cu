@@ -5,10 +5,13 @@
 //   K3  build_unrolled_kernel(mode="analytic", time_major=True,
 //       with_activity=True), pallas_call at :741 — the batched STOMP path;
 //   K4  the same builder with time_major=False, pallas_call at :755 — the
-//       candidate-major [C, T, d] layout (the wrapper permutes into this
-//       kernel's time-major input);
+//       candidate-major [C, T, d] layout, read by the kernel's own stage
+//       (cand_major, rollout_common.cuh), so no copy runs before it;
 //   K1  build_rollout_kernel, pallas_call at :257 — the rolled form for
-//       robots whose bodies are not link-sorted (the wrapper sorts them);
+//       robots whose bodies are not link-sorted (the wrapper sorts them;
+//       their parameters in the parameter block, or the large block above
+//       it, whether the robot came from the host or was built on the
+//       card);
 //   K3 with per_cand_world=True (:402-409, :610-634, wrapper :974-1009) —
 //       every candidate against its own spheres and boxes (batched MPC):
 //       rollout_analytic_rows_launch below;
@@ -52,7 +55,7 @@ constexpr int kRegisterFloats = 16;
 
 template <class World, class Chain, class Par>
 __global__ void __launch_bounds__(
-    rollout::kBlock, rollout::kernel_min_blocks<World, Chain, Par>())
+    rollout::kBlock, rollout::kernel_min_blocks<World, Chain>())
 rollout_analytic_kernel(
     World world, Chain chain, const __grid_constant__ Par par,
     const rollout::Shape s) {
@@ -64,12 +67,14 @@ rollout_analytic_kernel(
 // Every entry point ends with the same tail: active (or null), q_obs,
 // margin_part ([n_slab, C]), ee ([12, T, C], or null: no frame output),
 // q_con ([T, C], or null: no constraint route; n_con constraints, the last
-// section of params), then the shapes, the scalars, the lane plan (cpb, n_slab:
-// kernels/rollout.py _plan), the stream, and `resident`: null for a launch,
-// else the occupancy query of rollout_common.cuh launch_plan. params is a host pointer to n_params floats
-// for the parameter block when host_params is 1 (n_params <= kParamFloats),
-// else a device pointer (the memory path). d, nb and skip_rotf must match
-// the library's chain (rollout_common.cuh with_chain).
+// section of params), then the shapes, the scalars, the lane plan (cpb,
+// n_slab: kernels/rollout.py _plan), cand_major (1: cand is [C, T, d], else
+// [d, T, C]), the stream, and `resident`: null for a launch, else the
+// occupancy query of rollout_common.cuh launch_plan. params is a host
+// pointer to n_params floats for the parameter block when host_params is 1
+// (n_params <= kParamFloats; the large block up to kLargeParamFloats), else
+// a device pointer (the memory path). d, nb and skip_rotf must match the
+// library's chain (rollout_common.cuh with_chain).
 
 // A world shared by every candidate: its primitives are in params.
 extern "C" int rollout_analytic_launch(
@@ -77,10 +82,10 @@ extern "C" int rollout_analytic_launch(
     const uint8_t* active, float* q_obs, float* margin_part, float* ee,
     float* q_con, int C, int T, int d, int nb, int ns, int nx, int n_con,
     float dt, float clearance, int skip_rotf, int cpb, int n_slab,
-    void* stream, int* resident) {
+    int cand_major, void* stream, int* resident) {
   const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
                          q_con, C,      T,     n_params,    cpb,
-                         n_slab, n_con, dt,    clearance};
+                         n_slab, n_con, cand_major, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
@@ -103,10 +108,10 @@ extern "C" int rollout_analytic_rows_launch(
     const uint8_t* active, float* q_obs, float* margin_part, float* ee,
     float* q_con, int C, int T, int d, int nb, int ns, int nx, int n_con,
     float dt, float clearance, int skip_rotf, int cpb, int n_slab,
-    void* stream, int* resident) {
+    int cand_major, void* stream, int* resident) {
   const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
                          q_con, C,      T,     n_params,    cpb,
-                         n_slab, n_con, dt,    clearance};
+                         n_slab, n_con, cand_major, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {

@@ -57,20 +57,47 @@
 //     (a ballot of the mask), so masked rows cost no FK; they are written
 //     as zeros.
 //   * Staging: the block's [d, rows, cpb] joint tile comes into shared
-//     memory with loads of cpb consecutive candidates a row, and q_obs, ee
-//     and the per-waypoint margins go out through the same kind of staging;
-//     a warp then min-reduces each candidate's margin over the slab.
+//     memory, and q_obs, ee and the per-waypoint margins go out through the
+//     same kind of staging; a warp then min-reduces each candidate's margin
+//     over the slab. The tile is read from either layout the callers hold
+//     (Shape::cand_major), by the same loop with the layout's strides: the
+//     time-major [d, T, C], a warp's loads then rows of cpb consecutive
+//     candidates; or the candidate-major [C, T, d] (the TPU's K4, every
+//     _evaluate of the solver), a warp's loads then about 5 rows of each of
+//     cpb candidates, each row d contiguous floats, so the first joint's
+//     load touches about 2 sectors a candidate and the other d - 1 joints
+//     hit the same L1 lines: every byte comes from device memory once, and
+//     no copy kernel runs before the launch. Everything after the stage is
+//     the same, so the results are bitwise those of the time-major launch
+//     on the same candidates. A stage that read each candidate's contiguous
+//     run (n_seq * d floats) by consecutive threads and stored it
+//     transposed was built first: its second loop tipped two 80-register
+//     instantiations of the URDF chain into an 18-byte spill, in each of
+//     four arrangements (out of line, its Shape argument put a 120-byte
+//     stack frame in every kernel). Vector or 1-D bulk loads do not fit
+//     either layout: a candidate's run starts at ((c0 + c) * T + a) * d
+//     floats, 16-byte aligned for no fixed share of the candidates.
 //   * Launch-uniform data in the constant bank (Par = ParamBlock): the
 //     robot's parameters and a shared world's primitives are a
 //     __grid_constant__ kernel parameter of kParamFloats floats, filled on
-//     the host from the host mirror of the robot and world
-//     (kernels/rollout.py _host_params), so FFMA reads joint offsets, fixed
-//     rotations, body offsets and radii, and box or sphere primitives as
-//     constant-bank operands: no shared-memory load and no register for
-//     them. Par = ParamPtr is the memory path, a designed instantiation for
-//     a robot and world above kParamFloats or without a host mirror (a
-//     robot built on the device): the parameters are staged once per block
-//     in shared memory, with the world's counts read at run time.
+//     the host (kernels/rollout.py _launch_params: from the host mirrors of
+//     the robot and world, or for a set without them from one read of its
+//     device-packed vector per set of tensors and versions, at the set's
+//     second launch), so FFMA reads
+//     joint offsets, fixed rotations, body offsets and radii, and box or
+//     sphere primitives as constant-bank operands: no shared-memory load
+//     and no register for them. A set above kParamFloats and within
+//     kLargeParamFloats (a robot of about 150 bodies or more, a world of
+//     about 100 boxes) takes Par = LargeParamBlock, the same by-value
+//     parameter at the 32 KB that CUDA 12.1+ allows, with the world's
+//     counts compiled in as on the 3 KB block (with_params); the main
+//     paths keep the 3 KB block, so their launches copy no larger payload.
+//     Par = ParamPtr, the memory path, is left to sets above the large
+//     block, to tensors moved under torch.inference_mode() (no version
+//     counter, so no read may be cached) and to the first launch of a set
+//     without host copies (no host sync for a set used once): the
+//     parameters are staged once per block in shared memory, with the
+//     world's counts read at run time.
 //   * Per-row worlds (RowPrims): a row within the kernel's budget
 //     (with_register_counts) is staged per block in shared memory, one row
 //     a candidate column, and read with its counts compiled in (a window
@@ -80,8 +107,9 @@
 //   * __launch_bounds__ min-blocks per instantiation (kernel_min_blocks),
 //     measured with ptxas: 4 (64 registers) where the kernel fits them
 //     without a spill, 3 where it does not (worlds of run-time counts,
-//     empty worlds, the memory path, chains with fixed rotations or more
-//     than 7 joints).
+//     empty worlds, chains with fixed rotations or more than 7 joints).
+//     The memory path's staged pointer costs no block of its own (no spill
+//     at 80 registers, nvcc 12.9; it took one before, 72-93 registers).
 //   * ee is the (R, p) in registers after the joint loop, before ee_offset
 //     (the position constraint applies it): 48 bytes of stores per
 //     (candidate, waypoint) and no arithmetic, so q_obs and margin are the
@@ -152,6 +180,9 @@ constexpr int kCore = kWarp - 2;       // owned lanes a window: a halo each side
 constexpr int kMaxCands = 16;          // candidates a block at most
 constexpr int kParamFloats = 768;      // the parameter block: 3 KB, within
                                        // the classic 4 KB of kernel parameters
+constexpr int kLargeParamFloats = 7936;  // the large block: 31 KB, within
+                                       // the 32,764 bytes of CUDA 12.1+ with
+                                       // ~1 KB left for the other parameters
 constexpr int kAny = -1;               // a primitive count known at run time
 constexpr int kRowFloats = 16;         // a staged per-row world, at most
 constexpr int kConFloats = 9;          // a constraint in the parameters
@@ -174,21 +205,26 @@ struct ReadOnly {                      // global memory through the L1 path
 // a staged policy copies them into smem (the caller synchronises).
 
 // The robot and a shared world's primitives, by value: a __grid_constant__
-// kernel parameter, read as constant-bank operands.
-struct ParamBlock {
-  float v[kParamFloats];
+// kernel parameter of N floats, read as constant-bank operands.
+template <int N>
+struct ParamArray {
+  static constexpr int kFloats = N;
+  float v[N];
   static constexpr bool kStaged = false;
-  static constexpr int kMinBlocks = 4;
   __device__ __forceinline__ const float* bind(float*, int) const {
     return v;
   }
 };
+// The main paths' block (3 KB), and the large block (31 KB) for a set
+// above it: one launch copies its whole parameter, so the main paths keep
+// the small one.
+struct ParamBlock : ParamArray<kParamFloats> {};
+struct LargeParamBlock : ParamArray<kLargeParamFloats> {};
 
 // The memory path: n parameters in device memory, staged once per block.
 struct ParamPtr {
   const float* p;
   static constexpr bool kStaged = true;
-  static constexpr int kMinBlocks = 3;    // the staged pointer: a spill at 4
   __device__ __forceinline__ const float* bind(float* smem, int n) const {
     for (int i = threadIdx.x; i < n; i += kBlock) smem[i] = p[i];
     return smem;
@@ -247,21 +283,19 @@ struct PrimsAt {
 };
 
 // __launch_bounds__ min-blocks (resident blocks of 256 threads an SM), set
-// from ptxas -v: 4 (64 registers) when the world, the chain and the
-// parameters each fit it (kMinBlocks 4), one block fewer for each that does
-// not (kMinBlocks 3), and at least 2: every instantiation built for
-// arm_7dof, the URDF torso arm and the runtime chain then has no spill. A
-// world of compiled counts fits 4; run-time counts and the empty world do
-// not.
+// from ptxas -v: 4 (64 registers) when the world and the chain each fit it
+// (kMinBlocks 4), one block fewer for each that does not (kMinBlocks 3):
+// every instantiation built for arm_7dof, the URDF torso arm and the
+// runtime chain then has no spill. A world of compiled counts fits 4;
+// run-time counts and the empty world do not. Where the parameters live
+// costs no block (the memory path's staged pointer fits, nvcc 12.9).
 template <int NS, int NX>
 constexpr int min_blocks() {
   return (NS == kAny || NS + NX == 0) ? 3 : 4;
 }
-template <class World, class Chain, class Par>
+template <class World, class Chain>
 constexpr int kernel_min_blocks() {
-  const int heavy = (World::kMinBlocks < 4) + (Chain::kMinBlocks < 4)
-                    + (Par::kMinBlocks < 4);
-  return heavy > 2 ? 2 : 4 - heavy;
+  return 4 - (World::kMinBlocks < 4) - (Chain::kMinBlocks < 4);
 }
 
 // A world policy has stage(rows, c0, n_c), run by every thread of the
@@ -342,27 +376,41 @@ inline int with_register_counts(int ns, int nx, F launch) {
 }
 
 // launch(Counts, Par) for a launch whose parameters are on the host
-// (host_params: the parameter block, filled here from n_params host floats)
-// with the counts of with_register_counts, or in device memory (the memory
-// path, off the main paths) with the run-time counts: one instantiation a
-// chain and world kind, so the memory path doubles no instantiation. The
-// arithmetic per primitive is the same either way; only the loop over
-// primitives is rolled.
+// (host_params: n_params host floats, copied here into the by-value
+// parameter) or in device memory (the memory path). Both blocks get the
+// counts of with_register_counts: a robot above the 3 KB block on a world
+// within the budget (a dual-arm or mobile robot on the tabletop) ran
+// 1.3-1.6x slower on the large block at run-time counts (robots of 159,
+// 210 and 489 bodies, C = 57,344 and 1,024, H100). The memory path (sets
+// above the large block, tensors without a version counter, a set's first
+// launch without host copies) gets the run-time counts: one instantiation
+// a chain and world kind. The arithmetic per primitive is the same either
+// way; only the loop over primitives is rolled.
+template <class Block>
+inline void fill_block(Block& block, const float* params, int n_params) {
+  for (int i = 0; i < n_params; ++i) block.v[i] = params[i];
+  for (int i = n_params; i < Block::kFloats; ++i) block.v[i] = 0.0f;
+}
 template <int Floats, class F>
 inline int with_params(const float* params, int n_params, int host_params,
                        int ns, int nx, F launch) {
   if (!host_params) return launch(Counts<kAny, kAny>{}, ParamPtr{params});
-  if (n_params > kParamFloats) return (int)cudaErrorInvalidValue;
-  ParamBlock block;
-  for (int i = 0; i < n_params; ++i) block.v[i] = params[i];
-  for (int i = n_params; i < kParamFloats; ++i) block.v[i] = 0.0f;
+  if (n_params <= kParamFloats) {
+    ParamBlock block;
+    fill_block(block, params, n_params);
+    return with_register_counts<Floats>(
+        ns, nx, [&](auto k) { return launch(k, block); });
+  }
+  if (n_params > kLargeParamFloats) return (int)cudaErrorInvalidValue;
+  LargeParamBlock block;
+  fill_block(block, params, n_params);
   return with_register_counts<Floats>(
       ns, nx, [&](auto k) { return launch(k, block); });
 }
 
 // ---- The launch's shape and buffers -----------------------------------------
 struct Shape {
-  const float* cand;            // [d, T, C]
+  const float* cand;            // [d, T, C], or [C, T, d] with cand_major
   const uint8_t* active;        // [C] or nullptr
   float* q_obs;                 // [T, C]
   float* margin_part;           // [n_slab, C]
@@ -370,6 +418,7 @@ struct Shape {
   float* q_con;                 // [T, C] or nullptr: the constraint route
   int C, T, n_params, cpb, n_slab;
   int n_con;                    // constraints: the parameters' last section
+  int cand_major;               // cand is candidate-major [C, T, d] (K4)
   float dt, clearance;
 };
 
@@ -805,8 +854,8 @@ __device__ __forceinline__ float constraint_cost(const float* K, int n_con,
 //   __device__ Dist at(const float* W, int c, const float* row) const
 // binding candidate c's distance once per window: Dist is callable as
 // dist(x0, x1, x2), the signed distance at a body center. Chain is
-// RuntimeChain or a StaticChain (with_chain); Par is ParamBlock or
-// ParamPtr.
+// RuntimeChain or a StaticChain (with_chain); Par is ParamBlock,
+// LargeParamBlock or ParamPtr (with_params).
 template <class World, class Chain, class Par>
 __device__ __forceinline__ void evaluate(const World& world,
                                          const Chain& chain, const Par& par,
@@ -841,17 +890,21 @@ __device__ __forceinline__ void evaluate(const World& world,
   const float* P = par.bind(smem, s.n_params);
   world.stage(rows, c0, n_c);
   // the joint tile [d][cpb][n_seq]: thread (r, cc) of the first
-  // r_step * cpb loads rows r, r + r_step, .. of column cc for every joint
+  // r_step * cpb loads rows r, r + r_step, .. of column cc for every
+  // joint, element (j, t, c) of either layout at j * sj + t * st + c * sc
   const int cc = threadIdx.x % cpb;
   const int r0 = threadIdx.x / cpb, r_step = kBlock / cpb;
   const bool mine = r0 < r_step && cc < n_c
                     && (s.active == nullptr || s.active[c0 + cc]);
   if (mine) {
-    const float* src = s.cand + (size_t)sl.a * C + c0 + cc;
+    const size_t sj = s.cand_major ? 1 : (size_t)T * C;
+    const size_t st = s.cand_major ? d : C;
+    const size_t sc = s.cand_major ? (size_t)T * d : 1;
+    const float* src = s.cand + sl.a * st + (c0 + cc) * sc;
     for (int j = 0; j < d; ++j) {
       float* dst = tile + (j * cpb + cc) * n_seq;
-      const float* sj = src + (size_t)j * T * C;
-      for (int r = r0; r < n_seq; r += r_step) dst[r] = sj[(size_t)r * C];
+      const float* sjp = src + j * sj;
+      for (int r = r0; r < n_seq; r += r_step) dst[r] = sjp[r * st];
     }
   }
   __syncthreads();

@@ -8,7 +8,8 @@
 //       XLA tail _grid_finish (:807-862: trilinear gather, potential,
 //       reductions);
 //   K2  build_kinematics_kernel, pallas_call at :325 — the same for robots
-//       whose bodies are not link-sorted (the wrapper sorts them);
+//       whose bodies are not link-sorted (the wrapper sorts them; their
+//       parameters travel as rollout_analytic.cu says for K1);
 //   K5 followed by _grid_finish's per_cand branch (:818-829; the wrapper
 //       pads the overlay at :949-954) — a CompositeWorld whose overlay has
 //       one set of spheres/boxes per scenario (batched MPC over a voxel
@@ -176,7 +177,7 @@ struct GridRowDist {
 
 template <class World, class Chain, class Par>
 __global__ void __launch_bounds__(
-    rollout::kBlock, rollout::kernel_min_blocks<World, Chain, Par>())
+    rollout::kBlock, rollout::kernel_min_blocks<World, Chain>())
 rollout_grid_kernel(
     World world, Chain chain, const __grid_constant__ Par par,
     const rollout::Shape s) {
@@ -194,12 +195,12 @@ extern "C" int rollout_grid_launch(
     float hi1, float hi2, int composite, const uint8_t* active, float* q_obs,
     float* margin_part, float* ee, float* q_con, int C, int T, int d, int nb,
     int ns, int nx, int n_con, float dt, float clearance, int skip_rotf,
-    int cpb, int n_slab, void* stream, int* resident) {
+    int cpb, int n_slab, int cand_major, void* stream, int* resident) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
   const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
                          q_con, C,      T,     n_params,    cpb,
-                         n_slab, n_con, dt,    clearance};
+                         n_slab, n_con, cand_major, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {
@@ -222,12 +223,12 @@ extern "C" int rollout_grid_rows_launch(
     int cands_per_row, const uint8_t* active, float* q_obs,
     float* margin_part, float* ee, float* q_con, int C, int T, int d, int nb,
     int ns, int nx, int n_con, float dt, float clearance, int skip_rotf,
-    int cpb, int n_slab, void* stream, int* resident) {
+    int cpb, int n_slab, int cand_major, void* stream, int* resident) {
   const GridDims dims{grid, reinterpret_cast<const float4*>(packed), X, Y, Z,
                       hi0, hi1, hi2};
   const rollout::Shape s{cand,  active, q_obs, margin_part, ee,
                          q_con, C,      T,     n_params,    cpb,
-                         n_slab, n_con, dt,    clearance};
+                         n_slab, n_con, cand_major, dt, clearance};
   return rollout::with_chain(d, nb, skip_rotf, [&](auto chain) {
     return rollout::with_params<kRegisterFloats>(
         params, n_params, host_params, ns, nx, [&](auto k, const auto& par) {

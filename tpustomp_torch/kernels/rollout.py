@@ -6,7 +6,7 @@ of the contract of their wrapper ``obstacle_cost_batch_pallas``:
 
 - ``rollout_analytic`` (``csrc/rollout_analytic.cu``), for `AnalyticWorld`:
   K3 (pallas_call :741); K4 (:755, the candidate-major [C, T, d] input,
-  permuted here into the kernel's time-major layout); K1 (:257, robots
+  which the kernel stages itself: no copy runs before it); K1 (:257, robots
   with ``body_counts=None``, whose bodies are stable-sorted by link here).
   Its variant ``rollout_analytic:per_cand_world`` is K3 with
   ``per_cand_world=True``: one set of spheres/boxes per row of candidates.
@@ -29,11 +29,18 @@ how the design answers that): a block holds a few candidates' joint tile,
 and its warps walk windows of 30 owned (candidate, waypoint) pairs laid end
 to end over the active candidates, a halo lane on either side (the lane
 plan is :func:`_plan`); the robot and a shared world travel in a kernel
-parameter block filled on the host (:func:`_host_params`), read as
-constant-bank operands; a robot or world without host copies, or above the
-block, takes the memory path (:func:`pack_params` on the device, staged in
-shared memory), another instantiation of the same kernel
-(``PARAM_ROUTES`` counts both); a grid with a packed corner table is read
+parameter block filled on the host, read as constant-bank operands: the
+3 KB block, or the 31 KB large block for a set above it (both with the
+world's counts compiled in; :func:`param_route`), filled from the
+tensors' host copies (:func:`_host_params`) or, for a set without them (built on the card,
+changed in place), from one read of :func:`pack_params`'s device vector
+per set of tensors and versions at the set's second launch
+(:func:`_launch_params`; a write that bumps no version counter is not
+seen). Tensors moved under ``torch.inference_mode()`` (no version
+counter), sets above the large block and the first launch of a set
+without host copies take the memory path (:func:`pack_params` on the
+device, staged in shared memory). Each route is an instantiation of the same kernel
+(``PARAM_ROUTES`` counts them); a grid with a packed corner table is read
 through it.
 Each source is compiled with nvcc into a
 shared library with a plain C interface at first use, into
@@ -100,11 +107,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # starts with; params is a host pointer when host_params is 1
 _HEAD = [_P, _P, _I, _I]
 # (active, q_obs, margin_part, ee, q_con, C, T, d, nb, ns, nx, n_con, dt,
-#  clearance, skip_rotf, cpb, n_slab, stream, resident): the arguments every
-# entry point ends with; resident is null on a launch (rollout_occupancy: an
-# int the call fills instead of launching)
+#  clearance, skip_rotf, cpb, n_slab, cand_major, stream, resident): the
+# arguments every entry point ends with; cand_major is 1 for a [C, T, d]
+# cand; resident is null on a launch (rollout_occupancy: an int the call
+# fills instead of launching)
 _TAIL = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-         _P, _P]
+         _I, _P, _P]
 _GRID = [_P, _P, _I, _I, _I, _F, _F, _F]      # grid, packed, X, Y, Z, hi[3]
 _ROWS = [_P, _P, _I]                          # spheres, boxes, cands_per_row
 # kernel variant -> (source in csrc/, C entry point, its argument types)
@@ -128,16 +136,24 @@ _SOURCES = ("rollout_analytic", "rollout_grid")
 # that writes the constraints' cost (the constraint route) ":con".
 LAUNCHES = {name + chain + form: 0 for name in _ENTRIES
             for chain in ("", ":runtime") for form in ("", ":ee", ":con")}
-# Launches by where their parameters lived: "block", the kernel parameter
-# block filled on the host, or "memory", staged from device memory (a robot
-# or world without host mirrors, or above _PARAM_FLOATS); reset with
-# LAUNCHES.
-PARAM_ROUTES = {"block": 0, "memory": 0}
-# Launches by the layout the candidates came in: "time_major" ([d, T, C],
-# the kernels' own) or "candidate_major" ([C, T, d], permuted on the device
-# first: the TPU's K4, which the solver's finalize takes); reset with
-# LAUNCHES.
+# Launches by where their parameters lived (:func:`param_route`): "block",
+# the 3 KB kernel parameter block filled on the host; "large_block", the
+# 31 KB one, for a set above _PARAM_FLOATS; or "memory", staged from device
+# memory (tensors moved under torch.inference_mode(), or a set above
+# _LARGE_PARAM_FLOATS); reset with LAUNCHES.
+PARAM_ROUTES = {"block": 0, "large_block": 0, "memory": 0}
+# Reads of a device-packed parameter vector into a block (a set without
+# host copies, at its second launch: one per set of tensors and versions;
+# its first launch takes the memory path); reset with LAUNCHES.
+PARAM_READS = {"device": 0}
+# Launches by the layout the candidates came in: "time_major" ([d, T, C])
+# or "candidate_major" ([C, T, d], the TPU's K4, which the solver's
+# _evaluate takes; the kernel stages either layout); reset with LAUNCHES.
 LAYOUTS = {"time_major": 0, "candidate_major": 0}
+# Launches by the robot's body order: "sorted" (body_counts: link-sorted
+# bodies) or "unsorted" (body_counts=None, the TPU's K1 / K2: the bodies
+# are sorted by link in pack_params); reset with LAUNCHES.
+BODY_ORDER = {"sorted": 0, "unsorted": 0}
 # Seconds of each library's first build in this process, by (source, chain).
 BUILD_SECONDS: dict[tuple, float] = {}
 
@@ -150,13 +166,15 @@ _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 # The lane plan (csrc/rollout_common.cuh kWarp, kWarps, kCore, kMaxCands,
 # kRowFloats): warps of 32 lanes, 8 a block, windows of 30 owned lanes, at
 # most 16 candidates a block, a staged per-row world of at most 16 floats;
-# the parameter block's capacity (kParamFloats).
+# the parameter block's capacity (kParamFloats) and the large block's
+# (kLargeParamFloats).
 _WARP = 32
 _WARPS = 8
 _CORE = _WARP - 2
 _MAX_CANDS = 16
 _ROW_FLOATS = 16
 _PARAM_FLOATS = 768
+_LARGE_PARAM_FLOATS = 7936
 # A constraint in the parameters' constraint section (kConFloats)
 _CON_FLOATS = 9
 # Resident blocks per SM the plan counts on (csrc/rollout_common.cuh
@@ -184,13 +202,15 @@ _MIN_CANDS_EE = 8
 _OTHER = 2
 
 _libs: dict[tuple, ctypes.CDLL] = {}
-# _host_params's cache (at most 64 entries): key -> (weak references to
-# the tensors, their versions, the vector or None)
-_HOST_PARAMS: dict[tuple, tuple] = {}
+# _launch_params's cache of host vectors (at most 64 entries): key ->
+# (weak references to the tensors, their versions, (route, numpy vector),
+# or None for a set without host copies launched once, not read yet)
+_LAUNCH_PARAMS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, PARAM_ROUTES, LAYOUTS):
+    for counts in (LAUNCHES, PARAM_ROUTES, PARAM_READS, LAYOUTS,
+                   BODY_ORDER):
         for name in counts:
             counts[name] = 0
 
@@ -349,8 +369,9 @@ def _world_parts(world):
 def pack_params(robot, world, constraints=()) -> torch.Tensor:
     """Robot + world parameters as the kernels' packed float32 vector (layout
     in the header of csrc/rollout_common.cuh), on the robot's device: the
-    memory path's parameters (:func:`_host_params` runs it on the host
-    copies for the parameter block). A world with a row axis
+    memory path's parameters, and what a set without host copies reads to
+    the host once for the parameter block (:func:`_launch_params`;
+    :func:`_host_params` runs it on the host copies). A world with a row axis
     contributes only its grid's origin and resolution: its primitives go to
     the kernel as their own arrays (_prim_arrays). `constraints` (a tuple,
     as costs/constraints.py as_tuple) append the constraint route's
@@ -450,9 +471,12 @@ def _plan(C: int, T: int, d: int, ee: bool = False, staged: int = 0,
     card's `sms` SMs (a small batch takes fewer candidates a block, so its
     warps stay about one window deep); with ee, among those of at least
     _MIN_CANDS_EE where there are any. `staged`: parameters staged in
-    shared memory (the memory path). The constraint route (`con`: one more
-    staged plane) plans as without ee."""
-    budget = _SMEM_BUDGET_EE if ee else _SMEM_BUDGET
+    shared memory (the memory path), on top of the budget: the memory path
+    now holds the sets above the large block, whose staged parameters alone
+    pass it. The constraint route (`con`: one more staged plane) plans as
+    without ee."""
+    budget = ((_SMEM_BUDGET_EE if ee else _SMEM_BUDGET)
+              + ((staged + 31) & ~31))
     n_slab, n = 1, 1
     while (n_slab < T
            and _smem_floats(staged, d, 1, T, n_slab, ee, con) > budget):
@@ -467,16 +491,12 @@ def _plan(C: int, T: int, d: int, ee: bool = False, staged: int = 0,
     return cpb, n_slab
 
 
-def _host_params(robot, world, shared: bool, constraints=()):
-    """pack_params's vector, as numpy float32, from the host mirrors of the
-    robot's, the world's and the constraints' tensors
-    (_tensors.host_mirror): the kernel's parameter block. None when a
-    tensor has no mirror (made on the device, or changed in place since it
-    was moved) or the vector exceeds _PARAM_FLOATS: the launch then takes
-    the memory path. `shared`: the world's primitives go in too (not for a
-    world with a row axis). `constraints` (a tuple): the constraint route's
-    section. Cached per set of tensors: a hit needs the very tensors,
-    alive, at the same versions."""
+def _param_set(robot, world, shared: bool, constraints=()):
+    """(parts, tensors, key): the objects and tensor fields
+    :func:`pack_params` reads values from, {name: (object, [field names])}
+    (the robot, a shared world's primitives (`shared`), a grid's origin and
+    resolution, each constraint), those tensors, and the caches' key for
+    them (their ids and what else decides the vector's layout)."""
     grid, prims = _world_parts(world)
     names = ["base_rot", "base_pos", "joint_type", "joint_axis",
              "joint_offset", "joint_rot", "body_offset", "body_radius"]
@@ -498,12 +518,64 @@ def _host_params(robot, world, shared: bool, constraints=()):
                for n in fields]
     key = (robot.body_counts, shared, grid is not None, prims is not None,
            orient) + tuple(id(t) for t in tensors)
-    hit = _HOST_PARAMS.get(key)
-    if hit is not None:
-        refs, versions, out = hit
-        if all(r() is t and t._version == v
-               for r, v, t in zip(refs, versions, tensors)):
-            return out
+    return parts, tensors, key
+
+
+def _param_floats(robot, world, shared: bool, n_con: int = 0) -> int:
+    """The length of :func:`pack_params`'s vector, from shapes alone (no
+    device value is read): the robot's 12 + 17 d + 1 + 4 nb, a shared
+    world's 4 a sphere and 6 a box, a grid's 4, _CON_FLOATS a
+    constraint."""
+    d, nb = robot.num_joints, robot.num_bodies
+    n = 12 + 17 * d + 1 + 4 * nb
+    grid, prims = _world_parts(world)
+    if shared and prims is not None:
+        n += (4 * prims.sphere_radius.shape[-1]
+              + 6 * prims.box_half.shape[-2])
+    return n + (4 if grid is not None else 0) + _CON_FLOATS * n_con
+
+
+def _route(n_params: int, inference: bool) -> str:
+    return ("memory" if inference
+            else "block" if n_params <= _PARAM_FLOATS
+            else "large_block" if n_params <= _LARGE_PARAM_FLOATS
+            else "memory")
+
+
+def param_route(robot, world, shared: bool = True, constraints=()) -> str:
+    """Where a launch's parameters live, decided from shapes and tensor
+    kinds alone (no device value is read; CPU tests call it on the "meta"
+    device): "block", the 3 KB kernel parameter block, for a set of at most
+    _PARAM_FLOATS floats; "large_block", the 31 KB one, up to
+    _LARGE_PARAM_FLOATS (a robot of about 150 bodies or more, a shared
+    world of about 100 boxes or 150 spheres); "memory" (staged in shared
+    memory from device memory) above that, and for any tensor moved under
+    torch.inference_mode(): it keeps no version counter, so no copy of its
+    values may be cached. Both blocks are filled on the host, from host
+    copies or one device read per set (:func:`_launch_params`); a set
+    without host copies takes the memory path at its first launch and this
+    route from its second.
+    `shared`: the world's primitives are parameters (not a world with a
+    row axis); `constraints` a tuple, the constraint route's section."""
+    _, tensors, _ = _param_set(robot, world, shared, constraints)
+    return _route(_param_floats(robot, world, shared, len(constraints)),
+                  any(t.is_inference() for t in tensors))
+
+
+def _host_params(robot, world, shared: bool, constraints=()):
+    """pack_params's vector, as numpy float32, from the host mirrors of the
+    robot's, the world's and the constraints' tensors
+    (_tensors.host_mirror): the parameter block's, or the large block's
+    above _PARAM_FLOATS. None when a tensor has no mirror (made on the
+    device, changed in place since it was moved, or moved under
+    inference_mode) or the vector exceeds _LARGE_PARAM_FLOATS.
+    `shared`: the world's primitives go in too (not for a world with a row
+    axis). `constraints` (a tuple): the constraint route's section.
+    :func:`_launch_params` caches what it returns."""
+    grid, prims = _world_parts(world)
+    parts, tensors, _ = _param_set(robot, world, shared, constraints)
+    if any(t.is_inference() for t in tensors):
+        return None
     host = [host_mirror(t) for t in tensors]
     if any(h is None for h in host):
         return None
@@ -520,13 +592,52 @@ def _host_params(robot, world, shared: bool, constraints=()):
                                         overlay=h_prims))
     out = pack_params(cpu["robot"], h_world, tuple(
         cpu[f"con{i}"] for i in range(len(constraints)))).numpy()
-    if out.size > _PARAM_FLOATS:
-        out = None
-    _HOST_PARAMS[key] = (tuple(weakref.ref(t) for t in tensors),
-                         tuple(t._version for t in tensors), out)
-    if len(_HOST_PARAMS) > 64:
-        _HOST_PARAMS.clear()
-    return out
+    return out if out.size <= _LARGE_PARAM_FLOATS else None
+
+
+def _launch_params(robot, world, shared: bool, constraints=()):
+    """(route, params) of a launch: for "block" and "large_block"
+    (:func:`param_route`) the vector as numpy float32, from the host copies
+    (:func:`_host_params`) or, for a set without them (built on the card,
+    changed in place since it was moved) launched a second time, from one
+    read of :func:`pack_params`'s device vector (PARAM_READS), which waits
+    for the work queued on the current stream; for "memory" the device
+    vector, packed on the current stream at every launch and never cached
+    (a launch on another stream would read it unordered). A set without
+    host copies takes "memory" at its first launch, as a set used once (a
+    world built anew, or changed in place, before every call) costs no host
+    sync; the launch that finds it again makes the read. The host vectors
+    are cached per set of tensors and versions, as the host copies are, so
+    a launch that hits does no more host work than the lookup, and a tensor
+    changed in place by a torch op is packed again. A write that does not
+    bump the tensor's version counter (through `.data`, a DLPack alias, a
+    custom CUDA op, a CUDA-graph replay) is not seen once the set is read:
+    a set written that way must be new tensors, or be changed by torch
+    ops."""
+    _, tensors, key = _param_set(robot, world, shared, constraints)
+    hit = _LAUNCH_PARAMS.get(key)
+    seen = hit is not None and all(
+        r() is t and t._version == v
+        for r, v, t in zip(hit[0], hit[1], tensors))
+    if seen and hit[2] is not None:
+        return hit[2]
+    route = _route(_param_floats(robot, world, shared, len(constraints)),
+                   any(t.is_inference() for t in tensors))
+    if route == "memory":
+        return route, pack_params(robot, world, constraints)
+    out = None
+    if all(host_mirror(t) is not None for t in tensors):
+        out = (route, _host_params(robot, world, shared, constraints))
+    elif seen:
+        # the one read of this set: ordered after pack_params on the
+        # current stream (a copy to the host waits for it)
+        out = (route, pack_params(robot, world, constraints).cpu().numpy())
+        PARAM_READS["device"] += 1
+    if len(_LAUNCH_PARAMS) >= 64:
+        _LAUNCH_PARAMS.clear()      # before the insert: the new entry stays
+    _LAUNCH_PARAMS[key] = (tuple(map(weakref.ref, tensors)),
+                           tuple(t._version for t in tensors), out)
+    return out or ("memory", pack_params(robot, world, constraints))
 
 
 def _cands_per_row(world, C: int, cands_per_row):
@@ -606,7 +717,8 @@ def obstacle_cost_batch(robot, world, full_trajs: torch.Tensor, dt: float,
     spheres/boxes (the overlay's for a composite).
 
     full_trajs: [C, T, d], or the time-major [d, T, C] with time_major=True
-    (the layout the kernels read; the batched solver builds it directly).
+    (the batched solver's STOMP step builds it directly); the kernels read
+    either as it is, and give the same results bit for bit.
     Returns (q_obs [C, T], margin [C]); with want_ee=True also the
     end-effector frame ee [12, T, C] (the ``:ee`` form of the kernel); with
     `constraints` (None, one OrientationConstraint / PositionConstraint or
@@ -662,8 +774,10 @@ def rollout_occupancy(robot, world, full_trajs: torch.Tensor, dt: float,
                       want_ee: bool = False, constraints=None) -> int:
     """Resident blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
     of the kernel :func:`obstacle_cost_batch` launches for these CUDA
-    arguments, at its plan's shared memory; launches nothing and counts
-    nothing (a diagnostic: chip_compare.py records it)."""
+    arguments (on :func:`param_route`'s route: for a set without host
+    copies, that of its repeat launches), at its plan's shared memory;
+    launches nothing, counts nothing and reads no device value (a
+    diagnostic: chip_compare.py records it)."""
     grid, prims = _world_parts(world)
     C = full_trajs.shape[-1 if time_major else 0]
     per = _cands_per_row(world, C, cands_per_row)
@@ -721,24 +835,30 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
     if full_trajs.dtype != torch.float32 or full_trajs.dim() != 3:
         raise ValueError(f"trajectories must be a 3-D float32 tensor, got "
                          f"{full_trajs.dtype} {tuple(full_trajs.shape)}")
-    cand = full_trajs if time_major else full_trajs.permute(2, 1, 0)
-    cand = cand.contiguous()                               # [d, T, C]
-    d, T, C = cand.shape
+    # either layout as it comes: the kernel stages [C, T, d] itself (K4)
+    cand = full_trajs.contiguous()
+    d, T, C = cand.shape if time_major else cand.shape[::-1]
     if d != robot.num_joints:
         raise ValueError(f"trajectories have {d} joints, robot has "
                          f"{robot.num_joints}")
     if T < 2:
         raise ValueError("need at least 2 waypoints (workspace speed)")
     dev = cand.device
-    # the parameter block from the host mirrors, else the memory path
-    host = _host_params(robot, world, per is None, cons or ())
-    if host is not None:
-        head = (cand.data_ptr(), host.ctypes.data, host.size, 1)
-        staged, route = 0, "block"
+    shared, con_set = per is None, cons or ()
+    if resident is None:
+        route, params = _launch_params(robot, world, shared, con_set)
     else:
-        params = pack_params(robot, world, cons or ())
-        head = (cand.data_ptr(), params.data_ptr(), params.numel(), 0)
-        staged, route = params.numel(), "memory"
+        # the occupancy query reads no device value: the route from shapes,
+        # and zeros of the set's length for its parameters (on the memory
+        # path a pointer the query never follows)
+        route = param_route(robot, world, shared, con_set)
+        n = _param_floats(robot, world, shared, len(con_set))
+        params = np.zeros(n, np.float32)
+    n_params = len(params)
+    ptr = (params.data_ptr() if isinstance(params, torch.Tensor)
+           else params.ctypes.data)
+    head = (cand.data_ptr(), ptr, n_params, int(route != "memory"))
+    staged = n_params if route == "memory" else 0
     active = None
     if row_active is not None:
         if row_active.shape != (C,) or row_active.device != dev:
@@ -762,7 +882,7 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
             None if q_con is None else q_con.data_ptr(), C, T, d,
             robot.num_bodies, ns, nx, len(cons or ()), float(dt),
             float(clearance), int(bool(robot.rot_fixed_identity)), cpb,
-            n_slab)
+            n_slab, int(not time_major))
     query = None if resident is None else ctypes.byref(resident)
     rows = ()
     if per is not None:
@@ -794,6 +914,7 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
     LAUNCHES[name] += 1
     PARAM_ROUTES[route] += 1
     LAYOUTS["time_major" if time_major else "candidate_major"] += 1
+    BODY_ORDER["unsorted" if robot.body_counts is None else "sorted"] += 1
     margin = margin_part[0] if n_slab == 1 else margin_part.amin(dim=0)
     if want_ee:
         return q_obs.t(), margin, ee
