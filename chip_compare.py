@@ -62,7 +62,17 @@ default):
             three turns of unconstrained then constrained plan_batch
             (overhead %, success, mean max cone excess), then one
             torch.profiler window over each: kernels per iteration, the
-            constrained run's extra kernels per iteration, idle share.
+            constrained run's extra kernels per iteration, idle share;
+  solver    chip_smoke.py phase 13's solves (config 4 over the box and the
+            voxel tabletop and with the cone, config 2's plan, config 3's
+            CHOMP plan_batch), and config 4 and 2 with a robot and world
+            built on the CPU at every call, a box world built on the card
+            and an IncrementalSDF edited before every call, with each
+            version's own solver loop (a version with engine/graph.py also
+            its eager loop, in turns), each version in a process of its
+            own, in the order other, this, this, other: median wall,
+            solves/s, and a hash of each result (equal hashes: the same
+            bits).
 
 Imports nothing of JAX. Prints one JSON object per result, tagged
 ``[compare:<phase>]``, and the card's name and power limit first and last.
@@ -88,7 +98,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "episodes", "constrained")
+PHASES = ("build", "kernels", "episodes", "constrained", "solver")
 # the package's own nvcc target (tpustomp_torch/kernels/rollout.py)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3")
 cs = None   # chip_smoke, imported once the package's root is on sys.path
@@ -826,6 +836,113 @@ def constrained_worker(label):
                 - window["unconstrained"]["kernels_per_iteration"]))
 
 
+def solver_worker(label):
+    """One version's solves, in this process's package: chip_smoke.py
+    phase 13's cases, and the forms a user's calls take: a robot and world
+    built on the CPU anew at every call with device="cuda" (the README's;
+    `host_objects`), a box world built on the card (`device_world`), and
+    the voxel tabletop as an IncrementalSDF edited (a small box set and
+    cleared in turn, untimed) before every call (`incremental`). Each case
+    is a first call (a version with engine/graph.py captures its graph
+    there) then timed calls (4; config 2's 8), each between two syncs; a
+    version with engine/graph.py times its graphed loop and its eager loop
+    (graph.eager()) in turns. The median wall and solves/s per loop, and a
+    hash of the first result's trajectory and cost (the same in both
+    versions and loops when nothing moved a bit)."""
+    import contextlib
+    import hashlib
+
+    import yaml
+
+    import tpustomp_torch
+    from tpustomp_torch import ProblemSpec, plan, plan_batch
+    from tpustomp_torch.api.config import from_dict
+    from tpustomp_torch.robot.model import arm_7dof
+    from tpustomp_torch.world.edt import IncrementalSDF, occupancy_from_analytic
+    from tpustomp_torch.world.sdf import AnalyticWorld
+
+    dev = torch.device("cuda")
+    b = Bench(dev)
+    with open(os.path.join(ROOT, "configs", "config3_chomp.yaml")) as f:
+        doc3 = yaml.safe_load(f)
+    with open(os.path.join(ROOT, "configs", "config2_tabletop.yaml")) as f:
+        scene = yaml.safe_load(f)["scene"]
+    cfg3 = from_dict(doc3["planner"])
+    world3 = cs.tabletop(doc3["scene"]).to(dev)
+    prob4 = ProblemSpec(q0=b.problems4.q, qN=b.problems4.qN)
+    prob2 = ProblemSpec(q0=b.problems2.q[0], qN=b.problems2.qN[0])
+    cfg_con = b.cfg2.replace(max_iterations=50,
+                             max_iterations_after_collision_free=10**6)
+    device_world = AnalyticWorld(*(getattr(b.world, f.name).to(dev) * 1.0
+                                   for f in dataclasses.fields(b.world)))
+    spec = scene["grid"]
+    inc = IncrementalSDF(occupancy_from_analytic(
+        cs.tabletop(scene), spec["origin"], tuple(spec["shape"]),
+        spec["resolution"]), spec["origin"], spec["resolution"],
+        max_distance=0.5, device=dev)
+    edits = []
+
+    def edit():
+        inc.set_box((30, 40, 30), (34, 44, 34), len(edits) % 2 == 0)
+        edits.append(1)
+
+    def gen():
+        return torch.Generator(dev).manual_seed(0)
+
+    cases = {
+        "config4": (b.B4, lambda: plan_batch(b.robot, b.world, prob4, b.cfg4,
+                                             device=dev, generator=gen())),
+        "config4_grid": (b.B4, lambda: plan_batch(
+            b.robot, b.grid, prob4, b.cfg4, device=dev, generator=gen())),
+        "config4_constrained": (b.B4, lambda: plan_batch(
+            b.robot, b.world, prob4, cfg_con, device=dev,
+            constraints=b.cone, generator=gen())),
+        "config2": (1, lambda: plan(b.robot, b.world, prob2, b.cfg2,
+                                    device=dev, generator=gen())),
+        "config3_batch": (b.B4, lambda: plan_batch(
+            b.robot, world3, prob4, cfg3, device=dev, generator=gen())),
+        "config4_host_objects": (b.B4, lambda: plan_batch(
+            arm_7dof(), cs.tabletop(scene), prob4, b.cfg4, device="cuda",
+            generator=gen())),
+        "config2_host_objects": (1, lambda: plan(
+            arm_7dof(), cs.tabletop(scene), prob2, b.cfg2, device="cuda",
+            generator=gen())),
+        "config4_device_world": (b.B4, lambda: plan_batch(
+            b.robot, device_world, prob4, b.cfg4, device=dev,
+            generator=gen())),
+        "config4_incremental": (b.B4, lambda: plan_batch(
+            b.robot, inc.as_world(), prob4, b.cfg4, device=dev,
+            generator=gen())),
+    }
+    try:
+        from tpustomp_torch.engine import graph
+        loops = {"graphed": contextlib.nullcontext, "eager": graph.eager}
+    except ImportError:
+        loops = {"eager": contextlib.nullcontext}
+    for name, (B, run) in cases.items():
+        edited = name.endswith("incremental")
+        if edited:
+            edit()
+        first, first_wall = cs.synced(run)
+        walls = {mode: [] for mode in loops}
+        order = list(loops)
+        for i in range(8 if B == 1 else 4):
+            for mode in (order if i % 2 == 0 else order[::-1]):
+                if edited:
+                    edit()
+                with loops[mode]():
+                    walls[mode].append(cs.synced(run)[1])
+        med = {mode: float(np.median(w)) for mode, w in walls.items()}
+        digest = hashlib.sha256(
+            first.trajectory.cpu().numpy().tobytes()
+            + first.cost.cpu().numpy().tobytes()).hexdigest()[:16]
+        say("solver", case=name, version=label, B=B, first_wall_s=first_wall,
+            wall_s=walls, median_wall_s=med,
+            per_s={mode: B / m for mode, m in med.items()},
+            result_sha256_16=digest,
+            package=os.path.dirname(tpustomp_torch.__file__))
+
+
 def main():
     global cs
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -838,7 +955,8 @@ def main():
     ap.add_argument("--worker", choices=("this", "other"),
                     help="run one version's episodes or constrained runs "
                          "in this process")
-    ap.add_argument("--worker-phase", choices=("episodes", "constrained"),
+    ap.add_argument("--worker-phase",
+                    choices=("episodes", "constrained", "solver"),
                     default="episodes")
     args = ap.parse_args()
     roots = {"this": ROOT, "other": os.path.abspath(args.against)}
@@ -850,8 +968,8 @@ def main():
         sys.path.insert(0, roots[args.worker])
         import chip_smoke
         cs = chip_smoke
-        {"episodes": episodes_worker,
-         "constrained": constrained_worker}[args.worker_phase](args.worker)
+        {"episodes": episodes_worker, "constrained": constrained_worker,
+         "solver": solver_worker}[args.worker_phase](args.worker)
         return
     import chip_smoke
     cs = chip_smoke
@@ -901,7 +1019,7 @@ def main():
         kernels_phase(this, other, kernel_cases(Bench(torch.device("cuda"))),
                       [c for c in args.cases.split(",") if c])
         torch.cuda.empty_cache()
-    for phase in ("episodes", "constrained"):
+    for phase in ("episodes", "constrained", "solver"):
         if phase not in phases:
             continue
         for side in ("other", "this", "this", "other"):

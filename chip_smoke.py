@@ -140,8 +140,19 @@ and fails (non-zero exit, no result line) on any error:
      scenarios x 100 ticks, analytic and --grid): rc 0, JAX's keys, wall;
      a config-5 episode checkpointed at tick 50 (state and generator),
      restored into freshly built objects and finished, bitwise the
-     uninterrupted episode; one utils.tracing.profile window over a
-     config-4 plan_batch: kernels per iteration and the device's idle share.
+     uninterrupted episode; utils.tracing.profile windows over a config-4
+     plan_batch, with the eager loop and replaying the solver's CUDA graph:
+     kernels and host launches per iteration and the device's idle share.
+ 13. the solver loop's CUDA graphs (engine/graph.py, the counterpart of
+     the JAX package's jitted while_loop): every solve of phases 4-12 but
+     MPC's (per-row worlds, eager by design) must have replayed its graph;
+     here config 4 (box, voxel, cone, a box world built on the card),
+     config 2's plan (also with the robot and world built on the CPU at
+     every call), config 3's CHOMP plan and plan_batch and HMC run eager
+     against graphed in turns: walls, solves/s or latency, the first
+     graphed call's capture and instantiate ms and the graph pool's
+     bytes, results bitwise equal, no graphed call capturing anew or
+     launching on the memory path.
 
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
@@ -711,11 +722,18 @@ def edges_phase(rollout, robot, world, grid, smi):
     return worst
 
 
+def replayed(graph):
+    """The run since graph.reset_counts() replayed the solver's CUDA graph
+    (engine/graph.py): a main path that stayed eager fails the smoke."""
+    assert graph.GRAPHS["replayed"] > 0, dict(graph.GRAPHS)
+
+
 def timed_plan_batch(rollout, robot, world, cfg, q0b, qNb, **kw):
     """plan_batch after a 16-row warm-up; the launch counts are set to 0
-    just before the timed run and read just after. Returns (Solution,
-    wall s, launches)."""
+    just before the timed run and read just after, and the run must have
+    replayed its CUDA graph. Returns (Solution, wall s, launches)."""
     from tpustomp_torch import ProblemSpec, plan_batch
+    from tpustomp_torch.engine import graph
 
     dev = robot.joint_axis.device
     plan_batch(robot, world, ProblemSpec(q0=q0b[:16], qN=qNb[:16]), cfg,
@@ -723,6 +741,7 @@ def timed_plan_batch(rollout, robot, world, cfg, q0b, qNb, **kw):
                **kw)
     torch.cuda.synchronize()
     rollout.reset_launches()
+    graph.reset_counts()
     t0 = time.perf_counter()
     sol = plan_batch(robot, world, ProblemSpec(q0=q0b, qN=qNb), cfg,
                      device=dev, generator=torch.Generator(dev).manual_seed(0),
@@ -730,6 +749,7 @@ def timed_plan_batch(rollout, robot, world, cfg, q0b, qNb, **kw):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in rollout.LAUNCHES.items() if v}
+    replayed(graph)
     B, T, d = q0b.shape[0], cfg.num_timesteps + 2, q0b.shape[1]
     assert sol.trajectory.shape == (B, T, d), sol.trajectory.shape
     assert bool(torch.isfinite(sol.trajectory).all()
@@ -830,18 +850,22 @@ def cuda_vs_cpu_phase(label, robot, world, cfg4, q0b, qNb):
 
 
 def plan_phase(label, kernel, rollout, robot, world, cfg2, scene, smi):
-    """Phase 5/5g: one config-2 query through plan; asserts success."""
+    """Phase 5/5g: one config-2 query through plan; asserts success and
+    that the solver loop replayed its CUDA graph."""
     from tpustomp_torch import ProblemSpec, plan
+    from tpustomp_torch.engine import graph
 
     dev = robot.joint_axis.device
     q0 = np.asarray(scene["q0"], np.float32)
     qN = np.asarray(scene["qN"], np.float32)
     launches0 = rollout.LAUNCHES[kernel]
+    graph.reset_counts()
     t0 = time.perf_counter()
     one = plan(robot, world, ProblemSpec(q0=q0, qN=qN), cfg2, device=dev,
                generator=torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    replayed(graph)
     say(f"plan:{label}", success=bool(one.success),
         restarts=cfg2.num_restarts, iterations=int(one.iterations),
         cost=float(one.cost), wall_s=wall,
@@ -1676,11 +1700,16 @@ def synced(fn):
 
 def counted(rollout, kernel, fn):
     """fn() with the launch counts set to 0 just before and read just after;
-    returns (result, wall s, launches). The kernel must have launched."""
+    returns (result, wall s, launches). The kernel must have launched, and
+    the solver loop must have replayed its CUDA graph."""
+    from tpustomp_torch.engine import graph
+
     rollout.reset_launches()
+    graph.reset_counts()
     out, wall = synced(fn)
     launches = {k: v for k, v in rollout.LAUNCHES.items() if v}
     assert launches.get(kernel, 0) > 0, (kernel, launches)
+    replayed(graph)
     return out, wall, launches
 
 
@@ -2252,55 +2281,230 @@ def checkpoint_phase(rollout, robot, cfg5, spec5, world, states, ticks,
     return launches["rollout_analytic:per_cand_world"]
 
 
-def profile_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
-    """[profile:config4]: one utils.tracing.profile window (torch.profiler,
-    CPU and CUDA activity, Chrome trace) over a config-4 plan_batch: kernels
-    per iteration, device busy time, the idle share of the window (1 -
-    busy / wall; the profiler's host cost inflates the wall), the
-    evaluator's share, the largest kernels. Returns the analytic launches."""
+def differing(a, b):
+    """The fields of two results (Solutions, or tune's tables) that are not
+    bitwise equal."""
+    if not dataclasses.is_dataclass(b):
+        return [] if a == b else ["value"]
+    out = []
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(y):
+            out += [f"{f.name}.{g}" for g in differing(x, y)]
+        elif y is not None and not torch.equal(x, y):
+            out.append(f.name)
+    return out
+
+
+def graph_turns(label, run, smi, B=1, turns=4):
+    """[graph:<label>]: run() with the solver loop replaying its cached CUDA
+    graph against the eager loop (engine/graph.eager()). The cache is
+    emptied first, so the first graphed call captures (its wall, capture
+    and instantiate ms, the pool's bytes); then `turns` pairs in turns
+    (eager, graphed, graphed, eager, ...), each wall between two syncs.
+    Every result bitwise the first call's; every graphed call replays,
+    captures nothing and launches nothing on the memory path (its graph
+    holds the parameter block, a world built on the card too), no eager
+    call replays. Returns the median walls."""
+    from tpustomp_torch.engine import graph
+    from tpustomp_torch.kernels import rollout
+
+    graph.clear()
+    graph.reset_counts()
+    first, first_wall = synced(run)
+    replayed(graph)
+    capture = graph.cached()
+    walls = {"eager": [], "graphed": []}
+    for i in range(turns):
+        for mode in (("eager", "graphed") if i % 2 == 0
+                     else ("graphed", "eager")):
+            graph.reset_counts()
+            if mode == "eager":
+                with graph.eager():
+                    out, wall = synced(run)
+                assert graph.GRAPHS["replayed"] == 0, dict(graph.GRAPHS)
+            else:
+                memory = rollout.PARAM_ROUTES["memory"]
+                out, wall = synced(run)
+                replayed(graph)
+                assert graph.GRAPHS["captured"] == 0, dict(graph.GRAPHS)
+                assert rollout.PARAM_ROUTES["memory"] == memory, label
+            walls[mode].append(wall)
+            bad = differing(out, first)
+            assert not bad, (label, mode, bad)
+    med = {m: float(np.median(w)) for m, w in walls.items()}
+    say(f"graph:{label}", B=B, eager_wall_s=walls["eager"],
+        graphed_wall_s=walls["graphed"], median_eager_s=med["eager"],
+        median_graphed_s=med["graphed"],
+        eager_per_s=B / med["eager"], graphed_per_s=B / med["graphed"],
+        graphed_over_eager=med["eager"] / med["graphed"],
+        first_graphed_wall_s=first_wall, graphs=capture,
+        bitwise_equal=True, card=smi)
+    return med
+
+
+def graph_phases(robot, world, grid, cfg4, cfg2, cfg_con, cone, cfg3, world3,
+                 cfg_hmc, scene, doc3, q0b, qNb, smi):
+    """Phase 13: each main path with the solver loop replaying its CUDA
+    graph against the eager loop, in turns, bitwise: config 4 (B = 1,024)
+    over the box and the voxel tabletop, with the cone, and over a box
+    world built on the card; config 2's plan (p50 latency over 8 calls a
+    mode), also with the robot and world built on the CPU at every call
+    (the README's form: the graph is hit all the same); config 3's CHOMP
+    plan and plan_batch (B = 1,024), and HMC (B = 256)."""
+    from tpustomp_torch import ProblemSpec, plan, plan_batch
+    from tpustomp_torch.robot.model import arm_7dof
+    from tpustomp_torch.world.sdf import AnalyticWorld
+
+    dev = robot.joint_axis.device
+    prob = ProblemSpec(q0=q0b, qN=qNb)
+    on_card = AnalyticWorld(*(getattr(world, f.name) * 1.0
+                              for f in dataclasses.fields(world)))
+    for label, w, cfg, kw in (
+            ("config4", world, cfg4, {}), ("config4_grid", grid, cfg4, {}),
+            ("config4_constrained", world, cfg_con,
+             dict(constraints=cone)),
+            ("config4_device_world", on_card, cfg4, {})):
+        graph_turns(label, lambda w=w, cfg=cfg, kw=kw: plan_batch(
+            robot, w, prob, cfg, generator=seeded(dev, 0), **kw), smi,
+            B=q0b.shape[0])
+    one = ProblemSpec(q0=np.asarray(scene["q0"], np.float32),
+                      qN=np.asarray(scene["qN"], np.float32))
+    graph_turns("config2", lambda: plan(robot, world, one, cfg2,
+                                        generator=seeded(dev, 0)), smi,
+                turns=8)
+    graph_turns("config2_host_objects", lambda: plan(
+        arm_7dof(), tabletop(scene), one, cfg2, device="cuda",
+        generator=seeded(dev, 0)), smi, turns=4)
+    one3 = ProblemSpec(q0=np.asarray(doc3["scene"]["q0"], np.float32),
+                       qN=np.asarray(doc3["scene"]["qN"], np.float32))
+    graph_turns("config3", lambda: plan(robot, world3, one3, cfg3,
+                                        generator=seeded(dev, 0)), smi)
+    graph_turns("config3_batch", lambda: plan_batch(
+        robot, world3, prob, cfg3, generator=seeded(dev, 0)), smi,
+        B=q0b.shape[0])
+    small = ProblemSpec(q0=q0b[:256], qN=qNb[:256])
+    graph_turns("config3_hmc", lambda: plan_batch(
+        robot, world3, small, cfg_hmc, generator=seeded(dev, 0)), smi,
+        B=256, turns=2)
+
+
+# CUDA API calls (runtime cuda*, and their cu* forms) that hand the device
+# work: a profiler window's host launches
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch",
+                 "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def profile_window(rollout, run, eager):
+    """One utils.tracing.profile window (torch.profiler, CPU and CUDA
+    activity, Chrome trace) over run(), the solver loop eager or replaying
+    its graph: (result, dict of the window's counts and times)."""
     import tempfile
 
     from torch.autograd import DeviceType
 
-    from tpustomp_torch import ProblemSpec, plan_batch
+    from tpustomp_torch.engine import graph
     from tpustomp_torch.utils import tracing
 
-    dev = robot.joint_axis.device
-    prob = ProblemSpec(q0=q0b, qN=qNb)
-    plain_sol, plain_wall = synced(lambda: plan_batch(
-        robot, world, prob, cfg4, generator=seeded(dev, 0)))
     rollout.reset_launches()
+    graph.reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         with tracing.profile(tmp) as prof:
-            sol, wall = synced(lambda: plan_batch(robot, world, prob, cfg4,
-                                                  generator=seeded(dev, 0)))
+            if eager:
+                with graph.eager():
+                    sol, wall = synced(run)
+            else:
+                sol, wall = synced(run)
         trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
-    launches = {k: v for k, v in rollout.LAUNCHES.items() if v}
-    busy = ev = 0.0
-    n_k = n_ev = 0
-    top = []
+    out = dict(wall_us=1e6 * wall, busy_us=0.0, kernels=0, host_launches=0,
+               evaluator_us=0.0, evaluator_launches=0, top=[],
+               trace_bytes=trace_bytes, graphs=dict(graph.GRAPHS),
+               kernel_launches={k: v for k, v in rollout.LAUNCHES.items()
+                                if v})
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            out["host_launches"] += e.count if e.key in HOST_LAUNCHES else 0
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
-        busy += us
-        n_k += e.count
-        top.append((us / 1e3, e.count, e.key[:60]))
+        out["busy_us"] += us
+        out["kernels"] += e.count
+        out["top"].append((us / 1e3, e.count, e.key[:60]))
         if "rollout_" in e.key:
-            ev += us
-            n_ev += e.count
-    iters = int(sol.iterations.max())
-    say("profile:config4", B=q0b.shape[0], iterations=iters,
-        wall_ms=1e3 * wall, unprofiled_wall_ms=1e3 * plain_wall,
-        device_kernel_ms=busy / 1e3, idle_pct=100 * (1 - busy / 1e6 / wall),
-        kernels=n_k, kernels_per_iteration=n_k / (iters + 1),
-        evaluator_launches=n_ev,
-        evaluator_pct_of_kernel_time=100 * ev / max(busy, 1e-9),
-        trace_bytes=trace_bytes, kernel_launches=launches,
-        top_kernels_ms_count=sorted(top, reverse=True)[:8], card=smi)
-    assert torch.equal(sol.trajectory, plain_sol.trajectory)
-    assert n_k > 0 and n_ev == launches["rollout_analytic"], (n_ev, launches)
+            out["evaluator_us"] += us
+            out["evaluator_launches"] += e.count
+    return sol, out
+
+
+def profile_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
+    """[profile:config4]: a profiler window (profile_window) over a config-4
+    plan_batch with the eager loop and one replaying the solver's CUDA
+    graph (captured before the window): kernels and host launches
+    (HOST_LAUNCHES calls) per iteration, device busy time, the idle share
+    of the window (1 - busy / wall; the profiler's host cost inflates the
+    wall), the evaluator's share, the largest kernels. Then, per mode, the
+    slope between two windows of 6 and 14 iterations (no early stop):
+    host launches and idle share of the loop's iterations alone, init and
+    finalize excluded. Returns the analytic launches of the graphed
+    window."""
+    from tpustomp_torch import ProblemSpec, plan_batch
+    from tpustomp_torch.engine import graph
+
+    dev = robot.joint_axis.device
+    prob = ProblemSpec(q0=q0b, qN=qNb)
+
+    def run(cfg):
+        return lambda: plan_batch(robot, world, prob, cfg,
+                                  generator=seeded(dev, 0))
+
+    plain_sol, plain_wall = synced(run(cfg4))
+    launches = {}
+    for mode in ("eager", "graphed"):
+        sol, w = profile_window(rollout, run(cfg4), mode == "eager")
+        iters = int(sol.iterations.max())
+        slope = {}
+        for k in (6, 14):
+            fixed = cfg4.replace(max_iterations=k,
+                                 max_iterations_after_collision_free=10**6)
+            synced(run(fixed))          # captures the graph of this config
+            slope[k] = profile_window(rollout, run(fixed),
+                                      mode == "eager")[1]
+        d = {key: (slope[14][key] - slope[6][key]) / 8
+             for key in ("host_launches", "kernels", "busy_us", "wall_us")}
+        say("profile:config4", mode=mode, B=q0b.shape[0], iterations=iters,
+            wall_ms=w["wall_us"] / 1e3, unprofiled_wall_ms=1e3 * plain_wall,
+            device_kernel_ms=w["busy_us"] / 1e3,
+            idle_pct=100 * (1 - w["busy_us"] / w["wall_us"]),
+            kernels=w["kernels"], kernels_per_iteration=w["kernels"] / (
+                iters + 1), host_launches=w["host_launches"],
+            host_launches_per_iteration=w["host_launches"] / (iters + 1),
+            loop_host_launches_per_iteration=d["host_launches"],
+            loop_kernels_per_iteration=d["kernels"],
+            loop_device_ms_per_iteration=d["busy_us"] / 1e3,
+            loop_wall_ms_per_iteration=d["wall_us"] / 1e3,
+            loop_idle_pct=100 * (1 - d["busy_us"] / d["wall_us"]),
+            evaluator_launches=w["evaluator_launches"],
+            evaluator_pct_of_kernel_time=100 * w["evaluator_us"] / max(
+                w["busy_us"], 1e-9),
+            graphs=w["graphs"], trace_bytes=w["trace_bytes"],
+            kernel_launches=w["kernel_launches"],
+            top_kernels_ms_count=sorted(w["top"], reverse=True)[:8],
+            card=smi)
+        assert torch.equal(sol.trajectory, plain_sol.trajectory)
+        assert w["kernels"] > 0
+        launches = w["kernel_launches"]
+        # the evaluator kernels the profiler saw, in a graph's replays too,
+        # are the launches the wrappers counted (a replay adds what its
+        # capture counted)
+        for win in (w, slope[6], slope[14]):
+            assert (win["evaluator_launches"]
+                    == win["kernel_launches"]["rollout_analytic"]), win
+        if mode == "eager":
+            assert not w["graphs"].get("replayed"), w["graphs"]
+        else:
+            assert w["graphs"].get("replayed", 0) > 0, w["graphs"]
+            assert slope[14]["graphs"].get("replayed", 0) > 0
     return launches["rollout_analytic"]
 
 
@@ -2673,6 +2877,9 @@ def main():
     cli_phases(smi)
     launches["rollout_analytic:per_cand_world"] += checkpoint_phase(
         rollout, robot, cfg5, spec5, world, states5, ticks5, episode5, smi)
+    # --- 13. the solver loop's CUDA graphs against the eager loop --------
+    graph_phases(robot, world, grid, cfg4, cfg2, cfg_con, cone, cfg3, world3,
+                 cfg_hmc, scene, doc3, q0b, qNb, smi)
     launches["rollout_analytic"] += profile_phase(
         rollout, robot, world, cfg4, q0b, qNb, smi)
 

@@ -1716,3 +1716,293 @@ def test_two_streams_with_device_made_worlds(cuda_device):
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
     assert not torch.equal(ref[0][0], ref[1][0])
+
+
+# --- the solver loop's CUDA graphs (engine/graph.py) ------------------------
+
+def _graph_config(kind):
+    """Config 4's step at a test's size (N = 100, K = 50, reuse 5), or the
+    slice's CHOMP / HMC steps, for the graphed-vs-eager comparisons."""
+    if kind in ("chomp", "hmc"):
+        return _slice_config(kind).replace(max_iterations=12)
+    if kind == "chomp_exact_torque":      # autograd inside the capture
+        return _slice_config("chomp").replace(
+            max_iterations=12, chomp_gradient_mode="exact",
+            weights=CostWeights(obstacle=20.0, smoothness=0.1, torque=0.005))
+    base = PlannerConfig(num_timesteps=100, duration=5.0, num_rollouts=50,
+                         noise=NoiseConfig(stddev=0.08, decay=0.995,
+                                           num_rollouts_reused=5),
+                         weights=CostWeights(obstacle=1.0, smoothness=0.1),
+                         collision_clearance=0.05, max_iterations=12,
+                         max_iterations_after_collision_free=3)
+    if kind == "smooth":
+        return base.replace(rollout_limit_projection="smooth")
+    if kind == "compaction":
+        return base.replace(batch_compaction="on", compaction_chunk=2,
+                            compaction_min_bucket=1)
+    return base
+
+
+def _assert_bitwise(got, ref):
+    """Every field of two Solutions bitwise equal."""
+    for f in dataclasses.fields(ref):
+        a, b = getattr(got, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(b):
+            _assert_bitwise(a, b)
+        elif b is not None:
+            assert torch.equal(a, b), f.name
+
+
+def _on_card(robot, world, device):
+    return robot.to(device), world.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["box", "voxel", "composite", "constrained",
+                                  "smooth", "compaction", "chomp", "hmc",
+                                  "chomp_exact_torque"])
+def test_graphed_plan_batch_is_bitwise_eager(cuda_device, case):
+    """plan_batch replaying the graph of one iteration (a capture at the
+    first call, a cache hit at the second) against the eager loop under the
+    same generator: trajectory, cost, iterations, success and metrics
+    bitwise; the counters after each graphed run equal the eager run's."""
+    from tpustomp_torch.engine import graph
+
+    world = (AnalyticWorld.make(**_WORLDS["boxes"]) if case not in (
+        "voxel", "composite") else _voxel_world(
+            "grid" if case == "voxel" else "composite"))
+    robot, world = _on_card(tmodel.arm_7dof(), world, cuda_device)
+    cfg = _graph_config(case)
+    kw = {}
+    if case == "constrained":
+        kw["constraints"] = OrientationConstraint.make(
+            axis_local=(0, 0, 1), target_world=(0, 0, 1), tolerance=0.25,
+            weight=0.3).to(cuda_device)
+    prob = ProblemSpec(*_jittered(64, 3))
+
+    def run():
+        tr.reset_launches()
+        sol = plan_batch(robot, world, prob, cfg, generator=torch.Generator(
+            cuda_device).manual_seed(0), **kw)
+        torch.cuda.synchronize()
+        return sol, [dict(c) for c in graph._COUNTERS]
+
+    with graph.eager():
+        ref, counts = run()
+    graph.reset_counts()
+    for _ in range(2):
+        got, got_counts = run()
+        _assert_bitwise(got, ref)
+        assert got_counts == counts
+    assert graph.GRAPHS["replayed"] > 0 and graph.GRAPHS["captured"] >= 1
+    assert not any(k.startswith("eager:") and k != "eager:first_iteration"
+                   for k in graph.GRAPHS), dict(graph.GRAPHS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("api", ["tune", "stream"])
+def test_graphed_tune_and_stream_are_bitwise_eager(cuda_device, api):
+    """tune (one batched solve with HyperParams rows) and
+    plan_batch_stream at depth 2 replay graphs and give the eager loop's
+    results bitwise."""
+    from tpustomp_torch import plan_batch_stream, tune
+    from tpustomp_torch.engine import graph
+
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    cfg = _graph_config("box")
+    probs = [ProblemSpec(*_jittered(16, s)) for s in range(3)]
+
+    def run():
+        if api == "tune":
+            return tune(robot, world, probs[0], cfg).table
+        items = [(p, torch.Generator(cuda_device).manual_seed(s))
+                 for s, p in enumerate(probs)]
+        return list(plan_batch_stream(robot, world, items, cfg, depth=2))
+
+    with graph.eager():
+        ref = run()
+    graph.reset_counts()
+    got = run()
+    assert graph.GRAPHS["replayed"] > 0
+    if api == "tune":
+        assert got == ref
+    else:
+        for (t, s), (tr_, sr) in zip(got, ref):
+            assert np.array_equal(t, tr_) and np.array_equal(s, sr)
+
+
+@pytest.mark.cuda
+def test_graph_of_a_world_changed_in_place_is_new(cuda_device):
+    """A world changed in place by a torch op between two calls moves its
+    version: the cached graph (which holds the old parameter block) is
+    dropped, a new one is captured, and the result is the eager loop's on
+    the changed world."""
+    from tpustomp_torch.engine import graph
+
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    cfg = _graph_config("box")
+    prob = ProblemSpec(*_jittered(64, 5))
+
+    def run():
+        return plan_batch(robot, world, prob, cfg, generator=torch.Generator(
+            cuda_device).manual_seed(0))
+
+    before = run()
+    world.box_half.mul_(1.25)
+    graph.reset_counts()
+    got = run()
+    assert graph.GRAPHS["invalidated"] == 1
+    assert graph.GRAPHS["captured"] == 1
+    with graph.eager():
+        _assert_bitwise(got, run())
+    assert not torch.equal(got.cost, before.cost)
+
+
+@pytest.mark.cuda
+def test_graph_of_a_device_made_world_makes_no_read(cuda_device,
+                                                    monkeypatch):
+    """A world built on the card has no host copies: its first launch
+    defers its one device read, the second eager iteration makes it
+    ("param_read"), and the capture after makes none; the graph holds the
+    parameter block (no memory-path launch in a replay), as the eager
+    loop does from its second iteration, and the solve is the eager
+    loop's."""
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    host = AnalyticWorld.make(**_WORLDS["boxes"])
+    world = AnalyticWorld(*(v.to(cuda_device) * 1.0
+                            for v in (host.sphere_center, host.sphere_radius,
+                                      host.box_center, host.box_half)))
+    reads = []
+    real = graph._capture
+
+    def watched(body, stream):
+        before = dict(tr.PARAM_READS)
+        out = real(body, stream)
+        reads.append({k: tr.PARAM_READS[k] - before[k] for k in before})
+        return out
+
+    monkeypatch.setattr(graph, "_capture", watched)
+    cfg = _graph_config("box")
+    prob = ProblemSpec(*_jittered(64, 6))
+    graph.clear()
+    graph.reset_counts()
+    tr.reset_launches()
+    got = plan_batch(robot, world, prob, cfg, generator=torch.Generator(
+        cuda_device).manual_seed(0))
+    assert reads == [{"device": 0, "deferred": 0}]
+    assert tr.PARAM_READS["device"] == 1
+    assert graph.GRAPHS["eager:param_read"] == 1
+    (g,) = graph._CACHE.values()
+    per_replay = g.counts[1]                          # PARAM_ROUTES
+    assert per_replay["memory"] == 0 and per_replay["block"] > 0
+    with graph.eager():
+        ref = plan_batch(robot, world, prob, cfg, generator=torch.Generator(
+            cuda_device).manual_seed(0))
+    _assert_bitwise(got, ref)
+
+
+@pytest.mark.cuda
+def test_host_objects_share_one_graph(cuda_device):
+    """A robot, world and cone built on the CPU anew at every call, with
+    device="cuda" (the README's form): the entry point hands the solver
+    one device copy of equal objects, so the first call captures and the
+    next ones replay that graph, with the eager loop's results."""
+    from tpustomp_torch.engine import graph
+
+    cfg = _graph_config("box")
+    prob = ProblemSpec(*_jittered(32, 9))
+
+    def run():
+        cone = OrientationConstraint.make(
+            axis_local=(0, 0, 1), target_world=(0, 0, 1), tolerance=0.25,
+            weight=0.3)
+        return plan_batch(tmodel.arm_7dof(),
+                          AnalyticWorld.make(**_WORLDS["boxes"]), prob, cfg,
+                          device=cuda_device, constraints=cone,
+                          generator=torch.Generator(cuda_device).manual_seed(
+                              0))
+
+    with graph.eager():
+        ref = run()
+    graph.clear()
+    graph.reset_counts()
+    for _ in range(3):
+        _assert_bitwise(run(), ref)
+    assert graph.GRAPHS["captured"] == 1, dict(graph.GRAPHS)
+    assert graph.GRAPHS["eager:first_iteration"] == 1, dict(graph.GRAPHS)
+    assert len(graph.cached()) == 1
+
+
+@pytest.mark.cuda
+def test_graph_shared_by_two_streams_stays_ordered(cuda_device):
+    """Two threads, each on a stream of its own, solve different problems
+    through one graph (one key): each loads the static buffers only after
+    the other's last use, so every result is its problem's eager one."""
+    import threading
+
+    from tpustomp_torch.engine import graph
+
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    cfg = _graph_config("box")
+    probs = [ProblemSpec(*_jittered(64, s)) for s in (11, 12)]
+
+    def run(prob):
+        return plan_batch(robot, world, prob, cfg, generator=torch.Generator(
+            cuda_device).manual_seed(0))
+
+    with graph.eager():
+        refs = [run(p) for p in probs]
+    run(probs[0])                                   # the capture
+    graph.reset_counts()
+    errors = []
+
+    def worker(i):
+        stream = torch.cuda.Stream(cuda_device)
+        try:
+            with torch.cuda.stream(stream):
+                for _ in range(4):
+                    sol = run(probs[i])
+                    stream.synchronize()
+                    _assert_bitwise(sol, refs[i])
+        except BaseException as e:                  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert graph.GRAPHS["captured"] == 0 and graph.GRAPHS["replayed"] > 0
+
+
+@pytest.mark.cuda
+def test_graphed_solution_survives_the_next_replay(cuda_device):
+    """A Solution is the solve's own: a second call that replays the same
+    graph on other problems leaves the first call's fields unchanged."""
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    cfg = _graph_config("box")
+
+    def run(seed):
+        return plan_batch(robot, world, ProblemSpec(*_jittered(64, seed)),
+                          cfg, generator=torch.Generator(
+                              cuda_device).manual_seed(seed))
+
+    first = run(7)
+    kept = [first.trajectory.clone(), first.iterations.clone(),
+            first.metrics.total_cost.clone()]
+    run(8)
+    torch.cuda.synchronize()
+    assert torch.equal(first.trajectory, kept[0])
+    assert torch.equal(first.iterations, kept[1])
+    assert torch.equal(first.metrics.total_cost, kept[2])

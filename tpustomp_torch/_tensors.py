@@ -2,7 +2,9 @@
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 import weakref
 
 import torch
@@ -59,7 +61,99 @@ def _moved(v: torch.Tensor, device) -> torch.Tensor:
     return out
 
 
+def _cloned(v: torch.Tensor) -> torch.Tensor:
+    out = v.clone()
+    mirror = host_mirror(v)
+    if mirror is not None:
+        key = id(out)
+        _MIRRORS[key] = (weakref.ref(out, lambda _, k=key: _MIRRORS.pop(k,
+                                                                        None)),
+                         out._version, mirror)
+    return out
+
+
+def clone_with_mirrors(obj):
+    """A copy of `obj` with every tensor cloned; a clone of a tensor with a
+    host copy (host_mirror) has the same host copy."""
+    return map_tensors(obj, _cloned)
+
+
 def to_device(obj, device):
     """`obj` with every tensor moved to `device`; a small tensor moved off
     the CPU keeps its host copy (host_mirror)."""
     return map_tensors(obj, lambda v: _moved(v, device))
+
+
+# Device copies that shared_copy made of CPU objects (robots, worlds,
+# constraints handed to the entry points): value key -> (weak references
+# to the large CPU tensors it names by identity, the copy). At most
+# SHARED_MAX, least recently used first out; an entry goes when one of its
+# large CPU tensors does.
+SHARED_MAX = 16
+_SHARED: collections.OrderedDict = collections.OrderedDict()
+_SHARED_LOCK = threading.Lock()
+
+
+def _value_key(obj, large: list):
+    """obj's structure with each CPU tensor replaced by its dtype, shape
+    and bytes (those of MIRROR_MAX elements or fewer) or its identity and
+    version (larger ones, appended to `large`); None when a tensor is off
+    the CPU, has no version (inference_mode) or is bfloat16."""
+    if isinstance(obj, torch.Tensor):
+        if (obj.device.type != "cpu" or obj.is_inference()
+                or obj.dtype == torch.bfloat16):
+            return None
+        if obj.numel() <= MIRROR_MAX:
+            return (obj.dtype, tuple(obj.shape),
+                    obj.detach().contiguous().numpy().tobytes())
+        large.append(obj)
+        return (obj.dtype, tuple(obj.shape), id(obj), obj._version)
+    if dataclasses.is_dataclass(obj):
+        parts = [type(obj).__qualname__]
+        for f in dataclasses.fields(obj):
+            part = _value_key(getattr(obj, f.name), large)
+            if part is None and getattr(obj, f.name) is not None:
+                return None
+            parts.append(part)
+        return tuple(parts)
+    if isinstance(obj, (tuple, list)):
+        parts = tuple(_value_key(v, large) for v in obj)
+        return None if any(p is None and v is not None
+                           for p, v in zip(parts, obj)) else parts
+    return obj
+
+
+def shared_copy(obj, device):
+    """``obj.to(device)`` for a frozen dataclass of tensors, the same copy
+    for every CPU object equal to one moved before: small tensors compared
+    by value, large ones (a grid) by identity and version. Repeated calls
+    with a robot or world built on the CPU then hand the solver the same
+    device tensors, which its CUDA graphs key on (engine/graph.py). The
+    copy is the solver's own and never changed in place; an object with a
+    tensor off the CPU, or moved under inference_mode, is moved as
+    ``to_device`` moves it."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return to_device(obj, device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    large = []
+    key = _value_key(obj, large)
+    try:
+        hash(key)
+    except TypeError:                   # a field that does not hash
+        key = None
+    if key is None:
+        return to_device(obj, device)
+    key = (key, str(device))
+    with _SHARED_LOCK:
+        hit = _SHARED.get(key)
+        if hit is not None and all(r() is t for r, t in zip(hit[0], large)):
+            _SHARED.move_to_end(key)
+            return hit[1]
+        out = to_device(obj, device)
+        while len(_SHARED) >= SHARED_MAX:
+            _SHARED.popitem(last=False)
+        _SHARED[key] = (tuple(weakref.ref(t, lambda _, k=key: _SHARED.pop(
+            k, None)) for t in large), out)
+        return out

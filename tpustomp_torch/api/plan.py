@@ -27,14 +27,14 @@ import time
 
 import torch
 
-from tpustomp_torch._tensors import map_tensors
+from tpustomp_torch._tensors import map_tensors, shared_copy
 from tpustomp_torch.api.config import PlannerConfig, check_supported
 from tpustomp_torch.api.problem import ProblemSpec, Solution
 from tpustomp_torch.costs.constraints import as_tuple
 from tpustomp_torch.dynamics.device import device_ops
 from tpustomp_torch.engine import solver
 from tpustomp_torch.engine.distributed import Mesh, make_mesh
-from tpustomp_torch.engine.sampling import draw_hmc, draw_z, shard_noise
+from tpustomp_torch.engine.sampling import GeneratorNoise, shard_noise
 from tpustomp_torch.engine.trajectory import wrap_goal
 from tpustomp_torch.robot.fk import body_positions
 from tpustomp_torch.robot.model import RobotSpec, check_joint_static
@@ -162,8 +162,10 @@ def _prepare(robot, world, problem: ProblemSpec, cfg: PlannerConfig, device,
     device = _resolve_device(device)
     solver._check_fp32_matmul(device)
     cfg = resolve_backend(cfg, robot, world)
-    robot, world = robot.to(device), world.to(device)
-    constraints = tuple(c.to(device) for c in as_tuple(constraints))
+    # a robot, world or constraint on the CPU: the copy made for an equal
+    # one before, so repeated calls replay one solver graph
+    robot, world = shared_copy(robot, device), shared_copy(world, device)
+    constraints = tuple(shared_copy(c, device) for c in as_tuple(constraints))
     q0 = torch.as_tensor(problem.q0, dtype=torch.float32, device=device)
     qN = torch.as_tensor(problem.qN, dtype=torch.float32, device=device)
     if q0.dim() != 2 or q0.shape != qN.shape:
@@ -181,10 +183,10 @@ def _noise(cfg: PlannerConfig, d: int, rows: int, dev, generator, noise_fn):
         return noise_fn
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    K, N = cfg.num_rollouts, cfg.num_timesteps
-    if cfg.mode == "chomp" and cfg.use_hamiltonian_monte_carlo:
-        return lambda iteration, active: draw_hmc(generator, d, rows, N, dev)
-    return lambda iteration, active: draw_z(generator, d, rows, K, N, dev)
+    return GeneratorNoise(generator, d, rows, cfg.num_rollouts,
+                          cfg.num_timesteps, dev,
+                          hmc=cfg.mode == "chomp"
+                          and cfg.use_hamiltonian_monte_carlo)
 
 
 def _use_compaction(cfg: PlannerConfig) -> bool:

@@ -10,12 +10,21 @@ two endpoints.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tpustomp_torch.robot.fk import _mat_mul, _mat_vec, cross, fk_frames
-from tpustomp_torch.robot.model import PRISMATIC, RobotSpec
+from tpustomp_torch.robot.model import PRISMATIC, RobotSpec, joint_types
 
 GRAVITY = (0.0, 0.0, -9.81)
+
+
+@functools.lru_cache(maxsize=16)
+def _base_accel(gravity: tuple, dtype, device) -> torch.Tensor:
+    """-gravity on the device, made once (no host copy per call, none
+    inside a captured graph)."""
+    return -torch.as_tensor(gravity, dtype=dtype, device=device)
 
 
 def rne_torques(robot: RobotSpec, q: torch.Tensor, qd: torch.Tensor,
@@ -24,14 +33,13 @@ def rne_torques(robot: RobotSpec, q: torch.Tensor, qd: torch.Tensor,
     d = robot.num_joints
     dt_ = q.dtype
     pos, rot, axis_w = fk_frames(robot, q)
-    prism = [t == PRISMATIC for t in robot.joint_type.tolist()]
+    prism = [t == PRISMATIC for t in joint_types(robot)]
 
     # forward pass: angular velocity/acceleration and origin acceleration of
     # each joint frame; gravity enters as a base accelerating at -g
     zero = torch.zeros_like(pos[..., 0, :])
     om_p, al_p = zero, zero
-    a_p = (-torch.as_tensor(gravity, dtype=dt_, device=q.device)).expand_as(
-        zero)
+    a_p = _base_accel(tuple(gravity), dt_, q.device).expand_as(zero)
     p_p = robot.base_pos.to(dt_).expand_as(zero)
     omega, alpha, acc = [], [], []
     for i in range(d):

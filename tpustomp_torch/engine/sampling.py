@@ -34,6 +34,34 @@ def draw_hmc(generator: torch.Generator, d: int, B: int, N: int, device):
                        dtype=torch.float32))
 
 
+class GeneratorNoise:
+    """The solver's default noise source as a noise_fn: every call draws
+    one iteration's noise from `generator`, :func:`draw_z` of [d, B, K, N],
+    or with hmc=True :func:`draw_hmc`'s (z [d, B, 1, N], u [B]); `active`
+    is not read. :meth:`into` writes the same draw into given tensors (a
+    graph's input buffers, engine/graph.py), with no copy."""
+
+    def __init__(self, generator: torch.Generator, d: int, B: int, K: int,
+                 N: int, device, hmc: bool = False):
+        self.generator, self.hmc = generator, hmc
+        self.d, self.B, self.K, self.N, self.device = d, B, K, N, device
+
+    def __call__(self, iteration, active):
+        if self.hmc:
+            return draw_hmc(self.generator, self.d, self.B, self.N,
+                            self.device)
+        return draw_z(self.generator, self.d, self.B, self.K, self.N,
+                      self.device)
+
+    def into(self, iteration, active, out) -> None:
+        """The next draw written into `out`, (z,) or (z, u), contiguous
+        float32 tensors of the draw's shapes: the same numbers a call
+        returns."""
+        torch.randn(out[0].shape, generator=self.generator, out=out[0])
+        if self.hmc:
+            torch.rand(out[1].shape, generator=self.generator, out=out[1])
+
+
 def shard_noise(noise_fn, lo: int, hi: int, total: int):
     """A global batch's noise_fn as the shard of rows [lo, hi) of `total`
     sees it: noise_fn itself when the shard is the whole batch. The wrapper

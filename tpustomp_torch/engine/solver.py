@@ -22,7 +22,8 @@ two more evaluator calls for the accept test.
 Differences from the JAX package, by design:
   - No jit/vmap: batch axes are written out, and the loop is a Python
     `while` over "any scenario still active" with one host sync per
-    iteration.
+    iteration. On the card each iteration replays a cached CUDA graph of
+    the step (engine/graph.py), the counterpart of the jitted loop body.
   - The noise source is an argument, not state: ``noise_fn(iteration,
     active) -> z [d, B, K, N]`` (default: one ``torch.randn`` per iteration
     from an explicit generator, engine/sampling.draw_z); for HMC it returns
@@ -60,8 +61,8 @@ from tpustomp_torch.costs.smoothness import (smoothness_cost,
                                              smoothness_cost_per_timestep_tm)
 from tpustomp_torch.costs.torque import torque_cost
 from tpustomp_torch.dynamics.device import DeviceOps
-from tpustomp_torch.engine import pi2
-from tpustomp_torch.engine.chomp import chomp_delta, chomp_gradient
+from tpustomp_torch.engine import graph, pi2
+from tpustomp_torch.engine.chomp import chomp_gradient
 from tpustomp_torch.engine.limits import project_limits
 from tpustomp_torch.engine.sampling import sample_noise_tm
 from tpustomp_torch.engine.trajectory import (full_trajectory, min_jerk_init,
@@ -260,13 +261,103 @@ def _bookkeeping(state: SolverState, cfg: PlannerConfig, total, margin):
     return cf, cf_count, improved, done
 
 
+@dataclass(frozen=True, eq=False)
+class Step:
+    """One batched iteration, split as JAX's ``while_loop`` body is split
+    from its key chain: :meth:`draw` is the noise, ``noise_fn(iteration,
+    ~done)``, always run eagerly; ``advance(state, draws)`` is all the rest,
+    a function of device tensors alone that reads nothing back to the host
+    (engine/graph.py captures it). ``step(state, iteration)`` is one eager
+    iteration, ``advance(state, step.draw(iteration, state.done))``.
+
+    kind: "stomp" (the time-major STOMP step), "chomp" or "hmc". draws:
+    z [d, B, K, N] for STOMP, (z [d, B, 1, N], u [B]) for HMC, None for
+    CHOMP. Q0/QN [B, d] (QN wrapped), constraints a tuple, hyper the
+    HyperParams as [B] rows on the device or None. advance is built from
+    the other fields (:meth:`over` rebuilds it on other tensors, as the
+    graph's static buffers and copies)."""
+
+    kind: str
+    robot: RobotSpec
+    world: object
+    cfg: PlannerConfig
+    ops: DeviceOps
+    Q0: torch.Tensor
+    QN: torch.Tensor
+    noise_fn: NoiseFn | None
+    world_batched: bool = False
+    constraints: tuple = ()
+    hyper: HyperParams | None = None
+    advance: Callable = dataclasses.field(default=None, compare=False,
+                                          repr=False)
+
+    def __post_init__(self):
+        if self.advance is None:
+            object.__setattr__(self, "advance", _ADVANCE[self.kind](self))
+
+    def __call__(self, state: SolverState, iteration: int) -> SolverState:
+        return self.advance(state, self.draw(iteration, state.done))
+
+    def over(self, **fields) -> "Step":
+        """This step with its advance built on other fields of the same
+        shapes (Q0, QN, hyper, robot, world, constraints, ops)."""
+        return dataclasses.replace(self, advance=None, **fields)
+
+    def draw_shapes(self) -> tuple:
+        """The shapes of what :meth:`draw` returns, as a tuple (one for
+        STOMP, two for HMC, none for CHOMP)."""
+        B, d = self.Q0.shape
+        N = self.cfg.num_timesteps
+        if self.kind == "stomp":
+            return ((d, B, self.cfg.num_rollouts, N),)
+        return ((d, B, 1, N), (B,)) if self.kind == "hmc" else ()
+
+    def draw(self, iteration: int, done: torch.Tensor):
+        """noise_fn(iteration, ~done), its shapes checked; None for CHOMP,
+        which draws nothing."""
+        if self.kind == "chomp":
+            return None
+        return self._checked(self.noise_fn(iteration, ~done))
+
+    def draw_into(self, iteration: int, active: torch.Tensor,
+                  out: tuple) -> None:
+        """The draw for the rows `active` written into the tensors `out`
+        (draw_shapes): by the noise source itself where it can
+        (`noise_fn.into`, the default generator draw), else copied."""
+        if self.kind == "chomp":
+            return
+        into = getattr(self.noise_fn, "into", None)
+        if into is not None:
+            into(iteration, active, out)
+            return
+        drawn = self._checked(self.noise_fn(iteration, active))
+        for buf, v in zip(out, drawn if self.kind == "hmc" else (drawn,)):
+            buf.copy_(v)
+
+    def _checked(self, out):
+        shapes = self.draw_shapes()
+        if self.kind == "stomp":
+            if out.shape != shapes[0]:
+                raise ValueError(f"noise_fn returned {tuple(out.shape)}, "
+                                 f"expected {shapes[0]}")
+            return out
+        z, u = out
+        if z.shape != shapes[0] or u.shape != shapes[1]:
+            raise ValueError(f"HMC noise_fn returned {tuple(z.shape)} and "
+                             f"{tuple(u.shape)}, expected {shapes[0]} "
+                             f"and {shapes[1]}")
+        return z, u
+
+
 def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
                        ops: DeviceOps, Q0: torch.Tensor, QN: torch.Tensor,
                        noise_fn: NoiseFn, world_batched: bool = False,
-                       constraints=None, hyper: HyperParams | None = None):
+                       constraints=None, hyper: HyperParams | None = None
+                       ) -> Step:
     """One STOMP iteration over B scenarios (Q0/QN [B, d]) in the
-    evaluator's time-major layout. Returns step(state, iteration) -> state;
-    `iteration` is the batch loop's count, handed to noise_fn.
+    evaluator's time-major layout: a :class:`Step`, called as
+    step(state, iteration) -> state; `iteration` is the batch loop's
+    count, handed to noise_fn.
     world_batched: the world has one row per scenario (world_rows == B).
     constraints: their cost rows come from the evaluator (its constraint
     route: the reference's time-major path on the end-effector frame, in
@@ -274,7 +365,17 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
     its scenario-major path does).
     hyper: per-scenario noise_scale / h / decay (HyperParams), or None for
     the config's values."""
-    cons = as_tuple(constraints)
+    if hyper is not None:
+        hyper = hyper.rows(Q0.shape[0], Q0.device)
+    return Step("stomp", robot, world, cfg, ops, Q0, QN, noise_fn,
+                world_batched, as_tuple(constraints), hyper)
+
+
+def _stomp_advance(s: Step):
+    """advance(state, z) of the time-major STOMP step `s`."""
+    robot, world, cfg, ops, Q0, QN = (s.robot, s.world, s.cfg, s.ops, s.Q0,
+                                      s.QN)
+    cons, hyper = s.constraints, s.hyper
     B, d = Q0.shape
     N = cfg.num_timesteps
     K = cfg.num_rollouts
@@ -294,12 +395,13 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
     rows = torch.arange(B, device=dev)[:, None]
     project = _projector(robot, cfg, ops)
     smooth = cfg.rollout_limit_projection == "smooth"
-    if hyper is not None:
-        hyper = hyper.rows(B, dev)
     decay_base = cfg.noise.decay if hyper is None else hyper.decay
-    pi2_h = cfg.pi2_h if hyper is None else hyper.h
+    # PI²'s h as a device scalar made here, not a host value copied to the
+    # device every iteration (no copy may run inside a captured graph)
+    pi2_h = (torch.full((), cfg.pi2_h, dtype=torch.float32, device=dev)
+             if hyper is None else hyper.h)
 
-    def step(state: SolverState, iteration: int) -> SolverState:
+    def advance(state: SolverState, z: torch.Tensor) -> SolverState:
         active = ~state.done
         # --- propose, time-major -----------------------------------------
         decay = torch.pow(decay_base,
@@ -307,10 +409,6 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
         sigma = sigma0[None, :] * decay[:, None]                  # [B, d]
         if hyper is not None:
             sigma = sigma * hyper.noise_scale[:, None]
-        z = noise_fn(iteration, active)
-        if z.shape != (d, B, K, N):
-            raise ValueError(f"noise_fn returned {tuple(z.shape)}, "
-                             f"expected {(d, B, K, N)}")
         eps_tm = sample_noise_tm(z, ops.L_sample, sigma)          # [N,d,B,K]
         theta_tm = state.theta.permute(1, 2, 0)                   # [N, d, B]
         cand_tm = torch.cat([theta_tm[..., None],
@@ -331,7 +429,7 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
         outs = _obstacle_rows(
             robot, world, cfg, full,
             row_active=active[:, None].expand(B, C).reshape(B * C),
-            time_major=True, cands_per_row=C if world_batched else None,
+            time_major=True, cands_per_row=C if s.world_batched else None,
             constraints=cons)
         q_obs = outs[0].reshape(B, C, T)
         margins = outs[1].reshape(B, C)
@@ -386,7 +484,7 @@ def make_step_batch_tm(robot: RobotSpec, world, cfg: PlannerConfig,
         )
         return _freeze(state.done, state, new)
 
-    return step
+    return advance
 
 
 def _init_batch(robot: RobotSpec, cfg: PlannerConfig, Q0, QN, theta0=None):
@@ -395,17 +493,28 @@ def _init_batch(robot: RobotSpec, cfg: PlannerConfig, Q0, QN, theta0=None):
     return QN, init_state(robot, cfg, Q0, QN, theta0)
 
 
-def run_until(step, state: SolverState, it_limit: int, count: int = 0):
+def run_until(step: Step, state: SolverState, it_limit: int, count: int = 0):
     """Advance `state` with `step` until every row is done or the batch
     loop's count reaches `it_limit` (the reference's run_until, which the
     wall-clock and chunked loops resume). `count` is the number of
     iterations run so far; it is handed on to noise_fn, so a resumed run
-    draws what one uninterrupted run would. Returns (state, count). One
-    host sync per iteration: the done test. Under utils.tracing.debug_mode
-    the state is checked after every iteration (a second sync)."""
+    draws what one uninterrupted run would. Returns (state, count).
+
+    On the card each iteration is the draw, one replay of a cached CUDA
+    graph of step.advance (engine/graph.py, the counterpart of JAX's jitted
+    while_loop) and one host sync, the done test. The eager loop, one
+    step(state, count) an iteration and the same sync, runs in the cases
+    engine/graph.eager_reason names: on the CPU; under
+    utils.tracing.debug_mode, which checks the state after every iteration
+    (a second sync); for a world with a row axis; for tensors moved under
+    inference_mode; and inside graph.eager(), for comparisons."""
+    reason = graph.eager_reason(step)
+    if reason is None:
+        return graph.run(step, state, it_limit, count)
     check = tracing.debug_enabled()
     while count < it_limit and not bool(state.done.all()):
         state = step(state, count)
+        graph.GRAPHS["eager:" + reason] += 1
         if check:
             tracing.check_state(state, count)
         count += 1
@@ -466,14 +575,24 @@ def finalize(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
 
 def make_step_chomp(robot: RobotSpec, world, cfg: PlannerConfig,
                     ops: DeviceOps, Q0: torch.Tensor, QN: torch.Tensor,
-                    noise_fn: NoiseFn, constraints=None):
+                    noise_fn: NoiseFn, constraints=None) -> Step:
     """One CHOMP iteration (or, with use_hamiltonian_monte_carlo, one HMC
     proposal) over B scenarios: the reference's per-scenario chomp_step /
     chomp_hmc_step and finish, with the scenario axis written out. Every
     per-scenario quantity (update cap, temperature, kinetic energy,
     Metropolis test) is reduced over that scenario's [N, d] alone.
-    Returns step(state, iteration) -> state."""
-    cons = as_tuple(constraints)
+    Returns a :class:`Step`, called as step(state, iteration) -> state."""
+    return Step("hmc" if cfg.use_hamiltonian_monte_carlo else "chomp", robot,
+                world, cfg, ops, Q0, QN, noise_fn,
+                constraints=as_tuple(constraints))
+
+
+def _chomp_parts(s: Step):
+    """What the CHOMP and HMC advances share: (cap, total_cost, grad_u,
+    finish, project)."""
+    robot, world, cfg, ops, Q0, QN = (s.robot, s.world, s.cfg, s.ops, s.Q0,
+                                      s.QN)
+    cons = s.constraints
     dt, clearance = cfg.dt, cfg.collision_clearance
     w = cfg.weights
     limit = cfg.chomp_joint_update_limit
@@ -481,15 +600,6 @@ def make_step_chomp(robot: RobotSpec, world, cfg: PlannerConfig,
                    pinv_ridge=cfg.pseudo_inverse_ridge_factor,
                    gradient_mode=cfg.chomp_gradient_mode, constraints=cons,
                    w_constraint=w.constraint, w_torque=w.torque)
-    # the reference's float32 scalars, rounded as it rounds them
-    eta = float(np.float32(cfg.hmc_step_size))
-    kick = float(np.float32(0.5) * np.float32(cfg.hmc_step_size)
-                 * np.float32(1.0 / ops.cov_scale))
-    half_mass = float(np.float32(0.5) * np.float32(ops.cov_scale))
-    decay = torch.tensor(cfg.noise.decay, dtype=torch.float32,
-                         device=Q0.device)
-
-    project = _projector(robot, cfg, ops)
 
     def cap(delta):
         """Direction-preserving trust region: each scenario's max |δ| to at
@@ -526,28 +636,44 @@ def make_step_chomp(robot: RobotSpec, world, cfg: PlannerConfig,
         )
         return _freeze(state.done, state, new)
 
-    def chomp_step(state: SolverState, iteration: int) -> SolverState:
-        delta = chomp_delta(ops, robot, world, state.theta, Q0, QN,
-                            full_trajectory(state.theta, Q0, QN), dt,
-                            clearance, w.obstacle, w.smoothness,
-                            cfg.learning_rate, **grad_kw)
+    return cap, total_cost, grad_u, finish, _projector(robot, cfg, ops)
+
+
+def _chomp_advance(s: Step):
+    """advance(state, None) of the CHOMP step `s`: chomp_delta's update,
+    −η·R⁻¹·∇U, capped and projected."""
+    lr, Rinv = s.cfg.learning_rate, s.ops.Rinv
+    cap, _, grad_u, finish, project = _chomp_parts(s)
+
+    def advance(state: SolverState, draws=None) -> SolverState:
+        delta = -lr * (Rinv @ grad_u(state.theta))
         return finish(state, project(state.theta + cap(delta)))
+
+    return advance
+
+
+def _hmc_advance(s: Step):
+    """advance(state, (z, u)) of the CHOMP-HMC step `s`."""
+    cfg, ops = s.cfg, s.ops
+    cap, total_cost, grad_u, finish, project = _chomp_parts(s)
+    # the reference's float32 scalars, rounded as it rounds them
+    eta = float(np.float32(cfg.hmc_step_size))
+    kick = float(np.float32(0.5) * np.float32(cfg.hmc_step_size)
+                 * np.float32(1.0 / ops.cov_scale))
+    half_mass = float(np.float32(0.5) * np.float32(ops.cov_scale))
+    decay = torch.tensor(cfg.noise.decay, dtype=torch.float32,
+                         device=s.Q0.device)
 
     def kinetic(v):
         return half_mass * torch.sum(v * (ops.R @ v), dim=(1, 2))
 
-    def hmc_step(state: SolverState, iteration: int) -> SolverState:
+    def advance(state: SolverState, draws) -> SolverState:
         # velocity-form leapfrog with mass c·R (c = ops.cov_scale): the
         # momentum N(0, temp·R⁻¹/c) is what the smooth sampler draws
+        z, u = draws
         active = ~state.done
         temp = cfg.hmc_temperature * torch.pow(
             decay, state.iteration.to(torch.float32))              # [B]
-        z, u = noise_fn(iteration, active)
-        B, N, d = state.theta.shape
-        if z.shape != (d, B, 1, N) or u.shape != (B,):
-            raise ValueError(f"HMC noise_fn returned {tuple(z.shape)} and "
-                             f"{tuple(u.shape)}, expected {(d, B, 1, N)} "
-                             f"and {(B,)}")
         v0 = (torch.einsum("nm,dbm->bnd", ops.L_sample, z[:, :, 0])
               * torch.sqrt(temp)[:, None, None])
         th0 = state.theta
@@ -567,7 +693,11 @@ def make_step_chomp(robot: RobotSpec, world, cfg: PlannerConfig,
             th = torch.where(accept[:, None, None], th, th0)
         return finish(state, project(th))
 
-    return hmc_step if cfg.use_hamiltonian_monte_carlo else chomp_step
+    return advance
+
+
+_ADVANCE = {"stomp": _stomp_advance, "chomp": _chomp_advance,
+            "hmc": _hmc_advance}
 
 
 def _check_batch(cfg: PlannerConfig, constraints, Q0, world,

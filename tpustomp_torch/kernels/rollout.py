@@ -143,9 +143,10 @@ LAUNCHES = {name + chain + form: 0 for name in _ENTRIES
 # _LARGE_PARAM_FLOATS); reset with LAUNCHES.
 PARAM_ROUTES = {"block": 0, "large_block": 0, "memory": 0}
 # Reads of a device-packed parameter vector into a block (a set without
-# host copies, at its second launch: one per set of tensors and versions;
-# its first launch takes the memory path); reset with LAUNCHES.
-PARAM_READS = {"device": 0}
+# host copies, at its second launch: one per set of tensors and versions),
+# and "deferred": launches of such a set on the memory path that made no
+# read (its first, or one under a CUDA graph capture); reset with LAUNCHES.
+PARAM_READS = {"device": 0, "deferred": 0}
 # Launches by the layout the candidates came in: "time_major" ([d, T, C])
 # or "candidate_major" ([C, T, d], the TPU's K4, which the solver's
 # _evaluate takes; the kernel stages either layout); reset with LAUNCHES.
@@ -380,20 +381,21 @@ def pack_params(robot, world, constraints=()) -> torch.Tensor:
     dev = robot.joint_axis.device
     f32 = torch.float32
     offset, radius = robot.body_offset, robot.body_radius
-    if robot.body_counts is not None:
-        # bodies link-sorted (RobotSpec's _spec): the runs come from the host
-        # tuple, copied from pinned memory without a wait
+    if robot.body_counts is not None and dev.type == "cpu":
+        # bodies link-sorted (RobotSpec's _spec): the runs from the tuple
         body_start = torch.from_numpy(np.concatenate(
             [[0], np.cumsum(robot.body_counts)]).astype(np.float32))
-        if dev.type == "cuda":
-            body_start = body_start.pin_memory().to(dev, non_blocking=True)
     else:
-        # bodies in any order: stable-sort by link on the device, so the
-        # kernel walks one contiguous run per joint (costs are sums and mins
-        # over bodies; only the float summation order moves); the runs'
-        # starts by a search of fixed output shape (no read-back)
-        link, order = torch.sort(robot.body_link.long(), stable=True)
-        offset, radius = offset[order], radius[order]
+        # on the card the runs' starts come from a search of fixed output
+        # shape (no read-back, and no copy from the host, which a captured
+        # graph could not hold); bodies in any order are stable-sorted by
+        # link on the device first, so the kernel walks one contiguous run
+        # per joint (costs are sums and mins over bodies; only the float
+        # summation order moves)
+        link = robot.body_link.long()
+        if robot.body_counts is None:
+            link, order = torch.sort(link, stable=True)
+            offset, radius = offset[order], radius[order]
         body_start = torch.searchsorted(
             link, torch.arange(d + 1, device=dev)).to(f32)
     joints = torch.cat([
@@ -609,7 +611,11 @@ def _launch_params(robot, world, shared: bool, constraints=()):
     sync; the launch that finds it again makes the read. The host vectors
     are cached per set of tensors and versions, as the host copies are, so
     a launch that hits does no more host work than the lookup, and a tensor
-    changed in place by a torch op is packed again. A write that does not
+    changed in place by a torch op is packed again. While a CUDA graph is
+    captured no read is made: a set without host copies and not yet read
+    would take the memory path in the graph, so engine/graph.py runs eager
+    iterations until no launch defers its read (PARAM_READS["deferred"])
+    before it captures. A write that does not
     bump the tensor's version counter (through `.data`, a DLPack alias, a
     custom CUDA op, a CUDA-graph replay) is not seen once the set is read:
     a set written that way must be new tensors, or be changed by torch
@@ -628,16 +634,25 @@ def _launch_params(robot, world, shared: bool, constraints=()):
     out = None
     if all(host_mirror(t) is not None for t in tensors):
         out = (route, _host_params(robot, world, shared, constraints))
-    elif seen:
+    elif seen and not _capturing():
         # the one read of this set: ordered after pack_params on the
-        # current stream (a copy to the host waits for it)
+        # current stream (a copy to the host waits for it); never while
+        # a CUDA graph is captured, where the set takes the memory path
         out = (route, pack_params(robot, world, constraints).cpu().numpy())
         PARAM_READS["device"] += 1
+    else:
+        PARAM_READS["deferred"] += 1
     if len(_LAUNCH_PARAMS) >= 64:
         _LAUNCH_PARAMS.clear()      # before the insert: the new entry stays
     _LAUNCH_PARAMS[key] = (tuple(map(weakref.ref, tensors)),
                            tuple(t._version for t in tensors), out)
     return out or ("memory", pack_params(robot, world, constraints))
+
+
+def _capturing() -> bool:
+    """The current stream is capturing a CUDA graph (engine/graph.py)."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
 
 
 def _cands_per_row(world, C: int, cands_per_row):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from tpustomp_torch.robot.model import PRISMATIC, RobotSpec
+from tpustomp_torch.robot.model import PRISMATIC, RobotSpec, joint_types
 
 
 def _mat_mul(a, b):
@@ -56,7 +56,7 @@ def fk_frames(robot: RobotSpec, q: torch.Tensor):
     batch = q.shape[:-1]
     p = robot.base_pos.to(q.dtype).expand(*batch, 3)
     R = robot.base_rot.to(q.dtype).expand(*batch, 3, 3)
-    jtype = robot.joint_type.tolist()
+    jtype = joint_types(robot)
     pos, rot, axis_w = [], [], []
     for j in range(robot.num_joints):
         axis = robot.joint_axis[j].to(q.dtype)

@@ -17,7 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpustomp_torch._tensors import to_device
+from tpustomp_torch._tensors import host_mirror, to_device
 
 REVOLUTE = 0
 PRISMATIC = 1
@@ -69,6 +69,25 @@ class RobotSpec:
 
     def to(self, device) -> "RobotSpec":
         return to_device(self, device)
+
+
+def joint_types(robot: RobotSpec) -> list[int]:
+    """The joint types as Python ints, for code that branches on them (FK,
+    RNE): from joint_static when it is set (check_joint_static holds it to
+    joint_type at every public call), else from joint_type's host copy
+    (_tensors.host_mirror) or joint_type itself on the CPU, else one read
+    of the device (engine/graph.py runs such a robot in the eager loop)."""
+    if robot.joint_static is not None:
+        return [int(s[0]) for s in robot.joint_static]
+    mirror = host_mirror(robot.joint_type)
+    return (robot.joint_type if mirror is None else mirror).tolist()
+
+
+def joint_types_on_host(robot: RobotSpec) -> bool:
+    """joint_types reads nothing from the device."""
+    return (robot.joint_static is not None
+            or robot.joint_type.device.type == "cpu"
+            or host_mirror(robot.joint_type) is not None)
 
 
 def check_joint_static(robot: RobotSpec) -> RobotSpec:

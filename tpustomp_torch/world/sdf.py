@@ -15,6 +15,7 @@ adds the gradient (CHOMP), for worlds shared by every point.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -177,6 +178,14 @@ def grid_clip_hi(shape) -> np.ndarray:
     return np.asarray(shape, np.float32) - np.float32(1.000001)
 
 
+@functools.lru_cache(maxsize=64)
+def _grid_bounds(shape: tuple, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(grid_clip_hi, shape - 2) of a grid on `device`, made once (no host
+    copy per sample, none inside a captured graph)."""
+    return (torch.as_tensor(grid_clip_hi(shape), device=device),
+            torch.as_tensor(shape, device=device) - 2)
+
+
 def _grid_sample(world: GridSDF, p: torch.Tensor, with_grad: bool = False):
     """Trilinear sample. p: [..., 3] -> d [...], or (d, grad [..., 3]) with
     with_grad=True (the interpolant's analytic gradient).
@@ -186,10 +195,10 @@ def _grid_sample(world: GridSDF, p: torch.Tensor, with_grad: bool = False):
     [0, dim-2], and interpolation along z, then y, then x."""
     shape = world.grid.shape
     g = (p - world.origin) / world.resolution
-    hi = torch.as_tensor(grid_clip_hi(shape), device=p.device)
+    hi, i_hi = _grid_bounds(tuple(shape), p.device)
     g = torch.minimum(torch.clamp(g, min=0.0), hi)
     i0 = torch.minimum(torch.clamp(torch.floor(g).to(torch.int64), min=0),
-                       torch.as_tensor(shape, device=p.device) - 2)
+                       i_hi)
     f = g - i0.to(p.dtype)
     X, Y, Z = shape
     base = (i0[..., 0] * Y + i0[..., 1]) * Z + i0[..., 2]
