@@ -144,15 +144,20 @@ and fails (non-zero exit, no result line) on any error:
      plan_batch, with the eager loop and replaying the solver's CUDA graph:
      kernels and host launches per iteration and the device's idle share.
  13. the solver loop's CUDA graphs (engine/graph.py, the counterpart of
-     the JAX package's jitted while_loop): every solve of phases 4-12 but
-     MPC's (per-row worlds, eager by design) must have replayed its graph;
-     here config 4 (box, voxel, cone, a box world built on the card),
-     config 2's plan (also with the robot and world built on the CPU at
-     every call), config 3's CHOMP plan and plan_batch and HMC run eager
-     against graphed in turns: walls, solves/s or latency, the first
-     graphed call's capture and instantiate ms and the graph pool's
-     bytes, results bitwise equal, no graphed call capturing anew or
-     launching on the memory path.
+     the JAX package's jitted while_loop) and the MPC tick's (engine/mpc.py
+     _Tick, the counterpart of its jitted run_mpc_batch scan): every solve
+     and episode of phases 4-12 must have replayed its graphs; here config
+     4 (box, voxel, cone, a box world built on the card), config 2's plan
+     (also with the robot and world built on the CPU at every call),
+     config 3's CHOMP plan and plan_batch, HMC, config 5 (10,000
+     scenarios x 20 ticks, box and voxel), a fleet of 256 and one robot's
+     run_mpc run eager against graphed in turns: walls, solves/s,
+     replans/s or latency, the first graphed call's capture and
+     instantiate ms and the graph pools' bytes, results bitwise equal, no
+     graphed call capturing anew or launching on the memory path; then
+     profiler windows of config 4's loop and of config 5's ticks, eager
+     and graphed: host launches, kernels and kernel ms per iteration or
+     tick, and the device's idle share.
 
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
@@ -1002,11 +1007,12 @@ def percand_phase(name, rollout, robot, static, centers, radius, fulls,
 def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
               ticks, smi):
     """Phase 6/6g: run_mpc_batch over every scenario of `states` for
-    `ticks` ticks after a small warm-up; reports and checks the episode.
-    Returns the variant's launches over the run, the collision rate and the
-    final state (on the CPU)."""
+    `ticks` ticks after a small warm-up; reports and checks the episode,
+    which must have replayed its tick's CUDA graphs. Returns the variant's
+    launches over the run, the collision rate and the final state (on the
+    CPU)."""
     from tpustomp_torch._tensors import map_tensors
-    from tpustomp_torch.engine import mpc
+    from tpustomp_torch.engine import graph, mpc
     from tpustomp_torch.engine.mpc import run_mpc_batch
 
     dev = robot.joint_axis.device
@@ -1019,6 +1025,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
     torch.cuda.synchronize()
 
     rollout.reset_launches()
+    graph.reset_counts()
     mpc.NOISE_DRAWS.update(used=0, padded=0)
     t0 = time.perf_counter()
     out = run_mpc_batch(robot, cfg5, states, radius, ticks, world_dt,
@@ -1026,6 +1033,10 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
                         generator=torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the episode replayed its tick's graphs, captured in its first tick
+    replayed(graph)
+    graphs = dict(graph.GRAPHS)
+    assert graphs["captured"] == 3, graphs
     launches = dict(rollout.LAUNCHES)
     layouts = dict(rollout.LAYOUTS)           # candidate-major: the flush
     K4_LAUNCHES[variant] = (K4_LAUNCHES.get(variant, 0)
@@ -1053,7 +1064,8 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
         layouts=layouts,
         noise_draws_used=draws["used"], noise_draws_padded=draws["padded"],
         padded_draw_mb=draws["padded"] * draw_mb,
-        max_obstacle_drift=drift, finite=finite, card=smi)
+        max_obstacle_drift=drift, finite=finite, graph_counts=graphs,
+        graphs=graph.cached()[-1:], card=smi)
     assert out.steps.tolist() == [ticks] * B, "steps != ticks"
     assert draws["used"] + draws["padded"] == ticks * cfg5.max_iterations
     assert drift <= 1e-4, drift
@@ -2296,16 +2308,18 @@ def differing(a, b):
     return out
 
 
-def graph_turns(label, run, smi, B=1, turns=4):
-    """[graph:<label>]: run() with the solver loop replaying its cached CUDA
-    graph against the eager loop (engine/graph.eager()). The cache is
-    emptied first, so the first graphed call captures (its wall, capture
-    and instantiate ms, the pool's bytes); then `turns` pairs in turns
-    (eager, graphed, graphed, eager, ...), each wall between two syncs.
-    Every result bitwise the first call's; every graphed call replays,
-    captures nothing and launches nothing on the memory path (its graph
-    holds the parameter block, a world built on the card too), no eager
-    call replays. Returns the median walls."""
+def graph_turns(label, run, smi, B=1, turns=4, ticks=None):
+    """[graph:<label>]: run() with the solver loop (and an MPC episode's
+    tick) replaying its cached CUDA graphs against the eager loop
+    (engine/graph.eager()). The cache is emptied first, so the first
+    graphed call captures (its wall, capture and instantiate ms, the
+    pools' bytes); then `turns` pairs in turns (eager, graphed, graphed,
+    eager, ...), each wall between two syncs. Every result bitwise the
+    first call's; every graphed call replays, captures nothing and
+    launches nothing on the memory path (its graph holds the parameter
+    block, a world built on the card too), no eager call replays. B: the
+    solves (replans) a call makes; for an episode of `ticks` ticks also
+    the median ms a tick. Returns the median walls."""
     from tpustomp_torch.engine import graph
     from tpustomp_torch.kernels import rollout
 
@@ -2333,7 +2347,10 @@ def graph_turns(label, run, smi, B=1, turns=4):
             bad = differing(out, first)
             assert not bad, (label, mode, bad)
     med = {m: float(np.median(w)) for m, w in walls.items()}
-    say(f"graph:{label}", B=B, eager_wall_s=walls["eager"],
+    per_tick = {} if ticks is None else {
+        f"{m}_ms_per_tick": 1e3 * med[m] / ticks for m in med}
+    say(f"graph:{label}", B=B, ticks=ticks, **per_tick,
+        eager_wall_s=walls["eager"],
         graphed_wall_s=walls["graphed"], median_eager_s=med["eager"],
         median_graphed_s=med["graphed"],
         eager_per_s=B / med["eager"], graphed_per_s=B / med["graphed"],
@@ -2387,6 +2404,38 @@ def graph_phases(robot, world, grid, cfg4, cfg2, cfg_con, cone, cfg3, world3,
     graph_turns("config3_hmc", lambda: plan_batch(
         robot, world3, small, cfg_hmc, generator=seeded(dev, 0)), smi,
         B=256, turns=2)
+
+
+def mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi,
+                     ticks=20):
+    """Phase 13's MPC rows, eager against graphed in turns, bitwise:
+    config 5 (every scenario of states5, `ticks` ticks) over the box and
+    the voxel tabletop, in replans/s; a fleet of its first 256 scenarios;
+    one robot's run_mpc (scenario 0), ms a tick over 8 episodes a
+    mode."""
+    from tpustomp_torch._tensors import map_tensors
+    from tpustomp_torch.engine.mpc import run_mpc, run_mpc_batch
+
+    dev = robot.joint_axis.device
+    dt = float(spec5["world_dt"])
+
+    def episode(states, static):
+        return lambda: run_mpc_batch(robot, cfg5, states, [0.12], ticks, dt,
+                                     static_world=static, device=dev,
+                                     generator=seeded(dev, 0))
+
+    B5 = states5.q.shape[0]
+    for label, static in (("config5", world), ("config5_grid", grid)):
+        graph_turns(label, episode(states5, static), smi, B=B5 * ticks,
+                    ticks=ticks)
+    fleet = map_tensors(states5, lambda v: v[:256])
+    graph_turns("config5_fleet256", episode(fleet, world), smi,
+                B=256 * ticks, ticks=ticks)
+    one = map_tensors(states5, lambda v: v[0])
+    graph_turns("mpc_one_robot", lambda: run_mpc(
+        robot, cfg5, one, [0.12], ticks, dt, static_world=world,
+        device=dev, generator=seeded(dev, 0)), smi, B=ticks, turns=8,
+        ticks=ticks)
 
 
 # CUDA API calls (runtime cuda*, and their cu* forms) that hand the device
@@ -2506,6 +2555,68 @@ def profile_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
             assert w["graphs"].get("replayed", 0) > 0, w["graphs"]
             assert slope[14]["graphs"].get("replayed", 0) > 0
     return launches["rollout_analytic"]
+
+
+def mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi):
+    """[profile:config5]: profiler windows (profile_window) over config-5
+    episodes (every scenario of states5, the box tabletop), eager and
+    replaying the tick's graphs (captured before the windows), of 2 and 4
+    ticks; per tick, the slope between them (the load and the copy out
+    cancel): host launches (HOST_LAUNCHES calls), kernels, kernel ms, wall
+    ms and the idle share (1 - kernel ms / wall ms; the profiler's host
+    cost inflates the wall); the 4-tick window's idle share, the
+    evaluator's share and largest kernels."""
+    from tpustomp_torch.engine import graph
+    from tpustomp_torch.engine.mpc import run_mpc_batch
+
+    dev = robot.joint_axis.device
+    dt = float(spec5["world_dt"])
+    name = "rollout_analytic:per_cand_world"
+
+    def run(n):
+        return lambda: run_mpc_batch(robot, cfg5, states5, [0.12], n, dt,
+                                     static_world=world, device=dev,
+                                     generator=seeded(dev, 0))
+
+    graph.clear()
+    for mode in ("eager", "graphed"):
+        eager = mode == "eager"
+        if eager:
+            with graph.eager():
+                synced(run(1))
+        else:
+            synced(run(1))              # captures the tick's graphs
+        win = {n: profile_window(rollout, run(n), eager)[1] for n in (2, 4)}
+        d = {key: (win[4][key] - win[2][key]) / 2
+             for key in ("host_launches", "kernels", "busy_us", "wall_us")}
+        w = win[4]
+        say("profile:config5", mode=mode, B=states5.q.shape[0],
+            host_launches_per_tick=d["host_launches"],
+            kernels_per_tick=d["kernels"],
+            kernel_ms_per_tick=d["busy_us"] / 1e3,
+            wall_ms_per_tick=d["wall_us"] / 1e3,
+            idle_pct_per_tick=100 * (1 - d["busy_us"] / d["wall_us"]),
+            window_ticks=4, window_wall_ms=w["wall_us"] / 1e3,
+            window_kernel_ms=w["busy_us"] / 1e3,
+            window_idle_pct=100 * (1 - w["busy_us"] / w["wall_us"]),
+            window_host_launches=w["host_launches"],
+            evaluator_launches=w["evaluator_launches"],
+            evaluator_pct_of_kernel_time=100 * w["evaluator_us"] / max(
+                w["busy_us"], 1e-9),
+            graphs=w["graphs"], trace_bytes=w["trace_bytes"],
+            kernel_launches=w["kernel_launches"],
+            top_kernels_ms_count=sorted(w["top"], reverse=True)[:8],
+            card=smi)
+        for n in (2, 4):
+            # the evaluator kernels the profiler saw, in the replays too,
+            # are the launches the wrappers counted
+            assert (win[n]["evaluator_launches"]
+                    == win[n]["kernel_launches"][name]), win[n]
+            if eager:
+                assert not win[n]["graphs"].get("replayed"), win[n]
+            else:
+                assert win[n]["graphs"].get("replayed", 0) > 0, win[n]
+                assert not win[n]["graphs"].get("captured"), win[n]
 
 
 def main():
@@ -2880,8 +2991,10 @@ def main():
     # --- 13. the solver loop's CUDA graphs against the eager loop --------
     graph_phases(robot, world, grid, cfg4, cfg2, cfg_con, cone, cfg3, world3,
                  cfg_hmc, scene, doc3, q0b, qNb, smi)
+    mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi)
     launches["rollout_analytic"] += profile_phase(
         rollout, robot, world, cfg4, q0b, qNb, smi)
+    mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi)
 
     pallas = "tpustomp/kernels/rollout_pallas.py"
     replaces = {

@@ -2006,3 +2006,129 @@ def test_graphed_solution_survives_the_next_replay(cuda_device):
     assert torch.equal(first.trajectory, kept[0])
     assert torch.equal(first.iterations, kept[1])
     assert torch.equal(first.metrics.total_cost, kept[2])
+
+
+# --- the MPC tick's CUDA graphs (engine/mpc.py _Tick) ----------------------
+
+def _config5(B, seed=0):
+    """Config 5's planner (configs/config5_mpc.yaml: N = 50, K = 16 + 4
+    reused, 8 iterations a tick) and B of its scenarios, seeded as
+    bench/mpc_bench.py:64-85 (one sphere each at 0.2 m/s)."""
+    cfg = PlannerConfig(num_timesteps=50, duration=3.0, num_rollouts=16,
+                        pi2_h=20.0, noise=NoiseConfig(
+                            stddev=0.25, decay=1.0, num_rollouts_reused=4),
+                        collision_clearance=0.05, max_iterations=8,
+                        max_iterations_after_collision_free=2,
+                        record_metrics=False)
+    rng = np.random.default_rng(seed)
+    q0 = np.array([-0.6, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0], np.float32)
+    qN = np.array([0.4, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0], np.float32)
+    centers = np.stack([rng.uniform(0.9, 1.2, B), rng.uniform(-0.6, 0.6, B),
+                        rng.uniform(0.3, 0.8, B)], 1)[:, None]
+    dirs = rng.normal(size=(B, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True) + 1e-9
+    state = tmpc.init_mpc(tmodel.arm_7dof(), cfg,
+                          q0 + rng.uniform(-0.03, 0.03, (B, 7)),
+                          qN + rng.uniform(-0.03, 0.03, (B, 7)), centers,
+                          (-dirs * 0.2)[:, None])
+    return cfg, state
+
+
+def _assert_states_bitwise(got, ref):
+    for f in dataclasses.fields(ref):
+        assert torch.equal(getattr(got, f.name).cpu(),
+                           getattr(ref, f.name).cpu()), f.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", ["none", "box", "voxel"])
+def test_mpc_graph_episode_is_bitwise_eager(cuda_device, static):
+    """A config-5 episode (B = 64, 6 ticks) replaying its tick's graphs
+    (captured in tick 0) against the eager episode under the same
+    generator: every MPCState field bitwise, the same kernel counters, a
+    second episode captures nothing, and no replay launches a kernel on
+    the memory path."""
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = {"none": None,
+             "box": AnalyticWorld.make(**_WORLDS["boxes"]),
+             "voxel": _voxel_world("grid")}[static]
+    world = None if world is None else world.to(cuda_device)
+    cfg, state = _config5(64)
+
+    def run():
+        tr.reset_launches()
+        out = tmpc.run_mpc_batch(robot, cfg, state, [0.12], 6, 0.1,
+                                 static_world=world, device=cuda_device,
+                                 generator=torch.Generator(
+                                     cuda_device).manual_seed(0))
+        torch.cuda.synchronize()
+        return out, [dict(c) for c in graph._COUNTERS]
+
+    graph.clear()
+    with graph.eager():
+        ref, counts = run()
+    variant = _VARIANT["composite" if static == "voxel" else "analytic"]
+    assert counts[0][variant] >= 6 * 3    # an iteration or more, 2 K4 a tick
+    graph.reset_counts()
+    got, got_counts = run()
+    _assert_states_bitwise(got, ref)
+    assert got_counts == counts
+    assert graph.GRAPHS["captured"] == 3 and graph.GRAPHS["replayed"] > 0
+    graph.reset_counts()
+    again, again_counts = run()
+    _assert_states_bitwise(again, ref)
+    assert again_counts == counts
+    assert again_counts[1]["memory"] == 0
+    assert graph.GRAPHS["captured"] == 0
+    assert graph.GRAPHS["replayed"] >= 6 * 2 + 6
+    assert not any(k.startswith("eager:") for k in graph.GRAPHS)
+    (entry,) = graph.cached()
+    assert entry["kind"] == "mpc_tick" and entry["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_mpc_graph_resilient_and_resumed_are_bitwise_eager(cuda_device):
+    """run_mpc_resilient recovering corrupted rows by its full-batch
+    replay, and an episode resumed midway from its state and generator
+    (a checkpoint's contents), both on one cached tick over the voxel
+    world: bitwise the eager episode."""
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    grid = _voxel_world("grid").to(cuda_device)
+    cfg, state = _config5(32, seed=1)
+
+    def gen():
+        return torch.Generator(cuda_device).manual_seed(4)
+
+    def whole():
+        return tmpc.run_mpc_batch(robot, cfg, state, [0.12], 6, 0.1,
+                                  static_world=grid, device=cuda_device,
+                                  generator=gen())
+
+    def fault(chunk_idx, out):
+        if chunk_idx == 0:
+            out.theta[3] = float("nan")
+        return out
+
+    graph.clear()
+    with graph.eager():
+        ref = whole()
+    graph.reset_counts()
+    rec = tmpc.run_mpc_resilient(robot, cfg, state, [0.12], 6, 0.1,
+                                 chunk_ticks=3, static_world=grid,
+                                 device=cuda_device, generator=gen(),
+                                 _fault_hook=fault)
+    _assert_states_bitwise(rec, ref)
+    g = gen()
+    mid = tmpc.run_mpc_batch(robot, cfg, state, [0.12], 3, 0.1,
+                             static_world=grid, device=cuda_device,
+                             generator=g)
+    mid = mid.to("cpu").to(cuda_device)
+    resumed = tmpc.run_mpc_batch(robot, cfg, mid, [0.12], 3, 0.1,
+                                 static_world=grid, device=cuda_device,
+                                 generator=g)
+    _assert_states_bitwise(resumed, ref)
+    assert graph.GRAPHS["captured"] == 3 and graph.GRAPHS["replayed"] > 0

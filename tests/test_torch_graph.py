@@ -107,11 +107,11 @@ class _EmulatedGraph:
 
 def _emulated_capture(body, stream):
     """A capture runs the region's host code (the counters move) and
-    leaves the static state as it was (no kernel ran)."""
-    state = graph._fields(body.__self__.state)
-    saved = [v.clone() for v in state]
+    leaves the static buffers as they were (no kernel ran)."""
+    bufs = body.__self__.buffers()
+    saved = [v.clone() for v in bufs]
     body()
-    for v, s in zip(state, saved):
+    for v, s in zip(bufs, saved):
         v.copy_(s)
     return _EmulatedGraph(body), 0.0, 0.0, 0
 
@@ -328,9 +328,10 @@ def test_results_survive_the_next_replay(emulated):
 
 def test_eager_cases_are_counted_by_reason(monkeypatch):
     """Each eager case, decided before any capture, counts its iterations
-    under its reason: a CPU step, debug_mode, a world with a row axis,
-    tensors moved under inference_mode, and the caller's request (a CPU
-    step in one of the other cases counts under that case)."""
+    under its reason: a CPU step, debug_mode, tensors moved under
+    inference_mode, and the caller's request (a CPU step in one of the
+    other cases counts under that case). A world with a row axis is no
+    eager case: its rows are graph inputs (test_row_worlds_are_graph_inputs)."""
     robot, world, prob = _scene7()
     cfg = PlannerConfig(**{**_BASE, "max_iterations": 3})
 
@@ -347,7 +348,6 @@ def test_eager_cases_are_counted_by_reason(monkeypatch):
         "cpu": solve,
         "debug_mode": lambda: _in(tracing.debug_mode(), solve),
         "requested": lambda: _in(graph.eager(), solve),
-        "world_batched": lambda: _rows_solve(robot, world, prob, cfg),
         "inference_tensors": lambda: solve(frozen),
     }
     for why, run in cases.items():

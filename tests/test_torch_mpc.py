@@ -38,6 +38,17 @@ from tpustomp_torch.engine import mpc as tmpc
 from tpustomp_torch.engine import solver as tsolver
 from tpustomp_torch.world import sdf as tsdf
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Each test runs on one CPU thread (restored after): the problems are
+    small, and the suite runs several test processes per core, where
+    torch's thread pools only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 Q0 = np.array([-0.56, 1.65], np.float32)
 QN = np.array([1.16, -1.46], np.float32)
 TICKS, DT_WORLD = 6, 0.1

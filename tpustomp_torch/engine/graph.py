@@ -43,11 +43,25 @@ launches.
   :data:`LIMIT` graphs, least recently used first out; a dropped graph's
   pool goes back to torch's allocator. The compacted path's buckets are
   graphs of their own (a batch size each).
+- Per-scenario worlds (``world_batched``: the MPC tick's, a batch's rows
+  of ``solve_batch_compacted``). The leaves that carry the row axis (an
+  AnalyticWorld's four, a composite's ``overlay``) are inputs of the
+  graph, as Q0 and the state are: the key names them by type, shapes and
+  dtypes only, and :func:`_load` copies them into contiguous static
+  buffers before the first replay of every solve. The rest of the world (a
+  composite's grid and packed table) is keyed by identity and version, as
+  a shared world is. The kernels read a row world's spheres and boxes
+  through device pointers (``kernels/rollout.py`` ``_launch``:
+  ``_prim_arrays``); ``_launch_params(shared=False)`` packs only the
+  robot, a grid's origin and resolution and the constraints into the
+  parameter block, so a replay sees every solve's rows.
 - What a graph freezes. The kernels' parameter block is filled on the host
   at capture and passed by value, and the host's decisions (parameter
-  route, lane plan, joint types) are taken then. A new robot, world or
-  constraint tensor, or a torch write to one (it moves the version), gets
-  a new graph. A write that moves no version (through ``.data``, a DLPack
+  route, lane plan, joint types) are taken then: from the robot, the
+  shared world and the constraints, which the key names by identity and
+  version, and from shapes. A new robot, shared world or constraint
+  tensor, or a torch write to one (it moves the version), gets a new
+  graph. A write that moves no version (through ``.data``, a DLPack
   alias, a custom CUDA op) is not seen, as it is not by the parameter
   block itself.
 - Results never alias the graph: :func:`run` returns a copy of the static
@@ -59,13 +73,15 @@ launches.
   evictions, invalidations and eager iterations by reason.
 - Eager cases, decided before any capture (:func:`eager_reason`): a CPU
   step ("cpu"), ``utils.tracing.debug_mode`` ("debug_mode": the state is
-  checked after every iteration), a world with a row axis
-  ("world_batched": the MPC tick builds its world anew every tick), tensors
-  moved under ``torch.inference_mode`` ("inference_tensors": no version to
-  key on), a robot whose joint types only the device holds
-  ("joint_types_on_card": FK would read them inside the capture), and the
-  caller's request ("requested": :func:`eager`, around any entry point,
-  for comparisons).
+  checked after every iteration), keyed tensors moved under
+  ``torch.inference_mode`` ("inference_tensors": no version to key on), a
+  robot whose joint types only the device holds ("joint_types_on_card":
+  FK would read them inside the capture), and the caller's request
+  ("requested": :func:`eager`, around any entry point, for comparisons).
+- The MPC tick (engine/mpc.py ``_Tick``) is one cache entry of three
+  regions over static buffers: the tick's own work before the solve, this
+  module's iteration graph, and its work after the solve; the same lock,
+  LRU, counters and ordering event serve it.
 
 Graphed solves of one process run one at a time (a lock): a graph's static
 buffers hold one solve. A solve loads them only after the work of the last
@@ -90,16 +106,18 @@ from tpustomp_torch._tensors import clone_with_mirrors, map_tensors
 from tpustomp_torch.kernels import rollout
 from tpustomp_torch.robot.model import joint_types_on_host
 from tpustomp_torch.utils import tracing
+from tpustomp_torch.world.sdf import CompositeWorld
 
 # Most graphs cached at once (a config-4 graph's pool is about a GB).
 LIMIT = 8
 
-# Captures, replays, graphs evicted (LIMIT), invalidated (a version moved)
-# or dead (a tensor of the key is gone), and iterations run eagerly by
-# reason: "first_iteration" (the iteration before a capture, or before
-# replays from a state whose strides differ from the graph's),
-# "param_read" (the one after a first iteration that deferred a parameter
-# read) and the reasons of eager_reason.
+# Captures (one a region: an MPC tick captures three), replays, graphs
+# evicted (LIMIT), invalidated (a version moved) or dead (a tensor of the
+# key is gone), and iterations run eagerly by reason: "first_iteration"
+# (the iteration before a capture, or before replays from a state whose
+# strides differ from the graph's), "param_read" (the one after a first
+# iteration that deferred a parameter read) and the reasons of
+# eager_reason.
 GRAPHS = collections.Counter()
 
 _ENABLED = contextvars.ContextVar("tpustomp_torch_graphs", default=True)
@@ -113,8 +131,9 @@ _COUNTERS = (rollout.LAUNCHES, rollout.PARAM_ROUTES, rollout.LAYOUTS,
 
 @contextlib.contextmanager
 def eager():
-    """Run the solver loop eagerly inside the block (reason "requested"):
-    the comparison the smoke and the card tests make."""
+    """Run the solver loop, and the MPC tick around it, eagerly inside the
+    block (reason "requested"): the comparison the smoke and the card
+    tests make."""
     token = _ENABLED.set(False)
     try:
         yield
@@ -123,16 +142,14 @@ def eager():
 
 
 def eager_reason(step) -> str | None:
-    """Why `step` runs in the eager loop, or None when it replays a graph."""
+    """Why `step` runs in the eager loop, or None when it replays a graph.
+    `step` may be any object with a Step's robot, world, world_batched,
+    constraints, ops and Q0 (the MPC tick passes its own)."""
     if not _ENABLED.get():
         return "requested"
     if tracing.debug_enabled():
         return "debug_mode"
-    if step.world_batched:
-        return "world_batched"
-    tensors = []
-    _skeleton((step.robot, step.world, step.constraints, step.ops), tensors)
-    if any(t.is_inference() for t in tensors):
+    if any(t.is_inference() for t in _keyed(step)[1]):
         return "inference_tensors"
     if not joint_types_on_host(step.robot):
         return "joint_types_on_card"
@@ -141,8 +158,34 @@ def eager_reason(step) -> str | None:
     return None
 
 
-@dataclasses.dataclass(eq=False)
-class _Graph:
+@dataclasses.dataclass(eq=False, kw_only=True)
+class _Region:
+    """One captured region: its CUDA graph, what one replay adds to each
+    counter, and what its capture cost."""
+
+    graph: object = None      # torch.cuda.CUDAGraph
+    counts: tuple = ()        # what one replay adds to each counter
+    pool_bytes: int = 0
+    capture_ms: float = 0.0
+    instantiate_ms: float = 0.0
+    replays: int = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for c, add in zip(_COUNTERS, self.counts):
+            for k, n in add.items():
+                c[k] += n
+        self.replays += 1
+        GRAPHS["replayed"] += 1
+
+    def cost(self) -> dict:
+        return dict(pool_bytes=self.pool_bytes, capture_ms=self.capture_ms,
+                    instantiate_ms=self.instantiate_ms,
+                    replays=self.replays)
+
+
+@dataclasses.dataclass(eq=False, kw_only=True)
+class _Graph(_Region):
     """One captured iteration and its static buffers."""
 
     key: tuple
@@ -157,14 +200,7 @@ class _Graph:
     active: torch.Tensor      # ~state.done, for the next draw
     finished: torch.Tensor    # state.done.all(), the loop's condition
     step: object = None       # the Step over the buffers and copies
-    graph: object = None      # torch.cuda.CUDAGraph
-    counts: tuple = ()        # what one replay adds to each counter
     released: object = None   # event after the last solve's use, or None
-    pool_bytes: int = 0
-    static_bytes: int = 0
-    capture_ms: float = 0.0
-    instantiate_ms: float = 0.0
-    replays: int = 0
 
     def body(self) -> None:
         """The captured region: advance, the new state copied into the
@@ -178,6 +214,32 @@ class _Graph:
             getattr(self.state, f.name).copy_(getattr(new, f.name))
         torch.logical_not(self.state.done, out=self.active)
         self.finished.copy_(self.state.done.all())
+
+    def rows(self):
+        """The static buffers of a per-scenario world's rows, or None."""
+        return _rows(self.step.world, self.step.world_batched)
+
+    def buffers(self) -> list:
+        """Every static buffer: what a solve loads and the region writes."""
+        rows = self.rows()
+        return [*self.draws, *_fields(self.state), self.active,
+                self.finished, self.Q0, self.QN,
+                *(() if self.hyper is None else _fields(self.hyper)),
+                *(() if rows is None else _fields(rows))]
+
+    def copies(self) -> tuple:
+        """The graph's copies of the keyed inputs."""
+        return (self.step.robot, _shared(self.step.world,
+                                         self.step.world_batched),
+                self.step.constraints, self.step.ops)
+
+    def regions(self) -> tuple:
+        return (self,)
+
+    def info(self) -> dict:
+        return dict(kind=self.kind, batch=tuple(self.Q0.shape),
+                    static_bytes=_nbytes(self.buffers(), self.copies()),
+                    **self.cost())
 
 
 def _skeleton(obj, tensors: list):
@@ -195,15 +257,52 @@ def _skeleton(obj, tensors: list):
     return obj
 
 
+def _nbytes(tensors: list, objs=()) -> int:
+    """Bytes of `tensors` and of every tensor in `objs`."""
+    tensors = list(tensors)
+    _skeleton(objs, tensors)
+    return sum(v.numel() * v.element_size() for v in tensors)
+
+
+def _rows(world, batched: bool):
+    """The part of a step's world that carries its row axis (one world a
+    scenario): the world itself, or a composite's overlay; None for a
+    world shared by every scenario."""
+    if not batched:
+        return None
+    return world.overlay if isinstance(world, CompositeWorld) else world
+
+
+def _shared(world, batched: bool):
+    """The part of a step's world that every scenario shares: a shared
+    world, a composite's grid, or None."""
+    if not batched:
+        return world
+    return world.grid if isinstance(world, CompositeWorld) else None
+
+
+def _keyed(step) -> tuple[tuple, list]:
+    """(skeleton, tensors): the structure of the step's robot, world,
+    constraints and DeviceOps, and the tensors a graph names by identity
+    and version: all of them but a per-scenario world's rows, which it
+    names by type, shapes and dtypes (they are loaded like the state)."""
+    tensors = []
+    rows = _rows(step.world, step.world_batched)
+    skeleton = (_skeleton((step.robot, _shared(step.world,
+                                                step.world_batched),
+                           step.constraints, step.ops), tensors),
+                type(step.world).__qualname__, _skeleton(rows, []))
+    return skeleton, tensors
+
+
 def key_of(step, state) -> tuple[tuple, list]:
     """(key, tensors): the cache key of `step` run from `state` and the
     tensors it names by identity (their versions are checked on a hit)."""
-    tensors = []
-    skeleton = _skeleton((step.robot, step.world, step.constraints,
-                          step.ops), tensors)
+    skeleton, tensors = _keyed(step)
     shapes = tuple((tuple(v.shape), v.dtype) for v in _fields(state))
     key = (step.kind, step.cfg, tuple(step.Q0.shape), step.Q0.device,
-           step.hyper is None, shapes, skeleton, tuple(map(id, tensors)))
+           step.hyper is None, step.world_batched, shapes, skeleton,
+           tuple(map(id, tensors)))
     return key, tensors
 
 
@@ -211,8 +310,15 @@ def _fields(obj) -> list:
     return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
 
 
+def _refs(key, tensors) -> tuple:
+    """Weak references to a cache entry's tensors; a tensor's end marks
+    the entry dead."""
+    return tuple(weakref.ref(t, lambda _, k=key: _DEAD.append(k))
+                 for t in tensors)
+
+
 def _lookup(key, tensors):
-    """The cached graph of `key`, or None; a graph whose tensors moved a
+    """The cached entry of `key`, or None; an entry whose tensors moved a
     version since its capture is dropped."""
     g = _CACHE.get(key)
     if g is None:
@@ -226,12 +332,15 @@ def _lookup(key, tensors):
     return None
 
 
-def _drop(g: _Graph, why: str) -> None:
-    """Free g's graph and pool once the last solve that used it is done."""
+def _drop(g, why: str) -> None:
+    """Free an entry's graphs and pools once the last solve that used it is
+    done."""
     GRAPHS[why] += 1
     if g.released is not None:
         g.released.synchronize()
-    g.graph.reset()
+    for r in g.regions():
+        if r.graph is not None:
+            r.graph.reset()
 
 
 def _purge() -> None:
@@ -243,6 +352,13 @@ def _purge() -> None:
         if g is not None and any(r() is None for r in g.refs):
             del _CACHE[key]
             _drop(g, "dead")
+
+
+def _make_room() -> None:
+    """Evict least recently used entries down to LIMIT - 1, before a
+    capture: one pool less."""
+    while len(_CACHE) >= LIMIT:
+        _drop(_CACHE.popitem(last=False)[1], "evicted")
 
 
 def clear() -> None:
@@ -258,14 +374,12 @@ def reset_counts() -> None:
 
 
 def cached() -> list[dict]:
-    """What each cached graph holds and cost, oldest first."""
+    """What each cached entry holds and cost, oldest first: kind, batch,
+    pool and static bytes, capture and instantiate ms and replays (an MPC
+    tick's iteration graph's, with each region's under "regions")."""
     with _LOCK:
         _purge()
-        return [dict(kind=g.kind, batch=tuple(g.Q0.shape),
-                     pool_bytes=g.pool_bytes, static_bytes=g.static_bytes,
-                     capture_ms=g.capture_ms,
-                     instantiate_ms=g.instantiate_ms, replays=g.replays)
-                for g in _CACHE.values()]
+        return [g.info() for g in _CACHE.values()]
 
 
 def _stream(device) -> torch.cuda.Stream:
@@ -319,18 +433,49 @@ def _snapshot() -> list[dict]:
     return [dict(c) for c in _COUNTERS]
 
 
-def _buffers(step, state, key, tensors) -> _Graph:
+def _record(r: _Region, body: Callable[[], None], device) -> None:
+    """body() captured into the region r on the device's capture stream;
+    what the capture counted moves to r's replays. The allocator's cached
+    blocks are released first: a capture allocates new segments for its
+    pool and may not release cached ones itself, not even the pools of
+    dropped graphs, which torch frees only then."""
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    before = _snapshot()
+    r.graph, r.capture_ms, r.instantiate_ms, r.pool_bytes = _capture(
+        body, _stream(device))
+    # the capture launched nothing: its counts move to the replays
+    r.counts = tuple({k: c[k] - b[k] for k in c}
+                     for c, b in zip(_COUNTERS, before))
+    for c, b in zip(_COUNTERS, before):
+        c.update(b)
+    GRAPHS["captured"] += 1
+
+
+def _static_world(world, batched: bool, own):
+    """A graph's world: a per-scenario world's rows as contiguous static
+    buffers (loaded by _load), the rest as `own` makes it."""
+    rows = _rows(world, batched)
+    if rows is None:
+        return own(world)
+    bufs = map_tensors(rows, lambda v: v.clone(
+        memory_format=torch.contiguous_format))
+    if isinstance(world, CompositeWorld):
+        return CompositeWorld(grid=own(world.grid), overlay=bufs)
+    return bufs
+
+
+def _buffers(step, state, key, tensors, own=clone_with_mirrors) -> _Graph:
     """A graph's static buffers for `step` from `state`, and its step over
-    them and over copies of the robot, world, constraints and DeviceOps
-    (with their host copies): the graph holds nothing of the caller's but
-    weak references, so it goes when they do, and its step keeps what the
-    captured kernels read (the copies, and what building the step put on
-    the device) for as long as it may replay."""
+    them and over `own`'s copies of the robot, world, constraints and
+    DeviceOps (by default clones with their host copies: the graph holds
+    nothing of the caller's but weak references, so it goes when they do,
+    and its step keeps what the captured kernels read (the copies, and
+    what building the step put on the device) for as long as it may
+    replay)."""
     hyper = (None if step.hyper is None
              else map_tensors(step.hyper, torch.clone))
-    g = _Graph(key=key,
-               refs=tuple(weakref.ref(t, lambda _, k=key: _DEAD.append(k))
-                          for t in tensors),
+    g = _Graph(key=key, refs=_refs(key, tensors),
                versions=tuple(t._version for t in tensors),
                kind=step.kind, Q0=step.Q0.clone(), QN=step.QN.clone(),
                hyper=hyper, state=map_tensors(state, torch.clone),
@@ -342,31 +487,11 @@ def _buffers(step, state, key, tensors) -> _Graph:
                                     device=step.Q0.device))
     g.step = step.over(
         Q0=g.Q0, QN=g.QN, hyper=hyper, noise_fn=None,
-        robot=clone_with_mirrors(step.robot),
-        world=clone_with_mirrors(step.world),
-        constraints=tuple(map(clone_with_mirrors, step.constraints)),
-        ops=map_tensors(step.ops, torch.clone))
+        robot=own(step.robot),
+        world=_static_world(step.world, step.world_batched, own),
+        constraints=tuple(map(own, step.constraints)),
+        ops=own(step.ops))
     return g
-
-
-def _capture_into(g: _Graph) -> None:
-    """g's iteration captured over its buffers, and g cached."""
-    while len(_CACHE) >= LIMIT:     # before the capture: one pool less
-        _drop(_CACHE.popitem(last=False)[1], "evicted")
-    before = _snapshot()
-    g.graph, g.capture_ms, g.instantiate_ms, g.pool_bytes = _capture(
-        g.body, _stream(g.Q0.device))
-    # the capture launched nothing: its counts move to the replays
-    g.counts = tuple({k: c[k] - b[k] for k in c}
-                     for c, b in zip(_COUNTERS, before))
-    for c, b in zip(_COUNTERS, before):
-        c.update(b)
-    static = [*g.draws, *_fields(g.state), g.active]
-    _skeleton((g.step.robot, g.step.world, g.step.constraints, g.step.ops,
-               g.Q0, g.QN, g.hyper), static)
-    g.static_bytes = sum(v.numel() * v.element_size() for v in static)
-    GRAPHS["captured"] += 1
-    _CACHE[g.key] = g
 
 
 def _fits(g: _Graph, state) -> bool:
@@ -376,27 +501,81 @@ def _fits(g: _Graph, state) -> bool:
                for a, b in zip(_fields(g.state), _fields(state)))
 
 
-def _load(g: _Graph, step, state) -> None:
-    """The solve's state, Q0/QN and HyperParams into the static buffers,
-    after the last solve that used them (on whichever stream it ran)."""
+def _wait(g, device) -> None:
+    """The current stream waits for the last solve that used g's buffers
+    (on whichever stream it ran)."""
     if g.released is not None:
-        torch.cuda.current_stream(g.Q0.device).wait_event(g.released)
+        torch.cuda.current_stream(device).wait_event(g.released)
+
+
+def _release(g, device) -> None:
+    """Mark g's buffers as in use until the current stream's queued work
+    is done."""
+    if device.type == "cuda":
+        g.released = torch.cuda.Event()
+        g.released.record(torch.cuda.current_stream(device))
+
+
+def _load(g: _Graph, step, state) -> None:
+    """The solve's state, Q0/QN, HyperParams and world rows into the
+    static buffers, after the last solve that used them."""
+    _wait(g, g.Q0.device)
     pairs = [(g.Q0, step.Q0), (g.QN, step.QN),
              *zip(_fields(g.state), _fields(state))]
     if step.hyper is not None:
         pairs += zip(_fields(g.hyper), _fields(step.hyper))
+    rows = g.rows()
+    if rows is not None:
+        pairs += zip(_fields(rows), _fields(_rows(step.world, True)))
     for buf, v in pairs:
         buf.copy_(v)
     torch.logical_not(g.state.done, out=g.active)
 
 
-def _replay(g: _Graph) -> None:
-    g.graph.replay()
-    for c, add in zip(_COUNTERS, g.counts):
-        for k, n in add.items():
-            c[k] += n
-    g.replays += 1
-    GRAPHS["replayed"] += 1
+def _settle(g: _Graph, step, state, it_limit: int, count: int):
+    """The solve's next iteration, run eagerly over g's step on the capture
+    stream (it builds the kernels' libraries, settles their parameter
+    routes and the stream's cuBLAS workspace), and one more while it
+    deferred a parameter read: (state, count, whether the solve is
+    over)."""
+    stream = _stream(step.Q0.device)
+    for reason in ("first_iteration", "param_read"):
+        deferred = rollout.PARAM_READS["deferred"]
+        state = _on(stream, lambda s=state, c=count: g.step.advance(
+            s, step.draw(c, s.done)))
+        count += 1
+        GRAPHS["eager:" + reason] += 1
+        if count >= it_limit or bool(state.done.all()):
+            return state, count, True
+        if rollout.PARAM_READS["deferred"] == deferred:
+            break
+    return state, count, False
+
+
+def _iterate(g: _Graph, step, it_limit: int, count: int) -> int:
+    """Replays from g's loaded state until every row is done or the count
+    reaches it_limit: each the draw into g's buffers, one replay and the
+    read of the loop's condition. Returns the count."""
+    while True:
+        step.draw_into(count, g.active, g.draws)
+        g.replay()
+        count += 1
+        if count >= it_limit or bool(g.finished):
+            return count
+
+
+def _first_solve(g: _Graph, step, state, it_limit: int) -> None:
+    """A whole solve of `step` from `state` that captures g on its way and
+    leaves its last state in g's static state (the MPC tick's first
+    solve): its eager iterations (_settle), g's capture, whether or not
+    the solve ended in them, then replays."""
+    count, over = 0, it_limit <= 0
+    if not over:
+        state, count, over = _settle(g, step, state, it_limit, 0)
+        _record(g, g.body, step.Q0.device)
+    _load(g, step, state)
+    if not over:
+        _iterate(g, step, it_limit, count)
 
 
 def run(step, state, it_limit: int, count: int):
@@ -413,29 +592,16 @@ def run(step, state, it_limit: int, count: int):
             g = _buffers(step, state, key, tensors)
         if new or not _fits(g, state):
             if not new:
-                _load(g, step, state)       # Q0/QN/hyper of this solve
-            stream = _stream(step.Q0.device)
-            for reason in ("first_iteration", "param_read"):
-                deferred = rollout.PARAM_READS["deferred"]
-                state = _on(stream, lambda s=state, c=count: g.step.advance(
-                    s, step.draw(c, s.done)))
-                count += 1
-                GRAPHS["eager:" + reason] += 1
-                if count >= it_limit or bool(state.done.all()):
-                    return state, count
-                if rollout.PARAM_READS["deferred"] == deferred:
-                    break
+                _load(g, step, state)       # Q0/QN/hyper/rows of this solve
+            state, count, over = _settle(g, step, state, it_limit, count)
+            if over:
+                return state, count
             if new:
-                _capture_into(g)
+                _make_room()
+                _record(g, g.body, step.Q0.device)
+                _CACHE[key] = g
         _load(g, step, state)
-        while True:
-            step.draw_into(count, g.active, g.draws)
-            _replay(g)
-            count += 1
-            if count >= it_limit or bool(g.finished):
-                break
+        count = _iterate(g, step, it_limit, count)
         out = map_tensors(g.state, torch.clone)
-        if g.Q0.device.type == "cuda":
-            g.released = torch.cuda.Event()
-            g.released.record(torch.cuda.current_stream(g.Q0.device))
+        _release(g, g.Q0.device)
         return out, count

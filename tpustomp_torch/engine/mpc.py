@@ -13,7 +13,12 @@ Every control tick, for all B scenarios at once:
 Differences from the JAX package, by design:
   - No jit/scan/vmap: the tick loop is a Python loop, the batch axis is
     written out, and `run_mpc` is `run_mpc_batch` at B=1 (as `plan` is
-    `plan_batch` at B=1).
+    `plan_batch` at B=1). On the card a tick replays CUDA graphs, the
+    counterpart of the compiled `lax.scan` body (`_Tick`): its own work
+    before the solve (steps 1-3 and the solver's initial state), the
+    solver's iteration once an iteration (engine/graph.py), and its work
+    after it (the solve's finalize and step 5). The host then draws the
+    noise, replays and reads one flag an iteration.
   - `MPCState` carries no PRNG key. Noise is an argument: by default one
     ``torch.randn`` [d, B, K, N] per solver iteration from an explicit
     generator (engine/sampling.draw_z; `_TickDraws`: exactly
@@ -31,16 +36,18 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
-from tpustomp_torch._tensors import map_tensors, to_device
+from tpustomp_torch._tensors import (clone_with_mirrors, map_tensors,
+                                     shared_copy, to_device)
 from tpustomp_torch.api.config import PlannerConfig, check_supported
 from tpustomp_torch.api.plan import _resolve_device, resolve_backend
 from tpustomp_torch.dynamics.device import DeviceOps, device_ops
-from tpustomp_torch.engine import solver
+from tpustomp_torch.engine import graph, solver
 from tpustomp_torch.engine.distributed import Mesh, make_mesh
 from tpustomp_torch.engine.sampling import draw_z, shard_noise
 from tpustomp_torch.engine.trajectory import min_jerk_init, wrap_goal
@@ -207,6 +214,237 @@ def _segment_margin(robot, worldB, q, q_next) -> torch.Tensor:
     return torch.amin(sdf(worldB, x) - robot.body_radius, dim=(1, 2))
 
 
+@dataclass(frozen=True)
+class _TickIn:
+    """What a tick computes before its solve: the moved spheres [B, S, 3],
+    the tick's world (one row per scenario), the executed configuration
+    q_next (the solve's start), the warm start theta0, the wrapped goal
+    QN and the solver's initial state."""
+
+    centers: torch.Tensor
+    world: object
+    q_next: torch.Tensor
+    theta0: torch.Tensor
+    QN: torch.Tensor
+    state: solver.SolverState
+
+
+def _tick_in(robot, cfg: PlannerConfig, state: MPCState, radius,
+             world_dt: float, static_world) -> _TickIn:
+    """Steps 1-3 of a tick and the solver's initial state (solve_batch's
+    _init_batch)."""
+    centers = state.sphere_center + state.sphere_vel * world_dt
+    world = _tick_world_batch(centers, radius, static_world)
+    q_next = state.theta[:, 0]
+    theta0 = _shift_warm_start(state.theta, state.qN)
+    QN, start = solver._init_batch(robot, cfg, q_next, state.qN, theta0)
+    return _TickIn(centers, world, q_next, theta0, QN, start)
+
+
+def _tick_out(robot, cfg: PlannerConfig, ops: DeviceOps, state: MPCState,
+              tin: _TickIn, final: solver.SolverState, goal_eps: float,
+              goal_flush: float | None) -> MPCState:
+    """The solve's finalize and step 5: the next MPCState from the tick's
+    input `state`, what _tick_in computed and the solve's last state."""
+    sol = solver.finalize(robot, tin.world, cfg, ops, tin.q_next, tin.QN,
+                          final)
+    theta_new = sol.trajectory[:, 1:-1]
+    if goal_flush is not None:
+        fm = _flush_margin_batch(robot, tin.world, tin.q_next, state.qN,
+                                 tin.theta0, cfg)
+        theta_new = _apply_flush(theta_new, tin.theta0, tin.q_next, state.qN,
+                                 fm, cfg, goal_flush)
+    margin = _segment_margin(robot, tin.world, state.q, tin.q_next)
+    return dataclasses.replace(
+        state,
+        q=tin.q_next,
+        theta=theta_new,
+        sphere_center=tin.centers,
+        steps=state.steps + 1,
+        collided=state.collided | (margin <= 0.0),
+        reached_tick=_update_reached(state.reached_tick, tin.q_next,
+                                     state.qN, state.steps, goal_eps),
+    )
+
+
+def _eager_tick(robot, cfg, ops, state, radius, world_dt, noise_fn,
+                static_world, goal_eps, goal_flush) -> MPCState:
+    """One tick, launch by launch: _tick_in, solve_batch's loop
+    (solver.run_until, which takes its own graph or eager path) and
+    _tick_out."""
+    tin = _tick_in(robot, cfg, state, radius, world_dt, static_world)
+    solver._check_batch(cfg, None, tin.q_next, tin.world, True, None)
+    step = solver.make_step(robot, tin.world, cfg, ops, tin.q_next, tin.QN,
+                            noise_fn, world_batched=True)
+    final, _ = solver.run_until(step, tin.state, cfg.max_iterations)
+    return _tick_out(robot, cfg, ops, state, tin, final, goal_eps,
+                     goal_flush)
+
+
+def _copy(dst, src) -> None:
+    """src's tensors into dst's, field by field through nested dataclasses
+    (a tensor that is dst's own is left as it is)."""
+    for a, b in zip(graph._fields(dst), graph._fields(src)):
+        if isinstance(a, torch.Tensor):
+            if a is not b:
+                a.copy_(b)
+        elif dataclasses.is_dataclass(a):
+            _copy(a, b)
+
+
+@dataclasses.dataclass(eq=False, kw_only=True)
+class _Tick:
+    """A graphed tick: three captured regions over static buffers, one
+    cache entry of engine/graph.py. `enter` (:meth:`tick_in`) computes
+    _tick_in from the static MPCState `state` and `radius` into `tin`,
+    whose world, q_next, QN and state are the iteration graph `loop`'s
+    buffers; `loop` replays once an iteration; `leave` (:meth:`tick_out`)
+    writes _tick_out into `state`. Between ticks the state stays in its
+    buffers: an episode loads it once and copies it out once. The regions
+    run over the entry's own copies of the robot, DeviceOps and static
+    world, which its key names by identity and version."""
+
+    key: tuple
+    refs: tuple
+    versions: tuple
+    robot: RobotSpec
+    ops: DeviceOps
+    static_world: object
+    cfg: PlannerConfig
+    world_dt: float
+    goal_eps: float
+    goal_flush: float | None
+    state: MPCState
+    radius: torch.Tensor
+    tin: _TickIn
+    loop: graph._Graph
+    enter: graph._Region = dataclasses.field(default_factory=graph._Region)
+    leave: graph._Region = dataclasses.field(default_factory=graph._Region)
+    released: object = None
+
+    def tick_in(self) -> None:
+        _copy(self.tin, _tick_in(self.robot, self.cfg, self.state,
+                                 self.radius, self.world_dt,
+                                 self.static_world))
+        torch.logical_not(self.loop.state.done, out=self.loop.active)
+
+    def tick_out(self) -> None:
+        _copy(self.state, _tick_out(self.robot, self.cfg, self.ops,
+                                    self.state, self.tin, self.loop.state,
+                                    self.goal_eps, self.goal_flush))
+
+    def buffers(self) -> list:
+        return [*graph._fields(self.state), self.radius, self.tin.centers,
+                self.tin.theta0, *self.loop.buffers()]
+
+    def regions(self) -> tuple:
+        return (self.enter, self.loop, self.leave)
+
+    def info(self) -> dict:
+        regions = dict(tick_in=self.enter.cost(),
+                       iteration=self.loop.cost(),
+                       tick_out=self.leave.cost())
+        return dict(
+            kind="mpc_tick", batch=tuple(self.state.q.shape),
+            static_bytes=graph._nbytes(self.buffers(), (
+                self.robot, self.ops, self.static_world)),
+            **{k: sum(r[k] for r in regions.values())
+               for k in ("pool_bytes", "capture_ms", "instantiate_ms")},
+            replays=self.loop.replays, regions=regions)
+
+
+def _first_tick(key, tensors, robot, cfg, ops, state, radius, world_dt,
+                static_world, goal_eps, goal_flush, noise_fn) -> _Tick:
+    """Tick 0 of an episode that missed the cache, run as a graphed tick's
+    warm-up over the new entry's buffers: _tick_in eagerly, the solve
+    through engine/graph.py's first solve (it captures the iteration),
+    _tick_out eagerly; then both regions are captured and the entry
+    cached. Its state after tick 0 is in its static state."""
+    own = clone_with_mirrors
+    robot, ops = own(robot), own(ops)
+    static_world = None if static_world is None else own(static_world)
+    state, radius = map_tensors(state, torch.clone), radius.clone()
+    tin = _tick_in(robot, cfg, state, radius, world_dt, static_world)
+    solver._check_batch(cfg, None, tin.q_next, tin.world, True, None)
+    step = solver.make_step(robot, tin.world, cfg, ops, tin.q_next, tin.QN,
+                            noise_fn, world_batched=True)
+    graph._make_room()
+    loop = graph._buffers(step, tin.state, None, (), own=lambda x: x)
+    tick = _Tick(
+        key=key, refs=graph._refs(key, tensors),
+        versions=tuple(t._version for t in tensors), robot=robot, ops=ops,
+        static_world=static_world, cfg=cfg, world_dt=world_dt,
+        goal_eps=goal_eps, goal_flush=goal_flush, state=state,
+        radius=radius, loop=loop,
+        tin=_TickIn(tin.centers.clone(), loop.step.world, loop.Q0,
+                    tin.theta0.clone(), loop.QN, loop.state))
+    graph._first_solve(loop, step, tin.state, cfg.max_iterations)
+    tick.tick_out()
+    dev = state.q.device
+    graph._record(tick.enter, tick.tick_in, dev)
+    graph._record(tick.leave, tick.tick_out, dev)
+    graph._CACHE[key] = tick
+    return tick
+
+
+def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
+                   goal_eps, goal_flush, num_ticks, noise) -> MPCState:
+    """num_ticks ticks on the cached _Tick of these inputs (captured in
+    tick 0 on a miss): the state loaded once, then per tick one replay of
+    `enter`, the solve's draws, replays and flag reads, one replay of
+    `leave`; the state copied out once."""
+    tensors = []
+    skeleton = graph._skeleton((robot, static_world, ops), tensors)
+    shapes = tuple((tuple(v.shape), v.dtype)
+                   for v in (*graph._fields(state), radius))
+    key = ("mpc_tick", cfg, state.q.device, shapes, skeleton,
+           tuple(map(id, tensors)), world_dt, goal_eps, goal_flush)
+    solver._check_fp32_matmul(state.q.device)
+    with graph._LOCK:
+        graph._purge()
+        tick = graph._lookup(key, tensors)
+        done = 0
+        if tick is None:
+            tick = _first_tick(key, tensors, robot, cfg, ops, state, radius,
+                               world_dt, static_world, goal_eps, goal_flush,
+                               noise(0))
+            done = 1
+        else:
+            graph._wait(tick, state.q.device)
+            _copy(tick.state, state)
+            tick.radius.copy_(radius)
+        for t in range(done, num_ticks):
+            tick.enter.replay()
+            if cfg.max_iterations > 0:
+                graph._iterate(tick.loop, dataclasses.replace(
+                    tick.loop.step, noise_fn=noise(t)), cfg.max_iterations,
+                    0)
+            tick.leave.replay()
+        out = map_tensors(tick.state, torch.clone)
+        graph._release(tick, state.q.device)
+        return out
+
+
+def _run_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
+               goal_eps, goal_flush, num_ticks, noise) -> MPCState:
+    """num_ticks ticks from `state` (all on one device); noise(t) is tick
+    t's solver noise_fn(iteration, active). Graphed (_graphed_ticks) but in
+    graph.eager_reason's cases for the robot, the static world and
+    DeviceOps (the CPU, debug_mode, graph.eager(), ...), where every tick
+    runs _eager_tick."""
+    why = graph.eager_reason(SimpleNamespace(
+        robot=robot, world=static_world, world_batched=False,
+        constraints=(), ops=ops, Q0=state.q))
+    if why is None and num_ticks > 0:
+        return _graphed_ticks(robot, cfg, ops, state, radius, world_dt,
+                              static_world, goal_eps, goal_flush, num_ticks,
+                              noise)
+    for t in range(num_ticks):
+        state = _eager_tick(robot, cfg, ops, state, radius, world_dt,
+                            noise(t), static_world, goal_eps, goal_flush)
+    return state
+
+
 def mpc_step_batch(robot: RobotSpec, cfg: PlannerConfig, ops: DeviceOps,
                    state: MPCState, sphere_radius: torch.Tensor,
                    world_dt: float, noise_fn: solver.NoiseFn,
@@ -214,29 +452,12 @@ def mpc_step_batch(robot: RobotSpec, cfg: PlannerConfig, ops: DeviceOps,
                    goal_flush: float | None = GOAL_FLUSH) -> MPCState:
     """One control tick for every scenario (state fields [B, ...], all on
     one device with robot, ops and static_world). noise_fn(iteration,
-    active) feeds this tick's solve."""
-    centers = state.sphere_center + state.sphere_vel * world_dt
-    worldB = _tick_world_batch(centers, sphere_radius, static_world)
-    q_next = state.theta[:, 0]
-    theta0 = _shift_warm_start(state.theta, state.qN)
-    sol = solver.solve_batch(robot, worldB, cfg, ops, q_next, state.qN,
-                             noise_fn, theta0=theta0, world_batched=True)
-    theta_new = sol.trajectory[:, 1:-1]
-    if goal_flush is not None:
-        fm = _flush_margin_batch(robot, worldB, q_next, state.qN, theta0, cfg)
-        theta_new = _apply_flush(theta_new, theta0, q_next, state.qN, fm,
-                                 cfg, goal_flush)
-    margin = _segment_margin(robot, worldB, state.q, q_next)
-    return dataclasses.replace(
-        state,
-        q=q_next,
-        theta=theta_new,
-        sphere_center=centers,
-        steps=state.steps + 1,
-        collided=state.collided | (margin <= 0.0),
-        reached_tick=_update_reached(state.reached_tick, q_next, state.qN,
-                                     state.steps, goal_eps),
-    )
+    active) feeds this tick's solve. On the card the tick replays its
+    cached graphs (_Tick), as every tick of run_mpc_batch does; the state
+    returned is the caller's own."""
+    return _run_ticks(robot, cfg, ops, state, sphere_radius, world_dt,
+                      static_world, goal_eps, goal_flush, 1,
+                      lambda t: noise_fn)
 
 
 class _TickDraws:
@@ -273,6 +494,34 @@ class _TickDraws:
         self._skip_to(tick * self.per_tick + iteration)
         NOISE_DRAWS["used"] += 1
         return self._draw()[:, self.lo:self.hi]
+
+    def into(self, tick, iteration, active, out) -> None:
+        """The draw a call returns, written into out[0] (a solver graph's
+        buffer): drawn there when this shard is the whole batch, else cut
+        out and copied."""
+        if self.hi - self.lo != self.shape[1]:
+            out[0].copy_(self(tick, iteration, active))
+            return
+        self._skip_to(tick * self.per_tick + iteration)
+        NOISE_DRAWS["used"] += 1
+        self.drawn += 1
+        torch.randn(self.shape, generator=self.generator, out=out[0])
+
+
+class _TickNoise:
+    """Tick `tick`'s solver noise_fn(iteration, active) of an MPC
+    noise_fn(tick, iteration, active), with the source's `into` where it
+    has one (the default draw: solver.Step.draw_into then draws straight
+    into a graph's buffer)."""
+
+    def __init__(self, source, tick: int):
+        self.source, self.tick = source, tick
+        if hasattr(source, "into"):
+            self.into = lambda iteration, active, out: source.into(
+                tick, iteration, active, out)
+
+    def __call__(self, iteration, active):
+        return self.source(self.tick, iteration, active)
 
 
 def run_mpc_batch(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
@@ -321,9 +570,11 @@ def run_mpc_sharded(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     device = _resolve_device(mesh.device)
     cfg = resolve_backend(cfg, robot, _probe_world(static_world))
     robot = check_joint_static(robot)
-    robot, state = robot.to(device), state.to(device)
+    # a robot or static world on the CPU: the copy made for an equal one
+    # before, so repeated episodes replay one cached tick
+    robot, state = shared_copy(robot, device), state.to(device)
     if static_world is not None:
-        static_world = static_world.to(device)
+        static_world = shared_copy(static_world, device)
     radius = _f32(sphere_radius).to(device)
     B, d = state.q.shape
     lo, hi, total = mesh.rows(B)
@@ -336,11 +587,9 @@ def run_mpc_sharded(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     else:
         noise_fn = shard_noise(noise_fn, lo, hi, total)
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness, device)
-    for t in range(num_ticks):
-        state = mpc_step_batch(
-            robot, cfg, ops, state, radius, world_dt,
-            lambda it, active, t=t: noise_fn(t, it, active), static_world,
-            goal_eps, goal_flush)
+    state = _run_ticks(robot, cfg, ops, state, radius, world_dt,
+                       static_world, goal_eps, goal_flush, num_ticks,
+                       lambda t: _TickNoise(noise_fn, t))
     if draws is not None:
         draws.finish(num_ticks)
     return state

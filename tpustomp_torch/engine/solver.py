@@ -506,8 +506,9 @@ def run_until(step: Step, state: SolverState, it_limit: int, count: int = 0):
     step(state, count) an iteration and the same sync, runs in the cases
     engine/graph.eager_reason names: on the CPU; under
     utils.tracing.debug_mode, which checks the state after every iteration
-    (a second sync); for a world with a row axis; for tensors moved under
-    inference_mode; and inside graph.eager(), for comparisons."""
+    (a second sync); for tensors moved under inference_mode; and inside
+    graph.eager(), for comparisons. A world with a row axis replays too:
+    its rows are the graph's inputs, loaded with the state."""
     reason = graph.eager_reason(step)
     if reason is None:
         return graph.run(step, state, it_limit, count)
