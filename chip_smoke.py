@@ -143,21 +143,27 @@ and fails (non-zero exit, no result line) on any error:
      uninterrupted episode; utils.tracing.profile windows over a config-4
      plan_batch, with the eager loop and replaying the solver's CUDA graph:
      kernels and host launches per iteration and the device's idle share.
- 13. the solver loop's CUDA graphs (engine/graph.py, the counterpart of
-     the JAX package's jitted while_loop) and the MPC tick's (engine/mpc.py
-     _Tick, the counterpart of its jitted run_mpc_batch scan): every solve
-     and episode of phases 4-12 must have replayed its graphs; here config
-     4 (box, voxel, cone, a box world built on the card), config 2's plan
-     (also with the robot and world built on the CPU at every call),
-     config 3's CHOMP plan and plan_batch, HMC, config 5 (10,000
-     scenarios x 20 ticks, box and voxel), a fleet of 256 and one robot's
-     run_mpc run eager against graphed in turns: walls, solves/s,
-     replans/s or latency, the first graphed call's capture and
-     instantiate ms and the graph pools' bytes, results bitwise equal, no
-     graphed call capturing anew or launching on the memory path; then
-     profiler windows of config 4's loop and of config 5's ticks, eager
-     and graphed: host launches, kernels and kernel ms per iteration or
-     tick, and the device's idle share.
+ 13. the solver's CUDA graphs (engine/graph.py, the counterpart of the
+     JAX package's jitted solve: solve-in, the loop in chunks of
+     iterations under IF nodes with its condition and draws on the
+     device, solve-out) and the MPC tick's (engine/mpc.py _Tick, the
+     counterpart of its jitted run_mpc_batch scan): every solve and
+     episode of phases 4-12 must have replayed its graphs on the chunk
+     route; here config 4 (box, voxel, cone, a box world built on the
+     card), config 2's plan (also with the robot and world built on the
+     CPU at every call), config 3's CHOMP plan and plan_batch, HMC, config
+     5 (10,000 scenarios x 20 ticks, box and voxel), a fleet of 256 and
+     one robot's run_mpc run on three routes in turns (eager, one replay
+     an iteration, chunks): walls, solves/s, replans/s or latency, host
+     reads of the loop's condition per solve or tick (none inside a chunk
+     episode), host launches per call, the first graphed calls' walls,
+     the entries' pools, capture and instantiate ms, results and the
+     generator's offset after each call bitwise equal, no graphed call
+     capturing anew or launching on the memory path; then profiler
+     windows of config 4's loop and of config 5's ticks on the three
+     routes: host launches, kernels and kernel ms per iteration or tick,
+     and the device's idle share. The main path's launches are asserted
+     equal to the per-iteration route's (MAIN_PATH_LAUNCHES).
 
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
@@ -179,6 +185,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
 import numpy as np
@@ -728,9 +735,14 @@ def edges_phase(rollout, robot, world, grid, smi):
 
 
 def replayed(graph):
-    """The run since graph.reset_counts() replayed the solver's CUDA graph
-    (engine/graph.py): a main path that stayed eager fails the smoke."""
+    """The run since graph.reset_counts() replayed the solver's CUDA graphs
+    (engine/graph.py) on the chunk route (the loop's condition and draws
+    on the device): a main path that stayed eager, or that replayed one
+    iteration a replay, fails the smoke."""
     assert graph.GRAPHS["replayed"] > 0, dict(graph.GRAPHS)
+    assert graph.GRAPHS["chunk"] > 0, dict(graph.GRAPHS)
+    assert not any(k.startswith("per_iteration") for k in graph.GRAPHS), \
+        dict(graph.GRAPHS)
 
 
 def timed_plan_batch(rollout, robot, world, cfg, q0b, qNb, **kw):
@@ -2308,55 +2320,119 @@ def differing(a, b):
     return out
 
 
-def graph_turns(label, run, smi, B=1, turns=4, ticks=None):
-    """[graph:<label>]: run() with the solver loop (and an MPC episode's
-    tick) replaying its cached CUDA graphs against the eager loop
-    (engine/graph.eager()). The cache is emptied first, so the first
-    graphed call captures (its wall, capture and instantiate ms, the
-    pools' bytes); then `turns` pairs in turns (eager, graphed, graphed,
-    eager, ...), each wall between two syncs. Every result bitwise the
-    first call's; every graphed call replays, captures nothing and
-    launches nothing on the memory path (its graph holds the parameter
-    block, a world built on the card too), no eager call replays. B: the
-    solves (replans) a call makes; for an episode of `ticks` ticks also
-    the median ms a tick. Returns the median walls."""
+ROUTES = ("eager", "per_iteration", "chunk")
+
+# The main path's kernel launches (and K4's) as the eager loop and the
+# per-iteration replays counted them on an H100 (this script, before the
+# chunk route); every route runs the same iterations, so they must not
+# move.
+MAIN_PATH_LAUNCHES = {
+    "rollout_analytic": (599, 166), "rollout_grid": (54, 1),
+    "rollout_analytic:per_cand_world": (1604, 200),
+    "rollout_grid:per_cand_overlay": (796, 200),
+    "rollout_analytic:con": (51, None), "rollout_grid:con": (51, None),
+    "rollout_analytic:per_cand_world:con": (9, None),
+    "rollout_grid:per_cand_overlay:con": (9, None),
+}
+
+
+def in_route(route, fn):
+    """fn() with the solver's loop on `route`: "eager" (graph.eager()),
+    "per_iteration" (graph.per_iteration(): one replay an iteration, the
+    draw and the condition's read on the host, the route of a caller's
+    noise_fn) or "chunk" (the default: chunks of iterations under IF
+    nodes, condition and draws on the device)."""
+    from tpustomp_torch.engine import graph
+
+    ctx = {"eager": graph.eager, "per_iteration": graph.per_iteration}
+    if route not in ctx:
+        return fn()
+    with ctx[route]():
+        return fn()
+
+
+def graph_turns(label, run, smi, B=1, turns=4, ticks=None, solves=1,
+                profile=True):
+    """[graph:<label>]: run(generator) on each route of ROUTES, in turns.
+    The cache is emptied first, so the first chunk call and the first
+    per-iteration call capture (their walls, and the entries' pools,
+    capture and instantiate ms); then `turns` rounds, the routes' order
+    rotating, each wall between two syncs. Every result bitwise the first
+    call's and the generator's offset after every call equal; the graphed
+    calls replay, capture nothing and launch nothing on the memory path,
+    the chunk calls on the chunk route only, no eager call replays. Per
+    call: the host's reads of the loop's condition per solve (`solves` a
+    call) or per tick (an episode of `ticks`: none on the chunk route),
+    at most ceil(iterations / CHUNK) + 1 a solve on the chunk route; and
+    with `profile`, one profiler window a route (profile_window): host
+    launches per call. B: the solves (replans) a call makes. Returns the
+    median walls."""
     from tpustomp_torch.engine import graph
     from tpustomp_torch.kernels import rollout
 
+    dev = torch.device("cuda")
+
+    def call(route):
+        gen = seeded(dev, 0)
+        out, wall = synced(lambda: in_route(route, lambda: run(gen)))
+        return out, wall, gen.get_offset()
+
     graph.clear()
     graph.reset_counts()
-    first, first_wall = synced(run)
+    first, first_wall, offset = call("chunk")
     replayed(graph)
-    capture = graph.cached()
-    walls = {"eager": [], "graphed": []}
+    graph.reset_counts()
+    _, first_per_it_wall, _ = call("per_iteration")
+    entries = graph.cached()
+    walls = {r: [] for r in ROUTES}
+    reads = {r: [] for r in ROUTES}
     for i in range(turns):
-        for mode in (("eager", "graphed") if i % 2 == 0
-                     else ("graphed", "eager")):
+        order = ROUTES[i % 3:] + ROUTES[:i % 3]
+        for route in (order if i % 2 == 0 else order[::-1]):
             graph.reset_counts()
-            if mode == "eager":
-                with graph.eager():
-                    out, wall = synced(run)
-                assert graph.GRAPHS["replayed"] == 0, dict(graph.GRAPHS)
+            memory = rollout.PARAM_ROUTES["memory"]
+            out, wall, off = call(route)
+            g = dict(graph.GRAPHS)
+            if route == "eager":
+                assert not g.get("replayed"), g
             else:
-                memory = rollout.PARAM_ROUTES["memory"]
-                out, wall = synced(run)
-                replayed(graph)
-                assert graph.GRAPHS["captured"] == 0, dict(graph.GRAPHS)
+                assert g.get("replayed", 0) > 0 and not g.get("captured"), g
                 assert rollout.PARAM_ROUTES["memory"] == memory, label
-            walls[mode].append(wall)
+            if route == "chunk":
+                replayed(graph)
+                if ticks is not None:
+                    assert not g.get("flag_reads"), g
+                else:
+                    assert g.get("flag_reads", 0) <= solves * (
+                        -(-g["chunk"] // (graph.CHUNK * solves)) + 1), g
+            walls[route].append(wall)
+            n = ticks if ticks is not None else solves
+            reads[route].append(g.get("flag_reads", 0) / n)
             bad = differing(out, first)
-            assert not bad, (label, mode, bad)
-    med = {m: float(np.median(w)) for m, w in walls.items()}
+            assert not bad, (label, route, bad)
+            assert off == offset, (label, route, off, offset)
+    launches = {}
+    if profile:
+        for route in ROUTES:
+            launches[route] = profile_window(
+                rollout, lambda: run(seeded(dev, 0)), route)[1][
+                    "host_launches"]
+    med = {r: float(np.median(w)) for r, w in walls.items()}
     per_tick = {} if ticks is None else {
-        f"{m}_ms_per_tick": 1e3 * med[m] / ticks for m in med}
-    say(f"graph:{label}", B=B, ticks=ticks, **per_tick,
-        eager_wall_s=walls["eager"],
-        graphed_wall_s=walls["graphed"], median_eager_s=med["eager"],
-        median_graphed_s=med["graphed"],
-        eager_per_s=B / med["eager"], graphed_per_s=B / med["graphed"],
-        graphed_over_eager=med["eager"] / med["graphed"],
-        first_graphed_wall_s=first_wall, graphs=capture,
-        bitwise_equal=True, card=smi)
+        f"{r}_ms_per_tick": 1e3 * med[r] / ticks for r in ROUTES}
+    unit = "tick" if ticks is not None else "solve"
+    say(f"graph:{label}", B=B, ticks=ticks, solves=solves, **per_tick,
+        **{f"{r}_wall_s": walls[r] for r in ROUTES},
+        **{f"median_{r}_s": med[r] for r in ROUTES},
+        **{f"{r}_per_s": B / med[r] for r in ROUTES},
+        chunk_over_eager=med["eager"] / med["chunk"],
+        chunk_over_per_iteration=med["per_iteration"] / med["chunk"],
+        **{f"{r}_flag_reads_per_{unit}": float(np.median(reads[r]))
+           for r in ROUTES},
+        **{f"{r}_host_launches_per_call": launches.get(r) for r in ROUTES},
+        first_chunk_wall_s=first_wall,
+        first_per_iteration_wall_s=first_per_it_wall, graphs=entries,
+        bitwise_equal=True, generator_offsets_equal=True, card=smi)
     return med
 
 
@@ -2382,28 +2458,56 @@ def graph_phases(robot, world, grid, cfg4, cfg2, cfg_con, cone, cfg3, world3,
             ("config4_constrained", world, cfg_con,
              dict(constraints=cone)),
             ("config4_device_world", on_card, cfg4, {})):
-        graph_turns(label, lambda w=w, cfg=cfg, kw=kw: plan_batch(
-            robot, w, prob, cfg, generator=seeded(dev, 0), **kw), smi,
+        graph_turns(label, lambda gen, w=w, cfg=cfg, kw=kw: plan_batch(
+            robot, w, prob, cfg, generator=gen, **kw), smi,
             B=q0b.shape[0])
     one = ProblemSpec(q0=np.asarray(scene["q0"], np.float32),
                       qN=np.asarray(scene["qN"], np.float32))
-    graph_turns("config2", lambda: plan(robot, world, one, cfg2,
-                                        generator=seeded(dev, 0)), smi,
-                turns=8)
-    graph_turns("config2_host_objects", lambda: plan(
+    graph_turns("config2", lambda gen: plan(robot, world, one, cfg2,
+                                            generator=gen), smi, turns=8)
+    graph_turns("config2_host_objects", lambda gen: plan(
         arm_7dof(), tabletop(scene), one, cfg2, device="cuda",
-        generator=seeded(dev, 0)), smi, turns=4)
+        generator=gen), smi, turns=4)
     one3 = ProblemSpec(q0=np.asarray(doc3["scene"]["q0"], np.float32),
                        qN=np.asarray(doc3["scene"]["qN"], np.float32))
-    graph_turns("config3", lambda: plan(robot, world3, one3, cfg3,
-                                        generator=seeded(dev, 0)), smi)
-    graph_turns("config3_batch", lambda: plan_batch(
-        robot, world3, prob, cfg3, generator=seeded(dev, 0)), smi,
-        B=q0b.shape[0])
+    graph_turns("config3", lambda gen: plan(robot, world3, one3, cfg3,
+                                            generator=gen), smi)
+    graph_turns("config3_batch", lambda gen: plan_batch(
+        robot, world3, prob, cfg3, generator=gen), smi, B=q0b.shape[0])
     small = ProblemSpec(q0=q0b[:256], qN=qNb[:256])
-    graph_turns("config3_hmc", lambda: plan_batch(
-        robot, world3, small, cfg_hmc, generator=seeded(dev, 0)), smi,
-        B=256, turns=2)
+    graph_turns("config3_hmc", lambda gen: plan_batch(
+        robot, world3, small, cfg_hmc, generator=gen), smi, B=256, turns=2,
+        profile=False)
+
+
+def host_work_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
+    """[host_work:config4]: what a graphed plan_batch still launches
+    around its graphs, each in a profiler window (profile_window's host
+    launches, HOST_LAUNCHES calls): api.plan._prepare without and with a
+    ±0.1 rad goal band on every joint (resolve_goal_tolerance, plain
+    torch), building the solver's step, and the whole call (a hit) on the
+    chunk route."""
+    from tpustomp_torch import ProblemSpec, plan_batch
+    from tpustomp_torch.api.plan import _prepare
+    from tpustomp_torch.engine import solver
+
+    dev = robot.joint_axis.device
+    prob = ProblemSpec(q0=q0b, qN=qNb)
+    band = dataclasses.replace(prob, goal_tolerance_below=0.1,
+                               goal_tolerance_above=0.1)
+    p = _prepare(robot, world, prob, cfg4, dev, None)
+    out = {}
+    for label, fn in (
+            ("prepare", lambda: _prepare(robot, world, prob, cfg4, dev, None)),
+            ("prepare_goal_band", lambda: _prepare(robot, world, band, cfg4,
+                                                   dev, None)),
+            ("make_step", lambda: solver.make_step(
+                p.robot, p.world, p.cfg, p.ops, p.q0, p.qN, None)),
+            ("plan_batch", lambda: plan_batch(robot, world, prob, cfg4,
+                                              generator=seeded(dev, 0)))):
+        fn()                                        # warm (and capture)
+        out[label] = profile_window(rollout, fn, "chunk")[1]["host_launches"]
+    say("host_work:config4", B=q0b.shape[0], host_launches=out, card=smi)
 
 
 def mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi,
@@ -2420,22 +2524,21 @@ def mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi,
     dt = float(spec5["world_dt"])
 
     def episode(states, static):
-        return lambda: run_mpc_batch(robot, cfg5, states, [0.12], ticks, dt,
-                                     static_world=static, device=dev,
-                                     generator=seeded(dev, 0))
+        return lambda gen: run_mpc_batch(robot, cfg5, states, [0.12], ticks,
+                                         dt, static_world=static,
+                                         device=dev, generator=gen)
 
     B5 = states5.q.shape[0]
     for label, static in (("config5", world), ("config5_grid", grid)):
         graph_turns(label, episode(states5, static), smi, B=B5 * ticks,
-                    ticks=ticks)
+                    ticks=ticks, turns=2, profile=False)
     fleet = map_tensors(states5, lambda v: v[:256])
     graph_turns("config5_fleet256", episode(fleet, world), smi,
                 B=256 * ticks, ticks=ticks)
     one = map_tensors(states5, lambda v: v[0])
-    graph_turns("mpc_one_robot", lambda: run_mpc(
+    graph_turns("mpc_one_robot", lambda gen: run_mpc(
         robot, cfg5, one, [0.12], ticks, dt, static_world=world,
-        device=dev, generator=seeded(dev, 0)), smi, B=ticks, turns=8,
-        ticks=ticks)
+        device=dev, generator=gen), smi, B=ticks, turns=8, ticks=ticks)
 
 
 # CUDA API calls (runtime cuda*, and their cu* forms) that hand the device
@@ -2445,10 +2548,10 @@ HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def profile_window(rollout, run, eager):
+def profile_window(rollout, run, route):
     """One utils.tracing.profile window (torch.profiler, CPU and CUDA
-    activity, Chrome trace) over run(), the solver loop eager or replaying
-    its graph: (result, dict of the window's counts and times)."""
+    activity, Chrome trace) over run(), the solver loop on `route`
+    (in_route): (result, dict of the window's counts and times)."""
     import tempfile
 
     from torch.autograd import DeviceType
@@ -2460,11 +2563,7 @@ def profile_window(rollout, run, eager):
     graph.reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         with tracing.profile(tmp) as prof:
-            if eager:
-                with graph.eager():
-                    sol, wall = synced(run)
-            else:
-                sol, wall = synced(run)
+            sol, wall = synced(lambda: in_route(route, run))
         trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
     out = dict(wall_us=1e6 * wall, busy_us=0.0, kernels=0, host_launches=0,
                evaluator_us=0.0, evaluator_launches=0, top=[],
@@ -2488,14 +2587,14 @@ def profile_window(rollout, run, eager):
 
 def profile_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
     """[profile:config4]: a profiler window (profile_window) over a config-4
-    plan_batch with the eager loop and one replaying the solver's CUDA
-    graph (captured before the window): kernels and host launches
+    plan_batch on each route of ROUTES (graphs captured before the
+    window): kernels and host launches
     (HOST_LAUNCHES calls) per iteration, device busy time, the idle share
     of the window (1 - busy / wall; the profiler's host cost inflates the
     wall), the evaluator's share, the largest kernels. Then, per mode, the
     slope between two windows of 6 and 14 iterations (no early stop):
     host launches and idle share of the loop's iterations alone, init and
-    finalize excluded. Returns the analytic launches of the graphed
+    finalize excluded. Returns the analytic launches of the chunk route's
     window."""
     from tpustomp_torch import ProblemSpec, plan_batch
     from tpustomp_torch.engine import graph
@@ -2508,17 +2607,17 @@ def profile_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
                                   generator=seeded(dev, 0))
 
     plain_sol, plain_wall = synced(run(cfg4))
-    launches = {}
-    for mode in ("eager", "graphed"):
-        sol, w = profile_window(rollout, run(cfg4), mode == "eager")
+    launches, windows = {}, {}
+    for mode in ROUTES:
+        synced(lambda: in_route(mode, run(cfg4)))     # captures
+        sol, w = profile_window(rollout, run(cfg4), mode)
         iters = int(sol.iterations.max())
         slope = {}
         for k in (6, 14):
             fixed = cfg4.replace(max_iterations=k,
                                  max_iterations_after_collision_free=10**6)
-            synced(run(fixed))          # captures the graph of this config
-            slope[k] = profile_window(rollout, run(fixed),
-                                      mode == "eager")[1]
+            synced(lambda: in_route(mode, run(fixed)))   # captures
+            slope[k] = profile_window(rollout, run(fixed), mode)[1]
         d = {key: (slope[14][key] - slope[6][key]) / 8
              for key in ("host_launches", "kernels", "busy_us", "wall_us")}
         say("profile:config4", mode=mode, B=q0b.shape[0], iterations=iters,
@@ -2542,25 +2641,36 @@ def profile_phase(rollout, robot, world, cfg4, q0b, qNb, smi):
             card=smi)
         assert torch.equal(sol.trajectory, plain_sol.trajectory)
         assert w["kernels"] > 0
-        launches = w["kernel_launches"]
-        # the evaluator kernels the profiler saw, in a graph's replays too,
-        # are the launches the wrappers counted (a replay adds what its
-        # capture counted)
-        for win in (w, slope[6], slope[14]):
-            assert (win["evaluator_launches"]
-                    == win["kernel_launches"]["rollout_analytic"]), win
-        if mode == "eager":
-            assert not w["graphs"].get("replayed"), w["graphs"]
-        else:
-            assert w["graphs"].get("replayed", 0) > 0, w["graphs"]
-            assert slope[14]["graphs"].get("replayed", 0) > 0
+        if mode == "chunk":
+            launches = w["kernel_launches"]
+        windows[mode] = (w, slope[6], slope[14])
+        for i, win in enumerate(windows[mode]):
+            # the evaluator kernels the profiler saw, in a graph's replays
+            # too, are the launches the wrappers counted (a replay adds
+            # what its capture counted). The profiler misnames kernels
+            # inside IF-node bodies, so a chunk window is held to the
+            # per-iteration window's counted launches instead (a chunk adds
+            # its iterations' share of its capture's count)
+            if mode == "chunk":
+                assert win["kernel_launches"] == windows["per_iteration"][
+                    i]["kernel_launches"], win
+            else:
+                assert (win["evaluator_launches"]
+                        == win["kernel_launches"]["rollout_analytic"]), win
+            graphs = win["graphs"]
+            if mode == "eager":
+                assert not graphs.get("replayed"), graphs
+            else:
+                assert graphs.get("replayed", 0) > 0, graphs
+                assert graphs.get("chunk" if mode == "chunk" else
+                                  "per_iteration:requested", 0) > 0, graphs
     return launches["rollout_analytic"]
 
 
 def mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi):
     """[profile:config5]: profiler windows (profile_window) over config-5
-    episodes (every scenario of states5, the box tabletop), eager and
-    replaying the tick's graphs (captured before the windows), of 2 and 4
+    episodes (every scenario of states5, the box tabletop), on each route
+    of ROUTES (the tick's graphs captured before the windows), of 2 and 4
     ticks; per tick, the slope between them (the load and the copy out
     cancel): host launches (HOST_LAUNCHES calls), kernels, kernel ms, wall
     ms and the idle share (1 - kernel ms / wall ms; the profiler's host
@@ -2579,14 +2689,10 @@ def mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi):
                                      generator=seeded(dev, 0))
 
     graph.clear()
-    for mode in ("eager", "graphed"):
-        eager = mode == "eager"
-        if eager:
-            with graph.eager():
-                synced(run(1))
-        else:
-            synced(run(1))              # captures the tick's graphs
-        win = {n: profile_window(rollout, run(n), eager)[1] for n in (2, 4)}
+    windows = {}
+    for mode in ROUTES:
+        synced(lambda: in_route(mode, run(1)))    # captures the tick
+        win = {n: profile_window(rollout, run(n), mode)[1] for n in (2, 4)}
         d = {key: (win[4][key] - win[2][key]) / 2
              for key in ("host_launches", "kernels", "busy_us", "wall_us")}
         w = win[4]
@@ -2607,16 +2713,26 @@ def mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi):
             kernel_launches=w["kernel_launches"],
             top_kernels_ms_count=sorted(w["top"], reverse=True)[:8],
             card=smi)
+        windows[mode] = win
         for n in (2, 4):
             # the evaluator kernels the profiler saw, in the replays too,
-            # are the launches the wrappers counted
-            assert (win[n]["evaluator_launches"]
-                    == win[n]["kernel_launches"][name]), win[n]
-            if eager:
-                assert not win[n]["graphs"].get("replayed"), win[n]
+            # are the launches the wrappers counted (a chunk window: the
+            # per-iteration window's, as in profile_phase)
+            if mode == "chunk":
+                assert win[n]["kernel_launches"] == windows[
+                    "per_iteration"][n]["kernel_launches"], win[n]
             else:
-                assert win[n]["graphs"].get("replayed", 0) > 0, win[n]
-                assert not win[n]["graphs"].get("captured"), win[n]
+                assert (win[n]["evaluator_launches"]
+                        == win[n]["kernel_launches"][name]), win[n]
+            graphs = win[n]["graphs"]
+            if mode == "eager":
+                assert not graphs.get("replayed"), win[n]
+            else:
+                assert graphs.get("replayed", 0) > 0, win[n]
+                assert not graphs.get("captured"), win[n]
+            if mode == "chunk":         # no read inside the episode
+                assert graphs.get("chunk", 0) > 0, win[n]
+                assert not graphs.get("flag_reads"), win[n]
 
 
 def main():
@@ -2657,10 +2773,16 @@ def main():
     chains = {"runtime": None, "arm_7dof": rollout.chain_of(robot),
               "torso_arm_urdf": rollout.chain_of(urdf_robot)}
     t0 = time.perf_counter()
-    rollout.build(chains=tuple(chains.values()))
+    with ThreadPoolExecutor(2) as pool:     # the IF-node helper beside them
+        helper = pool.submit(rollout.build, ("graph_if",))
+        rollout.build(chains=tuple(chains.values()))
+        helper.result()
+    from tpustomp_torch.kernels import graph_if
+    graph_if.load(dev)
     say("build", kernels=sorted(rollout.LAUNCHES),
         seconds=round(time.perf_counter() - t0, 3),
         libraries=len(rollout.BUILD_SECONDS),
+        graph_if_build_seconds=rollout.BUILD_SECONDS.get(("graph_if", None)),
         first_build_seconds={
             f"{src}:{label}": rollout.BUILD_SECONDS.get((src, c))
             for label, c in chains.items() for src in rollout._SOURCES},
@@ -2992,6 +3114,7 @@ def main():
     graph_phases(robot, world, grid, cfg4, cfg2, cfg_con, cone, cfg3, world3,
                  cfg_hmc, scene, doc3, q0b, qNb, smi)
     mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi)
+    host_work_phase(rollout, robot, world, cfg4, q0b, qNb, smi)
     launches["rollout_analytic"] += profile_phase(
         rollout, robot, world, cfg4, q0b, qNb, smi)
     mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi)
@@ -3074,6 +3197,14 @@ def main():
                 unsorted_bodies_launches=UNSORTED_LAUNCHES[name])
         if name in K4_LAUNCHES:
             rows[-1]["candidate_major_launches"] = K4_LAUNCHES[name]
+    # the chunk route counts the iterations that ran, as the per-iteration
+    # replays and the eager loop did: the main path's launches are theirs
+    # (K3, K5, K3-pcw, K5-pco, :con; K4 in brackets)
+    for name, (n, k4) in MAIN_PATH_LAUNCHES.items():
+        row = next(r for r in rows if r["name"] == name)
+        assert (row["launches"], row.get("candidate_major_launches")) == (
+            n, k4), (name, row["launches"],
+                     row.get("candidate_major_launches"), n, k4)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1856,7 +1856,7 @@ def test_graph_of_a_world_changed_in_place_is_new(cuda_device):
     graph.reset_counts()
     got = run()
     assert graph.GRAPHS["invalidated"] == 1
-    assert graph.GRAPHS["captured"] == 1
+    assert graph.GRAPHS["captured"] == 3     # loop, solve-in, solve-out
     with graph.eager():
         _assert_bitwise(got, run())
     assert not torch.equal(got.cost, before.cost)
@@ -1881,9 +1881,9 @@ def test_graph_of_a_device_made_world_makes_no_read(cuda_device,
     reads = []
     real = graph._capture
 
-    def watched(body, stream):
+    def watched(body, stream, generator=None):
         before = dict(tr.PARAM_READS)
-        out = real(body, stream)
+        out = real(body, stream, generator)
         reads.append({k: tr.PARAM_READS[k] - before[k] for k in before})
         return out
 
@@ -1895,11 +1895,11 @@ def test_graph_of_a_device_made_world_makes_no_read(cuda_device,
     tr.reset_launches()
     got = plan_batch(robot, world, prob, cfg, generator=torch.Generator(
         cuda_device).manual_seed(0))
-    assert reads == [{"device": 0, "deferred": 0}]
+    assert reads == [{"device": 0, "deferred": 0}] * 3
     assert tr.PARAM_READS["device"] == 1
     assert graph.GRAPHS["eager:param_read"] == 1
     (g,) = graph._CACHE.values()
-    per_replay = g.counts[1]                          # PARAM_ROUTES
+    per_replay = g.per_it[1]            # PARAM_ROUTES, a chunk iteration
     assert per_replay["memory"] == 0 and per_replay["block"] > 0
     with graph.eager():
         ref = plan_batch(robot, world, prob, cfg, generator=torch.Generator(
@@ -1934,7 +1934,7 @@ def test_host_objects_share_one_graph(cuda_device):
     graph.reset_counts()
     for _ in range(3):
         _assert_bitwise(run(), ref)
-    assert graph.GRAPHS["captured"] == 1, dict(graph.GRAPHS)
+    assert graph.GRAPHS["captured"] == 3, dict(graph.GRAPHS)
     assert graph.GRAPHS["eager:first_iteration"] == 1, dict(graph.GRAPHS)
     assert len(graph.cached()) == 1
 
@@ -2132,3 +2132,220 @@ def test_mpc_graph_resilient_and_resumed_are_bitwise_eager(cuda_device):
                                  generator=g)
     _assert_states_bitwise(resumed, ref)
     assert graph.GRAPHS["captured"] == 3 and graph.GRAPHS["replayed"] > 0
+
+
+# --- the loop's condition on the device: chunks behind IF nodes -----------
+
+def _three_routes(run):
+    """run(generator) eagerly, on the per-iteration route and on the chunk
+    route (twice: a capture, then a hit): [(result, generator offset after
+    it, GRAPHS)] in that order."""
+    from tpustomp_torch.engine import graph
+
+    out = []
+    for route in ("eager", "per_iteration", "chunk", "chunk"):
+        graph.reset_counts()
+        gen = torch.Generator("cuda").manual_seed(0)
+        if route == "eager":
+            with graph.eager():
+                res = run(gen)
+        elif route == "per_iteration":
+            with graph.per_iteration():
+                res = run(gen)
+        else:
+            res = run(gen)
+        torch.cuda.synchronize()
+        out.append((res, gen.get_offset(), dict(graph.GRAPHS)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["box", "hmc", "constrained"])
+def test_chunk_route_is_bitwise_eager(cuda_device, case):
+    """plan_batch (B = 64) on the chunk route: the loop's condition and the
+    draws in the graph, against the eager loop and the per-iteration
+    route: every Solution field bitwise, the generator's offset after the
+    solve equal (the chunk's replays move the graph's own generator, the
+    caller's is set where the eager loop leaves it), the kernel counters
+    equal; a second chunk call captures nothing and reads the condition
+    at most ceil(iterations / CHUNK) + 1 times."""
+    from tpustomp_torch.engine import graph
+
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    cfg = _graph_config(case if case == "hmc" else "box")
+    kw = {}
+    if case == "constrained":
+        kw["constraints"] = OrientationConstraint.make(
+            axis_local=(0, 0, 1), target_world=(0, 0, 1), tolerance=0.25,
+            weight=0.3).to(cuda_device)
+    prob = ProblemSpec(*_jittered(64, 3))
+    graph.clear()
+    counts = []
+
+    def run(gen):
+        tr.reset_launches()
+        sol = plan_batch(robot, world, prob, cfg, generator=gen, **kw)
+        counts.append([dict(c) for c in graph._COUNTERS])
+        return sol
+
+    (ref, off, _), per_it, miss, hit = _three_routes(run)
+    assert off > 0
+    for sol, o, _ in (per_it, miss, hit):
+        _assert_bitwise(sol, ref)
+        assert o == off
+    assert counts[1] == counts[0] == counts[2] == counts[3]
+    assert per_it[2]["per_iteration:requested"] > 0
+    g = hit[2]
+    assert g["chunk"] > 0 and g.get("captured", 0) == 0
+    assert not any(k.startswith(("per_iteration", "eager")) for k in g), g
+    assert g["flag_reads"] <= -(-g["chunk"] // graph.CHUNK) + 1
+
+
+@pytest.mark.cuda
+def test_chunk_capture_that_fails_raises(cuda_device, monkeypatch):
+    """A body that raises while it is captured into an IF node is an error
+    of the solve: nothing falls back to another route, and the next solve
+    captures and runs."""
+    from tpustomp_torch.engine import graph
+
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    cfg = _graph_config("box")
+    prob = ProblemSpec(*_jittered(16, 4))
+    real = graph._Graph._advance
+
+    def failing(self, draws):
+        if torch.cuda.is_current_stream_capturing():
+            raise ValueError("inside the IF node")
+        return real(self, draws)
+
+    graph.clear()
+    monkeypatch.setattr(graph._Graph, "_advance", failing)
+    with pytest.raises(ValueError, match="inside the IF node"):
+        plan_batch(robot, world, prob, cfg)
+    assert graph.cached() == []
+    monkeypatch.setattr(graph._Graph, "_advance", real)
+    graph.reset_counts()
+    with graph.eager():
+        ref = plan_batch(robot, world, prob, cfg)
+    _assert_bitwise(plan_batch(robot, world, prob, cfg), ref)
+    assert graph.GRAPHS["chunk"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("static", ["box", "voxel"])
+def test_chunk_mpc_episode_is_bitwise_eager(cuda_device, static):
+    """A config-5 episode (B = 64, 6 ticks) on chunk ticks against the eager
+    episode and the per-iteration ticks: every MPCState field bitwise, the
+    generator's offset after it equal, the same kernel counters and draws
+    used and padded; a hit reads nothing but the episode's total."""
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = (AnalyticWorld.make(**_WORLDS["boxes"]) if static == "box"
+             else _voxel_world("grid")).to(cuda_device)
+    cfg, state = _config5(64)
+    graph.clear()
+    seen = []
+
+    def run(gen):
+        tr.reset_launches()
+        tmpc.NOISE_DRAWS.update(used=0, padded=0)
+        out = tmpc.run_mpc_batch(robot, cfg, state, [0.12], 6, 0.1,
+                                 static_world=world, device=cuda_device,
+                                 generator=gen)
+        seen.append(([dict(c) for c in graph._COUNTERS],
+                     dict(tmpc.NOISE_DRAWS)))
+        return out
+
+    (ref, off, _), per_it, miss, hit = _three_routes(run)
+    for out, o, _ in (per_it, miss, hit):
+        _assert_states_bitwise(out, ref)
+        assert o == off
+    assert all(x == seen[0] for x in seen[1:]), seen
+    g = hit[2]
+    assert g["chunk"] > 0 and g.get("flag_reads", 0) == 0
+    assert not any(k.startswith(("per_iteration", "eager")) for k in g), g
+
+
+@pytest.mark.cuda
+def test_chunk_mpc_ticks_make_no_host_read(cuda_device, monkeypatch):
+    """Ticks 1..n of an episode (a cached tick's chunks, tick 0 of the
+    first episode captures) run under torch.cuda.set_sync_debug_mode(
+    "error"): no host read or sync between the episode's load and its
+    copy-out. The result is the eager episode's."""
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    cfg, state = _config5(64, seed=2)
+    state = state.to(cuda_device)
+    real = tmpc._chunk_ticks
+    strict = []
+
+    def no_sync(*a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        strict.append(a[1:3])
+
+    monkeypatch.setattr(tmpc, "_chunk_ticks", no_sync)
+
+    def run():
+        return tmpc.run_mpc_batch(robot, cfg, state, [0.12], 6, 0.1,
+                                  static_world=world, device=cuda_device,
+                                  generator=torch.Generator(
+                                      cuda_device).manual_seed(0))
+
+    graph.clear()
+    with graph.eager():
+        ref = run()
+    _assert_states_bitwise(run(), ref)          # tick 0 captures
+    _assert_states_bitwise(run(), ref)          # every tick replays
+    assert strict == [(1, 6), (0, 6)]
+
+
+@pytest.mark.cuda
+def test_padded_draws_launch_nothing(cuda_device):
+    """On chunk ticks a tick's padding (the draws of the iterations its
+    solve did not run) moves the generator's offset and launches no draw:
+    the profiler's normal-distribution kernels of a cached episode are
+    the draws used, where the eager episode's are used and padded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    world = AnalyticWorld.make(**_WORLDS["boxes"]).to(cuda_device)
+    cfg, state = _config5(2)        # few rows: ticks stop early, and pad
+
+    def run():
+        return tmpc.run_mpc_batch(robot, cfg, state, [0.12], 6, 0.1,
+                                  static_world=world, device=cuda_device,
+                                  generator=torch.Generator(
+                                      cuda_device).manual_seed(0))
+
+    graph.clear()
+    run()                                       # captures
+    draws = {}
+    for mode in ("eager", "chunk"):
+        tmpc.NOISE_DRAWS.update(used=0, padded=0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if mode == "eager":
+                with graph.eager():
+                    run()
+            else:
+                run()
+            torch.cuda.synchronize()
+        normal = sum(e.count for e in prof.key_averages()
+                     if "normal" in e.key)
+        draws[mode] = (normal, dict(tmpc.NOISE_DRAWS))
+    (n_eager, d_eager), (n_chunk, d_chunk) = draws["eager"], draws["chunk"]
+    assert d_chunk == d_eager and d_eager["padded"] > 0
+    assert n_eager == d_eager["used"] + d_eager["padded"]
+    assert n_chunk == d_chunk["used"]

@@ -7,9 +7,10 @@ There is no card here, so a graph is emulated (the `emulated` fixture):
 its "capture" runs the captured region's host code once and puts the
 static state back, as a capture records kernels without running them, and
 its "replay" runs the region with the kernel counters left as they were,
-as a replay runs no host code. Everything else is the card's path: the
-cache, the static buffers, the draw into them, the loads and the copy
-out. The card's own checks (graphed bitwise eager, no host sync in a
+as a replay runs no host code. An IF node runs its body's host code at a
+capture (a capture records every body) and, at a replay, only when its
+condition holds. Everything else is the card's path: the cache, the
+static buffers, the draws into them, the loads and the copy out. The card's own checks (graphed bitwise eager, no host sync in a
 capture) are the `cuda` tests of tests/test_torch_cuda.py.
 """
 
@@ -105,15 +106,29 @@ class _EmulatedGraph:
         self.body = None
 
 
-def _emulated_capture(body, stream):
+_CAPTURING = []
+
+
+def _emulated_capture(body, stream, generator=None):
     """A capture runs the region's host code (the counters move) and
     leaves the static buffers as they were (no kernel ran)."""
     bufs = body.__self__.buffers()
     saved = [v.clone() for v in bufs]
-    body()
+    _CAPTURING.append(True)
+    try:
+        body()
+    finally:
+        _CAPTURING.pop()
     for v, s in zip(bufs, saved):
         v.copy_(s)
     return _EmulatedGraph(body), 0.0, 0.0, 0
+
+
+def _emulated_if_node(pred, fn):
+    """An IF node: its body's host code runs at a capture, and at a
+    replay when bool(pred) holds."""
+    if _CAPTURING or bool(pred):
+        fn()
 
 
 def _emulate(monkeypatch):
@@ -125,9 +140,10 @@ def _emulate(monkeypatch):
         return None if why == "cpu" else why
 
     monkeypatch.setattr(graph, "eager_reason", reason)
-    monkeypatch.setattr(graph, "_stream", lambda device: None)
+    monkeypatch.setattr(graph, "_stream", lambda *a, **k: None)
     monkeypatch.setattr(graph, "_on", lambda stream, fn: fn())
     monkeypatch.setattr(graph, "_capture", _emulated_capture)
+    monkeypatch.setattr(graph, "_if_node", _emulated_if_node)
 
 
 @pytest.fixture
@@ -272,23 +288,23 @@ def test_cache_hits_and_misses(emulated):
     def solve(r=robot, w=world, p=prob, c=cfg, **kw):
         return plan_batch(r, w, p, c, device="cpu", generator=_gen(), **kw)
 
-    first = solve()
-    assert graph.GRAPHS["captured"] == 1
+    first = solve()         # an entry: its loop, solve-in and solve-out
+    assert graph.GRAPHS["captured"] == 3
     _assert_same(solve(), first)
-    assert graph.GRAPHS["captured"] == 1 and len(graph.cached()) == 1
+    assert graph.GRAPHS["captured"] == 3 and len(graph.cached()) == 1
     two = ProblemSpec(q0=prob.q0[:2], qN=prob.qN[:2])
     new_robot = dataclasses.replace(robot,
                                     joint_lower=robot.joint_lower.clone())
     for i, kw in enumerate([dict(p=two), dict(c=cfg.replace(pi2_h=12.0)),
                             dict(r=new_robot), dict(constraints=cone)]):
         solve(**kw)
-        assert graph.GRAPHS["captured"] == 2 + i, kw
+        assert graph.GRAPHS["captured"] == 3 * (2 + i), kw
     solve(r=new_robot)
-    assert graph.GRAPHS["captured"] == 5            # a hit
+    assert graph.GRAPHS["captured"] == 15           # a hit
     world.box_half.mul_(1.2)                        # in place
     got = solve()
     assert graph.GRAPHS["invalidated"] == 1
-    assert graph.GRAPHS["captured"] == 6
+    assert graph.GRAPHS["captured"] == 18
     with graph.eager():
         _assert_same(got, solve())
     assert not torch.equal(got.cost, first.cost)
@@ -303,7 +319,7 @@ def test_cache_is_bounded(emulated, monkeypatch):
         plan_batch(robot, world, prob, cfg.replace(pi2_h=h), device="cpu",
                    generator=_gen())
     assert len(graph.cached()) == 2
-    assert graph.GRAPHS["evicted"] == 2 and graph.GRAPHS["captured"] == 4
+    assert graph.GRAPHS["evicted"] == 2 and graph.GRAPHS["captured"] == 12
 
 
 def test_results_survive_the_next_replay(emulated):
@@ -322,7 +338,7 @@ def test_results_survive_the_next_replay(emulated):
     assert not bufs & {v.untyped_storage().data_ptr() for v in tensors}
     other = ProblemSpec(q0=prob.q0[::-1].copy(), qN=prob.qN[::-1].copy())
     plan_batch(robot, world, other, cfg, device="cpu", generator=_gen(4))
-    assert graph.GRAPHS["captured"] == 1 and graph.GRAPHS["replayed"] > 5
+    assert graph.GRAPHS["captured"] == 3 and graph.GRAPHS["replayed"] > 3
     assert all(torch.equal(a, b) for a, b in zip(tensors, kept))
 
 
@@ -520,7 +536,7 @@ def test_a_deferred_read_settles_before_the_capture(emulated, monkeypatch,
     _assert_same(got, ref)
     assert graph.GRAPHS["eager:first_iteration"] == 1
     assert graph.GRAPHS["eager:param_read"] == 1
-    assert graph.GRAPHS["captured"] == 1 and graph.GRAPHS["replayed"] > 0
+    assert graph.GRAPHS["captured"] == 3 and graph.GRAPHS["replayed"] > 0
 
 
 def test_a_graph_whose_tensors_are_gone_is_dropped(emulated):

@@ -144,7 +144,7 @@ def test_graphed_episode_is_bitwise_eager(emulated, monkeypatch, kind):
 
 
 def test_episode_captures_its_regions_once(emulated):
-    """An episode captures tick-in, the iteration and tick-out in its first
+    """An episode captures tick-in, the loop and tick-out in its first
     tick and replays tick-in and tick-out once on every later tick; a
     second episode of the same inputs captures nothing and replays every
     tick; the result never aliases the graph's buffers."""
@@ -154,7 +154,7 @@ def test_episode_captures_its_regions_once(emulated):
     assert graph.GRAPHS["captured"] == 3 and len(graph.cached()) == 1
     assert entry["regions"]["tick_in"]["replays"] == TICKS - 1
     assert entry["regions"]["tick_out"]["replays"] == TICKS - 1
-    assert entry["regions"]["iteration"]["replays"] > 0
+    assert entry["regions"]["loop"]["replays"] > 0
     assert graph.GRAPHS["eager:first_iteration"] == 1
     kept = map(torch.clone, graph._fields(first))
     again = _episode(robot, state, static)
@@ -243,7 +243,9 @@ def test_resilient_recovery_is_bitwise_under_graphs(emulated):
 def test_resumed_and_stepped_episodes_are_bitwise_eager(emulated):
     """An episode cut in two (the state and the generator carried over, as
     a checkpoint resumes it) and one run tick by tick through
-    mpc_step_batch equal the whole eager episode; all hit one tick."""
+    mpc_step_batch equal the whole eager episode. The episodes hit one
+    tick, and the steps (a noise_fn of the caller's: the per-iteration
+    route) another."""
     state, static = _states(), _static("grid")
     robot = arm_7dof()
     ref = _eager(lambda: _episode(robot, state, static))
@@ -264,7 +266,7 @@ def test_resumed_and_stepped_episodes_are_bitwise_eager(emulated):
             robot, cfg, ops, step, radius, DT_WORLD,
             lambda it, active, t=t: draws(t, it, active), static)
     _assert_same(step, ref)
-    assert graph.GRAPHS["captured"] == 3
+    assert graph.GRAPHS["captured"] == 6
 
 
 def test_sharded_episodes_are_bitwise_eager(emulated):
@@ -306,7 +308,8 @@ def test_row_worlds_are_graph_inputs(emulated):
         got = _rows_solve(robot, shrunk, prob, cfg)
         for f in ("trajectory", "success", "cost", "iterations"):
             assert torch.equal(getattr(got, f), getattr(ref, f)), f
-    assert graph.GRAPHS["captured"] == 1 and len(graph.cached()) == 1
+    # one entry: its loop, solve-in and solve-out
+    assert graph.GRAPHS["captured"] == 3 and len(graph.cached()) == 1
 
     rows = AnalyticWorld(*(v[None].expand((3,) + v.shape).clone()
                            for v in graph._fields(world)))

@@ -206,14 +206,6 @@ def _fold(p: _Prepared):
             p.qN.repeat_interleave(R, dim=0))
 
 
-def _select(sols: Solution, B: int, R: int) -> Solution:
-    """[B·R, ...] -> [B, ...]: the best restart per query."""
-    if R == 1:
-        return sols
-    return solver.select_best(map_tensors(
-        sols, lambda v: v.reshape((B, R) + v.shape[1:])))
-
-
 def _plan_batch(robot, world, problem, cfg, device, generator, noise_fn,
                 constraints, hyper=None, mesh: Mesh | None = None) -> Solution:
     """plan_batch after check_joint_static (the entry points below call it once
@@ -223,26 +215,25 @@ def _plan_batch(robot, world, problem, cfg, device, generator, noise_fn,
     the noise is the global batch's, cut to the shard's rows (None: the
     batch is the whole batch)."""
     p = _prepare(robot, world, problem, cfg, device, constraints)
-    B, R = p.q0.shape[0], max(1, p.cfg.num_restarts)
+    R = max(1, p.cfg.num_restarts)
     q0, qN = _fold(p)
-    lo, hi, total = (0, B * R, B * R) if mesh is None else mesh.rows(B * R)
+    rows = q0.shape[0]
+    lo, hi, total = (0, rows, rows) if mesh is None else mesh.rows(rows)
     noise = shard_noise(_noise(p.cfg, q0.shape[1], total, p.device,
                                generator, noise_fn), lo, hi, total)
     if _use_compaction(p.cfg):
         if hyper is not None:
             raise ValueError("per-scenario hyper runs the STOMP batched path "
                              "without compaction")
-        sols = solver.solve_batch_compacted(p.robot, p.world, p.cfg, p.ops,
-                                            q0, qN, noise,
-                                            constraints=p.constraints)
-    else:
-        if hyper is not None and R > 1:
-            raise ValueError("per-scenario hyper runs the STOMP batched path "
-                             "without restarts")
-        sols = solver.solve_batch(p.robot, p.world, p.cfg, p.ops, q0, qN,
-                                  noise, constraints=p.constraints,
-                                  hyper=hyper)
-    return _select(sols, B, R)
+        return solver.select_restarts(solver.solve_batch_compacted(
+            p.robot, p.world, p.cfg, p.ops, q0, qN, noise,
+            constraints=p.constraints), R)
+    if hyper is not None and R > 1:
+        raise ValueError("per-scenario hyper runs the STOMP batched path "
+                         "without restarts")
+    return solver.solve_batch(p.robot, p.world, p.cfg, p.ops, q0, qN, noise,
+                              constraints=p.constraints, hyper=hyper,
+                              restarts=R)
 
 
 def plan_batch(robot: RobotSpec, world, problem: ProblemSpec,
@@ -381,7 +372,7 @@ def plan_timed(robot: RobotSpec, world, problem: ProblemSpec,
             break
     sols = solver.finalize(p.robot, p.world, p.cfg, p.ops, q0, QN, state,
                            p.constraints)
-    sol = map_tensors(_select(sols, 1, R), lambda v: v[0])
+    sol = map_tensors(solver.select_restarts(sols, R), lambda v: v[0])
     _maybe_animate(robot, world, sol, cfg)
     return sol
 

@@ -27,7 +27,7 @@ from tpustomp_torch.api.config import PlannerConfig
 from tpustomp_torch.api.plan import _prepare
 from tpustomp_torch.api.problem import ProblemSpec
 from tpustomp_torch.engine import solver
-from tpustomp_torch.engine.sampling import draw_z
+from tpustomp_torch.engine.sampling import GeneratorNoise, TiledNoise
 from tpustomp_torch.robot.model import check_joint_static
 
 
@@ -88,10 +88,9 @@ def tune(robot, world, problem: ProblemSpec,
     if noise_fn is None:
         gen = (torch.Generator(device=p.device).manual_seed(0)
                if generator is None else generator)
-        K, N = p.cfg.num_rollouts, p.cfg.num_timesteps
-
-        def noise_fn(iteration, active):
-            return draw_z(gen, d, n, K, N, p.device).repeat(1, G, 1, 1)
+        noise_fn = TiledNoise(GeneratorNoise(
+            gen, d, n, p.cfg.num_rollouts, p.cfg.num_timesteps, p.device),
+            n, G)
 
     sol = solver.solve_batch(p.robot, p.world, p.cfg, p.ops,
                              p.q0.repeat(G, 1), p.qN.repeat(G, 1), noise_fn,

@@ -1,76 +1,98 @@
-"""CUDA graphs of the solver's iteration: the port's counterpart of the JAX
-package's compiled solver program.
+"""CUDA graphs of the solver: the port's counterpart of the JAX package's
+compiled solve program.
 
 JAX runs a batched solve as one device program, compiled once per (config,
-shapes) and cached: ``_jitted_solve_batch`` and ``_jitted_solve``
-(``tpustomp/api/plan.py:168-211``, ``lru_cache(maxsize=32)``) around the
-``lax.while_loop`` of ``solver.solve_batch``
-(``tpustomp/engine/solver.py:827-848``), and ``_jitted_chunk_batch``
-(``tpustomp/engine/solver.py:900-919``), the compacted path's chunk, one
-program per bucket shape. The port captures one iteration,
-``solver.Step.advance``, as a CUDA graph over static buffers and replays it
-once an iteration. ``solver.run_until`` keeps the loop, the draw
-(``noise_fn``, outside the graph, written into the graph's input buffer)
-and the one read of the loop's condition an iteration, as JAX keeps its
-condition outside the body (the graph writes the condition and the draw's
-active rows itself). An iteration then costs the host the draw, one
-replay and one copy of a flag to the host, instead of some 260 kernel
-launches.
+shapes) and cached: ``_jitted_solve_batch`` (``tpustomp/api/plan.py:177-211``)
+holds ``_init_batch``, the ``lax.while_loop`` of ``solver.solve_batch``
+(``tpustomp/engine/solver.py:827-849``), ``_finalize_batch`` and
+``select_best``; the compacted path runs ``_jitted_init_batch``, then
+``_jitted_chunk_batch`` (``solver.py:900-919``, a ``while_loop`` bounded by
+``chunk``) once a chunk, then ``_jitted_finalize_batch``. The port captures
+the same program as CUDA graphs over static buffers, one cache entry a
+solve shape, and replays them:
 
-- Capture (:func:`run`, on a cache miss). The solve's own next iteration
-  runs eagerly on the capture stream: it builds the kernel libraries,
-  settles every parameter route (kernels/rollout.py ``_launch_params``)
-  and sets up the stream's cuBLAS workspace. A set built on the card
-  defers its one device read to its second launch (a capture may not
-  read), so while an eager iteration deferred one, one more runs
-  ("param_read"): the graph then holds the parameter block, as the eager
-  loop does from its second iteration. These iterations and the capture
-  run the graph's own step, over copies of the robot, world, constraints
-  and ``DeviceOps`` (with their host copies). Then ``advance`` is captured on
-  that stream, in a memory pool
-  of its own, over static buffers: the state (advanced in place by copies
-  at the end of the captured region), the draws, Q0/QN and the
-  ``HyperParams`` rows. Replays run on the current stream. A capture or a
-  replay that raises is an error; nothing falls back to the eager loop.
-- Cache. One graph per step kind, config, state and batch shapes, device,
-  HyperParams or none, and robot, world, constraints and ``DeviceOps``:
-  their fields other than tensors, and each tensor's identity and version
-  (``_version``), as ``_launch_params`` keys the parameter block. The
-  entry points hand the solver one device copy of equal CPU robots,
-  worlds and constraints (``_tensors.shared_copy``), so calls with objects
-  built on the CPU hit too. The cache holds those tensors weakly: a graph
-  whose tensors are gone is dropped at the next call. At most
-  :data:`LIMIT` graphs, least recently used first out; a dropped graph's
-  pool goes back to torch's allocator. The compacted path's buckets are
-  graphs of their own (a batch size each).
+- The loop (:func:`run`, ``solver.run_until`` on the card). By default a
+  chunk: one graph of :data:`CHUNK` iterations (the compacted path's
+  ``chunk``), each under a conditional IF node (kernels/graph_if.py) whose
+  condition ``ctl[0]`` is ``any(~done) & (count < limit)`` on the device,
+  written before the first body and again at the end of each. A body draws
+  its noise inside the graph from a generator of the entry's own, set to
+  the noise source's state before the replays (the source's
+  ``sampling.DrawPlan``; each captured draw has its own Philox offset, so
+  the draws of the iterations that run are the eager loop's), then
+  advances the state, copies it into the static state and counts
+  ``ctl[1]``. Iterations past the end are skipped by the device. The host
+  replays chunk j+1 before it reads chunk j's ``ctl`` (a copy to pinned
+  memory and an event), so the device never waits for the host, and a
+  solve makes at most ceil(iterations / CHUNK) + 1 reads, not one an
+  iteration. A replay moves the generator by the whole chunk's draws, so
+  the source's generator is then set to where the eager loop leaves it:
+  its offset plus the iterations run times one iteration's offset
+  advance (measured at the entry's first eager draw).
+- The other route replays one iteration a replay (``advance`` only), with
+  the draw on the host and one read of the loop's condition after it:
+  the route of a caller's own noise_fn, which cannot be captured
+  ("per_iteration:noise_fn"), and of :func:`per_iteration` around an entry
+  point ("per_iteration:requested"), for comparisons. The route is chosen
+  from the step before anything runs (:func:`route`); neither falls back
+  to the other.
+- Solve-in and solve-out (:func:`solve`, ``solver.solve_batch`` on the
+  card): two more regions of the entry, ``_init_batch`` from the loaded
+  Q0/QN (and theta0) into the static state, and ``finalize`` (with
+  restarts, the choice of the best) into a static ``Solution``. A graphed
+  ``plan_batch`` is then its input copies, solve-in, the chunk replays,
+  solve-out and one clone out.
+- Capture (on a cache miss). The solve's own first iteration runs eagerly
+  on the stream the loop is captured from: it builds the kernel libraries,
+  settles every parameter route (kernels/rollout.py ``_launch_params``) and
+  sets up that stream's cuBLAS workspace. A set built on the card defers
+  its one device read to its second launch (a capture may not read), so
+  while an eager iteration deferred one, one more runs ("param_read"): the
+  graph then holds the parameter block, as the eager loop does from its
+  second iteration. These iterations and the captures run the graph's own
+  step, over copies of the robot, world, constraints and ``DeviceOps``
+  (with their host copies). The parent regions are captured on a capture
+  stream; a chunk's bodies on one body stream into one body pool of the
+  chunk's own, so every body reuses the blocks the one before freed (a
+  chunk's pool is about one iteration's). The solve-in and solve-out of a
+  miss run eagerly on the capture stream and are captured after. A
+  capture or a replay that raises is an error; nothing falls back.
+- Cache. One entry per step kind, config, state and batch shapes, device,
+  HyperParams or none, loop route (and the draw's shapes and cut), and
+  robot, world, constraints and ``DeviceOps``: their fields other than
+  tensors, and each tensor's identity and version (``_version``), as
+  ``_launch_params`` keys the parameter block. The entry points hand the
+  solver one device copy of equal CPU robots, worlds and constraints
+  (``_tensors.shared_copy``), so calls with objects built on the CPU hit
+  too. The cache holds those tensors weakly: an entry whose tensors are
+  gone is dropped at the next call. At most :data:`LIMIT` entries, least
+  recently used first out; a dropped entry's pools go back to torch's
+  allocator. The compacted path's buckets are entries of their own.
 - Per-scenario worlds (``world_batched``: the MPC tick's, a batch's rows
   of ``solve_batch_compacted``). The leaves that carry the row axis (an
   AnalyticWorld's four, a composite's ``overlay``) are inputs of the
   graph, as Q0 and the state are: the key names them by type, shapes and
-  dtypes only, and :func:`_load` copies them into contiguous static
-  buffers before the first replay of every solve. The rest of the world (a
+  dtypes only, and the loads copy them into contiguous static buffers
+  before the first replay of every solve. The rest of the world (a
   composite's grid and packed table) is keyed by identity and version, as
-  a shared world is. The kernels read a row world's spheres and boxes
-  through device pointers (``kernels/rollout.py`` ``_launch``:
-  ``_prim_arrays``); ``_launch_params(shared=False)`` packs only the
-  robot, a grid's origin and resolution and the constraints into the
-  parameter block, so a replay sees every solve's rows.
+  a shared world is.
 - What a graph freezes. The kernels' parameter block is filled on the host
   at capture and passed by value, and the host's decisions (parameter
   route, lane plan, joint types) are taken then: from the robot, the
   shared world and the constraints, which the key names by identity and
-  version, and from shapes. A new robot, shared world or constraint
-  tensor, or a torch write to one (it moves the version), gets a new
-  graph. A write that moves no version (through ``.data``, a DLPack
-  alias, a custom CUDA op) is not seen, as it is not by the parameter
-  block itself.
-- Results never alias the graph: :func:`run` returns a copy of the static
-  state, so a Solution survives the next replay of the same graph.
+  version, and from shapes. A write that moves no version (through
+  ``.data``, a DLPack alias, a custom CUDA op) is not seen, as it is not
+  by the parameter block itself.
+- Results never alias the graph: a solve returns copies.
 - Counters. The kernel wrappers count host calls (``rollout.LAUNCHES``,
   ``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``). What a capture added is
-  taken back and added again at every replay, so a graphed run counts what
-  the eager loop counts. :data:`GRAPHS` counts captures, replays,
-  evictions, invalidations and eager iterations by reason.
+  taken back; a region's replay adds it again, and a chunk adds one
+  iteration's share times the iterations that ran (read with the loop's
+  condition), so a graphed run counts what the eager loop counts.
+  :data:`GRAPHS` counts regions captured and replayed, evictions,
+  invalidations, the iterations each route ran ("chunk",
+  "per_iteration:<reason>"), the host reads of the loop's condition
+  ("flag_reads") and eager iterations by reason.
 - Eager cases, decided before any capture (:func:`eager_reason`): a CPU
   step ("cpu"), ``utils.tracing.debug_mode`` ("debug_mode": the state is
   checked after every iteration), keyed tensors moved under
@@ -80,8 +102,8 @@ launches.
   ("requested": :func:`eager`, around any entry point, for comparisons).
 - The MPC tick (engine/mpc.py ``_Tick``) is one cache entry of three
   regions over static buffers: the tick's own work before the solve, this
-  module's iteration graph, and its work after the solve; the same lock,
-  LRU, counters and ordering event serve it.
+  module's loop, and its work after the solve; the same lock, LRU,
+  counters and ordering event serve it.
 
 Graphed solves of one process run one at a time (a lock): a graph's static
 buffers hold one solve. A solve loads them only after the work of the last
@@ -103,24 +125,35 @@ from typing import Callable
 import torch
 
 from tpustomp_torch._tensors import clone_with_mirrors, map_tensors
-from tpustomp_torch.kernels import rollout
+from tpustomp_torch.engine.sampling import draw_plan
+from tpustomp_torch.kernels import graph_if, rollout
 from tpustomp_torch.robot.model import joint_types_on_host
 from tpustomp_torch.utils import tracing
 from tpustomp_torch.world.sdf import CompositeWorld
 
-# Most graphs cached at once (a config-4 graph's pool is about a GB).
+# Most entries cached at once (a config-4 entry's pools are about a GB).
 LIMIT = 8
 
-# Captures (one a region: an MPC tick captures three), replays, graphs
-# evicted (LIMIT), invalidated (a version moved) or dead (a tensor of the
-# key is gone), and iterations run eagerly by reason: "first_iteration"
-# (the iteration before a capture, or before replays from a state whose
-# strides differ from the graph's), "param_read" (the one after a first
-# iteration that deferred a parameter read) and the reasons of
-# eager_reason.
+# Iterations a chunk holds: config 5's max_iterations, so an MPC tick's
+# solve is one chunk (the compacted path's chunks hold its `chunk`).
+CHUNK = 8
+
+# Regions captured (a solve's loop, solve-in and solve-out; an MPC tick's
+# three) and replayed; entries evicted (LIMIT), invalidated (a version
+# moved) or dead (a tensor of the key is gone); the iterations each route
+# ran ("chunk", "per_iteration:noise_fn", "per_iteration:requested"); the
+# host's reads of the loop's condition ("flag_reads"); and iterations run
+# eagerly by reason: "first_iteration" (the iteration before a capture, or
+# before replays from a state whose strides differ from the graph's),
+# "param_read" (the one after a first iteration that deferred a parameter
+# read) and the reasons of eager_reason.
 GRAPHS = collections.Counter()
 
 _ENABLED = contextvars.ContextVar("tpustomp_torch_graphs", default=True)
+_PER_ITERATION = contextvars.ContextVar("tpustomp_torch_per_iteration",
+                                        default=False)
+# the body pool of the chunk being captured: [] until its first IF node
+_BODY_POOL = contextvars.ContextVar("tpustomp_torch_body_pool", default=None)
 _CACHE: collections.OrderedDict = collections.OrderedDict()
 _DEAD: list = []        # keys of graphs a tensor of which is gone
 _STREAMS: dict = {}
@@ -141,6 +174,19 @@ def eager():
         _ENABLED.reset(token)
 
 
+@contextlib.contextmanager
+def per_iteration():
+    """Inside the block, graphed loops replay one iteration a replay, the
+    draw on the host and one read of the loop's condition after each (the
+    route of a caller's own noise_fn; "per_iteration:requested"): the
+    comparison the smoke and the card tests make against the chunks."""
+    token = _PER_ITERATION.set(True)
+    try:
+        yield
+    finally:
+        _PER_ITERATION.reset(token)
+
+
 def eager_reason(step) -> str | None:
     """Why `step` runs in the eager loop, or None when it replays a graph.
     `step` may be any object with a Step's robot, world, world_batched,
@@ -156,6 +202,19 @@ def eager_reason(step) -> str | None:
     if step.Q0.device.type != "cuda":
         return "cpu"
     return None
+
+
+def route(step) -> str:
+    """How a graphed loop of `step` runs: "chunk" (CHUNK iterations a
+    replay under IF nodes, the draws in the graph), or one iteration a
+    replay, by reason: "per_iteration:noise_fn" (a noise_fn without a
+    DrawPlan: a caller's own draws stay on the host) or
+    "per_iteration:requested" (inside :func:`per_iteration`)."""
+    if _PER_ITERATION.get():
+        return "per_iteration:requested"
+    if step.kind != "chomp" and draw_plan(step.noise_fn) is None:
+        return "per_iteration:noise_fn"
+    return "chunk"
 
 
 @dataclasses.dataclass(eq=False, kw_only=True)
@@ -185,45 +244,114 @@ class _Region:
 
 
 @dataclasses.dataclass(eq=False, kw_only=True)
+class _Stage(_Region):
+    """A region that runs fn(entry) over an entry's static buffers and keeps
+    what it returns: a solve's solve-in or solve-out."""
+
+    entry: object
+    fn: Callable
+    out: object = None
+
+    def body(self) -> None:
+        self.out = self.fn(self.entry)
+
+    def buffers(self) -> list:
+        return self.entry.buffers()
+
+
+@dataclasses.dataclass(eq=False, kw_only=True)
 class _Graph(_Region):
-    """One captured iteration and its static buffers."""
+    """One solve shape: its loop region (a chunk, or one iteration), its
+    solve-in and solve-out stages and their static buffers."""
 
     key: tuple
     refs: tuple               # weak references to the key's tensors
     versions: tuple
     kind: str
-    Q0: torch.Tensor          # the static buffers: Q0/QN, HyperParams rows
-    QN: torch.Tensor
+    route: str                # "chunk" or "per_iteration:<reason>"
+    k: int                    # iterations a chunk holds
+    Q0: torch.Tensor          # the static buffers: Q0, the goal wrapped
+    QN: torch.Tensor          # (the loop's) and before wrapping (solve-in's
+    QN_in: torch.Tensor       # input), the HyperParams rows
     hyper: object
     state: object             # the static SolverState
     draws: tuple              # the draws' buffers (Step.draw_shapes)
-    active: torch.Tensor      # ~state.done, for the next draw
-    finished: torch.Tensor    # state.done.all(), the loop's condition
+    active: torch.Tensor      # ~state.done, for the host's next draw
+    finished: torch.Tensor    # state.done.all(), the host's condition
+    ctl: torch.Tensor         # int32 [2]: the device's condition, count
+    limit: torch.Tensor       # int32 []: the count the loop stops at
+    host: torch.Tensor        # int32 [2, 2]: ctl's copies (pinned)
+    full: tuple = ()          # the whole batch's draw, when cut
+    rows: torch.Tensor | None = None  # the rows of it the solve takes
+    gen: torch.Generator | None = None  # the chunk's own generator
+    inc: int | None = None    # its Philox offset advance an iteration
+    per_it: tuple = ()        # what a chunk iteration adds to each counter
+    theta0: torch.Tensor | None = None  # solve-in's warm start
+    enter: dict = dataclasses.field(default_factory=dict)  # theta0? -> _Stage
+    leave: dict = dataclasses.field(default_factory=dict)  # restarts -> _Stage
     step: object = None       # the Step over the buffers and copies
     released: object = None   # event after the last solve's use, or None
 
-    def body(self) -> None:
-        """The captured region: advance, the new state copied into the
-        static state, then what the host reads before the next iteration
-        (the draw's active rows, the loop's condition), so it launches
-        nothing of its own for them."""
+    def iteration(self) -> None:
+        """The per-iteration region: advance, the new state copied into
+        the static state, then what the host reads before the next
+        iteration (the draw's active rows, the loop's condition), so it
+        launches nothing of its own for them."""
         draws = (self.draws[0] if self.kind == "stomp"
                  else self.draws if self.kind == "hmc" else None)
-        new = self.step.advance(self.state, draws)
-        for f in dataclasses.fields(self.state):
-            getattr(self.state, f.name).copy_(getattr(new, f.name))
+        self._advance(draws)
         torch.logical_not(self.state.done, out=self.active)
         self.finished.copy_(self.state.done.all())
 
-    def rows(self):
+    def chunk(self) -> None:
+        """The chunk region: the loop's condition, then k iterations, each
+        under an IF node on it."""
+        self._go()
+        for _ in range(self.k):
+            _if_node(self.ctl[0], self._body)
+
+    def _body(self) -> None:
+        """One chunk iteration: the draw, advance, the count and the
+        condition for the next."""
+        self._advance(self._draw())
+        self.ctl[1].add_(1)
+        self._go()
+
+    def _advance(self, draws) -> None:
+        new = self.step.advance(self.state, draws)
+        for f in dataclasses.fields(self.state):
+            getattr(self.state, f.name).copy_(getattr(new, f.name))
+
+    def _go(self) -> None:
+        torch.logical_and(torch.logical_not(self.state.done).any(),
+                          torch.lt(self.ctl[1], self.limit),
+                          out=self.ctl[0])
+
+    def _draw(self):
+        """The iteration's draw from the chunk's generator into the draws'
+        buffers (through the whole batch's, when the solve takes a cut)."""
+        if self.kind == "chomp":
+            return None
+        bufs = self.full or self.draws
+        torch.randn(bufs[0].shape, generator=self.gen, out=bufs[0])
+        if self.kind == "hmc":
+            torch.rand(bufs[1].shape, generator=self.gen, out=bufs[1])
+        for buf, v, dim in zip(self.draws, self.full, (1, 0)):
+            torch.index_select(v, dim, self.rows, out=buf)
+        return self.draws[0] if self.kind == "stomp" else self.draws
+
+    def rows_world(self):
         """The static buffers of a per-scenario world's rows, or None."""
         return _rows(self.step.world, self.step.world_batched)
 
     def buffers(self) -> list:
-        """Every static buffer: what a solve loads and the region writes."""
-        rows = self.rows()
+        """Every static buffer: what a solve loads and the regions write."""
+        rows = self.rows_world()
         return [*self.draws, *_fields(self.state), self.active,
-                self.finished, self.Q0, self.QN,
+                self.finished, self.ctl, self.limit, self.Q0, self.QN,
+                self.QN_in, *self.full,
+                *(() if self.rows is None else (self.rows,)),
+                *(() if self.theta0 is None else (self.theta0,)),
                 *(() if self.hyper is None else _fields(self.hyper)),
                 *(() if rows is None else _fields(rows))]
 
@@ -234,12 +362,22 @@ class _Graph(_Region):
                 self.step.constraints, self.step.ops)
 
     def regions(self) -> tuple:
-        return (self,)
+        return (self, *self.enter.values(), *self.leave.values())
 
     def info(self) -> dict:
-        return dict(kind=self.kind, batch=tuple(self.Q0.shape),
+        regions = {"loop": self.cost()}
+        for given, r in self.enter.items():
+            regions["solve_in" + (":theta0" if given else "")] = r.cost()
+        for R, r in self.leave.items():
+            regions["solve_out" + (f":restarts={R}" if R > 1 else "")] = \
+                r.cost()
+        return dict(kind=self.kind, route=self.route, k=self.k,
+                    batch=tuple(self.Q0.shape),
                     static_bytes=_nbytes(self.buffers(), self.copies()),
-                    **self.cost())
+                    **{k: sum(r[k] for r in regions.values())
+                       for k in ("pool_bytes", "capture_ms",
+                                 "instantiate_ms")},
+                    replays=self.replays, regions=regions)
 
 
 def _skeleton(obj, tensors: list):
@@ -295,14 +433,23 @@ def _keyed(step) -> tuple[tuple, list]:
     return skeleton, tensors
 
 
-def key_of(step, state) -> tuple[tuple, list]:
-    """(key, tensors): the cache key of `step` run from `state` and the
-    tensors it names by identity (their versions are checked on a hit)."""
+def layout(state) -> tuple:
+    """The (shape, dtype) of every field of a solver state."""
+    return tuple((tuple(v.shape), v.dtype) for v in _fields(state))
+
+
+def key_of(step, shapes: tuple, how: str, k: int = CHUNK
+           ) -> tuple[tuple, list]:
+    """(key, tensors): the cache key of `step` run from a state of the
+    given layout by the loop route `how` (chunks of k), and the tensors
+    it names by identity (their versions are checked on a hit)."""
     skeleton, tensors = _keyed(step)
-    shapes = tuple((tuple(v.shape), v.dtype) for v in _fields(state))
+    plan = draw_plan(step.noise_fn) if how == "chunk" else None
     key = (step.kind, step.cfg, tuple(step.Q0.shape), step.Q0.device,
            step.hyper is None, step.world_batched, shapes, skeleton,
-           tuple(map(id, tensors)))
+           tuple(map(id, tensors)), how,
+           k if how == "chunk" else None,
+           None if plan is None else plan.key())
     return key, tensors
 
 
@@ -340,7 +487,10 @@ def _drop(g, why: str) -> None:
         g.released.synchronize()
     for r in g.regions():
         if r.graph is not None:
+            body_pool = getattr(r.graph, "body_pool", None)
             r.graph.reset()
+            if body_pool is not None:
+                torch._C._cuda_releasePool(*body_pool)
 
 
 def _purge() -> None:
@@ -361,6 +511,13 @@ def _make_room() -> None:
         _drop(_CACHE.popitem(last=False)[1], "evicted")
 
 
+def hold(g) -> None:
+    """Keep the cached entry g the most recently used (a compacted solve's
+    full batch, while its buckets' entries are captured and replayed)."""
+    if _CACHE.get(g.key) is g:
+        _CACHE.move_to_end(g.key)
+
+
 def clear() -> None:
     """Drop every cached graph."""
     with _LOCK:
@@ -375,19 +532,22 @@ def reset_counts() -> None:
 
 def cached() -> list[dict]:
     """What each cached entry holds and cost, oldest first: kind, batch,
-    pool and static bytes, capture and instantiate ms and replays (an MPC
-    tick's iteration graph's, with each region's under "regions")."""
+    loop route, pool and static bytes, capture and instantiate ms (summed
+    over its regions, each region's under "regions") and the loop's
+    replays."""
     with _LOCK:
         _purge()
         return [g.info() for g in _CACHE.values()]
 
 
-def _stream(device) -> torch.cuda.Stream:
-    """The device's capture stream (one, so its cuBLAS workspace is set
-    up once, by a warm-up outside any capture)."""
-    if device not in _STREAMS:
-        _STREAMS[device] = torch.cuda.Stream(device)
-    return _STREAMS[device]
+def _stream(device, body: bool = False) -> torch.cuda.Stream:
+    """The device's capture stream, or its body stream (a chunk's bodies
+    are captured from it): one each, so their cuBLAS workspaces are set up
+    once, by eager work outside any capture."""
+    key = (device, body)
+    if key not in _STREAMS:
+        _STREAMS[key] = torch.cuda.Stream(device)
+    return _STREAMS[key]
 
 
 def _on(stream, fn):
@@ -398,32 +558,70 @@ def _on(stream, fn):
     with torch.cuda.stream(stream):
         out = fn()
     cur.wait_stream(stream)
-    for v in _fields(out):
+    tensors = []
+    _skeleton(out, tensors)
+    for v in tensors:
         v.record_stream(cur)
     return out
 
 
-def _capture(body: Callable[[], None], stream):
+def _if_node(pred: torch.Tensor, fn: Callable[[], None]) -> None:
+    """fn() captured under an IF node of the graph the current stream
+    captures: a replay runs it only if the int32 `pred` is nonzero when
+    it gets there. The bodies of one capture run on the body stream and
+    allocate from one pool of their own."""
+    device = pred.device
+    parent = torch.cuda.current_stream(device)
+    body = _stream(device, body=True)
+    graph_if.begin(parent, pred, body)
+    try:
+        with torch.cuda.stream(body):
+            pools = _BODY_POOL.get()
+            if not pools:
+                pools.append((device.index, torch._C._graph_pool_handle()))
+                torch._C._cuda_beginAllocateCurrentStreamToPool(*pools[0])
+            fn()
+    finally:
+        graph_if.end(body)
+
+
+def _capture(body: Callable[[], None], stream, generator=None):
     """body() captured on `stream` into a new CUDA graph with a memory pool
-    of its own: (graph, capture ms, instantiate ms, pool bytes)."""
+    of its own (and, for IF nodes' bodies, a body pool), drawing from
+    `generator` where it is given: (graph, capture ms, instantiate ms,
+    pool bytes)."""
+    graph_if.load(stream.device)
     graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
     reserved = torch.cuda.memory_reserved(stream.device)
     cur = torch.cuda.current_stream(stream.device)
     stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        t0 = time.perf_counter()
-        graph.capture_begin()
-        try:
-            body()
-        except BaseException:
+    pools = []
+    token = _BODY_POOL.set(pools)
+    try:
+        with torch.cuda.stream(stream):
+            t0 = time.perf_counter()
+            graph.capture_begin()
             try:
-                graph.capture_end()     # leave the stream out of capture
-            except RuntimeError:
-                pass                    # the capture is void: body's error
-            raise
-        t1 = time.perf_counter()
-        graph.capture_end()             # instantiates
-        t2 = time.perf_counter()
+                body()
+            except BaseException:
+                try:
+                    graph.capture_end()     # leave the stream out of capture
+                except RuntimeError:
+                    pass                    # the capture is void: body's error
+                if pools:                   # no graph keeps the body pool
+                    torch._C._cuda_endAllocateToPool(*pools[0])
+                    torch._C._cuda_releasePool(*pools[0])
+                raise
+            if pools:                       # released with the graph (_drop)
+                torch._C._cuda_endAllocateToPool(*pools[0])
+                graph.body_pool = pools[0]
+            t1 = time.perf_counter()
+            graph.capture_end()             # instantiates
+            t2 = time.perf_counter()
+    finally:
+        _BODY_POOL.reset(token)
     cur.wait_stream(stream)
     return (graph, 1e3 * (t1 - t0), 1e3 * (t2 - t1),
             torch.cuda.memory_reserved(stream.device) - reserved)
@@ -433,7 +631,8 @@ def _snapshot() -> list[dict]:
     return [dict(c) for c in _COUNTERS]
 
 
-def _record(r: _Region, body: Callable[[], None], device) -> None:
+def _record(r: _Region, body: Callable[[], None], device,
+            generator=None) -> None:
     """body() captured into the region r on the device's capture stream;
     what the capture counted moves to r's replays. The allocator's cached
     blocks are released first: a capture allocates new segments for its
@@ -443,7 +642,7 @@ def _record(r: _Region, body: Callable[[], None], device) -> None:
         torch.cuda.empty_cache()
     before = _snapshot()
     r.graph, r.capture_ms, r.instantiate_ms, r.pool_bytes = _capture(
-        body, _stream(device))
+        body, _stream(device), generator)
     # the capture launched nothing: its counts move to the replays
     r.counts = tuple({k: c[k] - b[k] for k in c}
                      for c, b in zip(_COUNTERS, before))
@@ -452,9 +651,31 @@ def _record(r: _Region, body: Callable[[], None], device) -> None:
     GRAPHS["captured"] += 1
 
 
+def _record_loop(g: _Graph, device) -> None:
+    """g's loop region captured: a chunk (its counts become one
+    iteration's share, added per iteration run) or one iteration."""
+    if g.route != "chunk":
+        _record(g, g.iteration, device)
+        return
+    _record(g, g.chunk, device, g.gen)
+    per_it = []
+    for c in g.counts:
+        if any(n % g.k for n in c.values()):
+            raise RuntimeError(f"a chunk's {g.k} bodies launched unequal "
+                               f"counts: {c}")
+        per_it.append({name: n // g.k for name, n in c.items()})
+    g.per_it, g.counts = tuple(per_it), ()
+
+
+def _add_counts(per_it: tuple, n: int) -> None:
+    for c, add in zip(_COUNTERS, per_it):
+        for name, v in add.items():
+            c[name] += v * n
+
+
 def _static_world(world, batched: bool, own):
     """A graph's world: a per-scenario world's rows as contiguous static
-    buffers (loaded by _load), the rest as `own` makes it."""
+    buffers (loaded with the state), the rest as `own` makes it."""
     rows = _rows(world, batched)
     if rows is None:
         return own(world)
@@ -465,26 +686,41 @@ def _static_world(world, batched: bool, own):
     return bufs
 
 
-def _buffers(step, state, key, tensors, own=clone_with_mirrors) -> _Graph:
-    """A graph's static buffers for `step` from `state`, and its step over
-    them and over `own`'s copies of the robot, world, constraints and
-    DeviceOps (by default clones with their host copies: the graph holds
-    nothing of the caller's but weak references, so it goes when they do,
-    and its step keeps what the captured kernels read (the copies, and
-    what building the step put on the device) for as long as it may
-    replay)."""
+def _buffers(step, state, key, tensors, how: str, k: int = CHUNK,
+             QN=None, own=clone_with_mirrors) -> _Graph:
+    """A graph's static buffers for `step` from `state` (QN: the wrapped
+    goal where step.QN is the goal before wrapping), the loop route `how`
+    in chunks of k, and its step over them and over `own`'s copies of the
+    robot, world, constraints and DeviceOps (by default clones with their
+    host copies: the graph holds nothing of the caller's but weak
+    references, so it goes when they do, and its step keeps what the
+    captured kernels read (the copies, and what building the step put on
+    the device) for as long as it may replay)."""
+    dev = step.Q0.device
     hyper = (None if step.hyper is None
              else map_tensors(step.hyper, torch.clone))
+    plan = (draw_plan(step.noise_fn)
+            if how == "chunk" and step.kind != "chomp" else None)
+    cut = plan is not None and plan.cut()
     g = _Graph(key=key, refs=_refs(key, tensors),
                versions=tuple(t._version for t in tensors),
-               kind=step.kind, Q0=step.Q0.clone(), QN=step.QN.clone(),
-               hyper=hyper, state=map_tensors(state, torch.clone),
+               kind=step.kind, route=how, k=k, Q0=step.Q0.clone(),
+               QN=(step.QN if QN is None else QN).clone(),
+               QN_in=step.QN.clone(), hyper=hyper,
+               state=map_tensors(state, torch.clone),
                draws=tuple(torch.empty(shape, dtype=torch.float32,
-                                       device=step.Q0.device)
+                                       device=dev)
                            for shape in step.draw_shapes()),
                active=torch.empty_like(state.done),
-               finished=torch.empty((), dtype=torch.bool,
-                                    device=step.Q0.device))
+               finished=torch.empty((), dtype=torch.bool, device=dev),
+               ctl=torch.zeros(2, dtype=torch.int32, device=dev),
+               limit=torch.zeros((), dtype=torch.int32, device=dev),
+               host=torch.zeros((2, 2), dtype=torch.int32,
+                                pin_memory=dev.type == "cuda"),
+               full=(tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                           for s in plan.shapes) if cut else ()),
+               rows=plan.index(dev).clone() if cut else None,
+               gen=None if plan is None else torch.Generator(device=dev))
     g.step = step.over(
         Q0=g.Q0, QN=g.QN, hyper=hyper, noise_fn=None,
         robot=own(step.robot),
@@ -516,33 +752,56 @@ def _release(g, device) -> None:
         g.released.record(torch.cuda.current_stream(device))
 
 
-def _load(g: _Graph, step, state) -> None:
-    """The solve's state, Q0/QN, HyperParams and world rows into the
-    static buffers, after the last solve that used them."""
-    _wait(g, g.Q0.device)
-    pairs = [(g.Q0, step.Q0), (g.QN, step.QN),
-             *zip(_fields(g.state), _fields(state))]
+def _inputs(g: _Graph, step) -> list:
+    """(buffer, value) pairs of what a solve loads besides its state:
+    Q0, HyperParams, world rows and the draw's rows."""
+    pairs = [(g.Q0, step.Q0)]
     if step.hyper is not None:
         pairs += zip(_fields(g.hyper), _fields(step.hyper))
-    rows = g.rows()
+    rows = g.rows_world()
     if rows is not None:
         pairs += zip(_fields(rows), _fields(_rows(step.world, True)))
+    if g.rows is not None:
+        pairs.append((g.rows, draw_plan(step.noise_fn).index(g.rows.device)))
+    return pairs
+
+
+def _load(g: _Graph, step, state, QN=None) -> None:
+    """The solve's state, Q0/QN (QN: the wrapped goal where step.QN is not
+    yet), HyperParams and rows into the static buffers, after the last
+    solve that used them."""
+    _wait(g, g.Q0.device)
+    pairs = [(g.QN, step.QN if QN is None else QN),
+             *zip(_fields(g.state), _fields(state)), *_inputs(g, step)]
     for buf, v in pairs:
         buf.copy_(v)
     torch.logical_not(g.state.done, out=g.active)
 
 
 def _settle(g: _Graph, step, state, it_limit: int, count: int):
-    """The solve's next iteration, run eagerly over g's step on the capture
-    stream (it builds the kernels' libraries, settles their parameter
-    routes and the stream's cuBLAS workspace), and one more while it
-    deferred a parameter read: (state, count, whether the solve is
-    over)."""
-    stream = _stream(step.Q0.device)
+    """The solve's next iteration, run eagerly over g's step on the stream
+    g's loop is captured from (it builds the kernels' libraries, settles
+    their parameter routes and the stream's cuBLAS workspace), and one more
+    while it deferred a parameter read: (state, count, whether the solve is
+    over). The first draw of a chunk's generator measures its offset
+    advance an iteration (g.inc)."""
+    stream = _stream(step.Q0.device, body=g.route == "chunk")
+    plan = None if g.gen is None else draw_plan(step.noise_fn)
+    measure = (plan is not None and g.inc is None
+               and plan.generator.device.type == "cuda")
+
+    def one(s, c):
+        if not measure:
+            return g.step.advance(s, step.draw(c, s.done))
+        start = plan.generator.get_offset()
+        draws = step.draw(c, s.done)
+        g.inc = plan.generator.get_offset() - start
+        return g.step.advance(s, draws)
+
     for reason in ("first_iteration", "param_read"):
         deferred = rollout.PARAM_READS["deferred"]
-        state = _on(stream, lambda s=state, c=count: g.step.advance(
-            s, step.draw(c, s.done)))
+        state = _on(stream, lambda s=state, c=count: one(s, c))
+        measure = False
         count += 1
         GRAPHS["eager:" + reason] += 1
         if count >= it_limit or bool(state.done.all()):
@@ -553,55 +812,246 @@ def _settle(g: _Graph, step, state, it_limit: int, count: int):
 
 
 def _iterate(g: _Graph, step, it_limit: int, count: int) -> int:
-    """Replays from g's loaded state until every row is done or the count
-    reaches it_limit: each the draw into g's buffers, one replay and the
-    read of the loop's condition. Returns the count."""
+    """Per-iteration replays from g's loaded state until every row is done
+    or the count reaches it_limit: each the draw into g's buffers, one
+    replay and the read of the loop's condition. Returns the count."""
+    start = count
     while True:
         step.draw_into(count, g.active, g.draws)
         g.replay()
         count += 1
+        GRAPHS["flag_reads"] += 1
         if count >= it_limit or bool(g.finished):
+            GRAPHS[g.route] += count - start
             return count
 
 
-def _first_solve(g: _Graph, step, state, it_limit: int) -> None:
-    """A whole solve of `step` from `state` that captures g on its way and
-    leaves its last state in g's static state (the MPC tick's first
-    solve): its eager iterations (_settle), g's capture, whether or not
-    the solve ended in them, then replays."""
+class _Reads:
+    """The host's reads of a chunk's condition: ctl copied to a pinned
+    slot (two, taken in turn) behind an event after each replay, read only
+    once the next chunk is queued; with `mask`, the done mask too."""
+
+    def __init__(self, g: _Graph, mask: bool):
+        self.g, self.slot = g, 0
+        self.done = (torch.zeros((2,) + tuple(g.state.done.shape),
+                                 dtype=torch.bool, pin_memory=g.ctl.is_cuda)
+                     if mask else None)
+
+    def post(self):
+        g, slot = self.g, self.slot
+        self.slot ^= 1
+        g.host[slot].copy_(g.ctl, non_blocking=True)
+        if self.done is not None:
+            self.done[slot].copy_(g.state.done, non_blocking=True)
+        event = None
+        if g.ctl.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+        return slot, event
+
+    def read(self, posted):
+        slot, event = posted
+        if event is not None:
+            event.synchronize()
+        GRAPHS["flag_reads"] += 1
+        go, count = self.g.host[slot].tolist()
+        mask = None if self.done is None else self.done[slot].numpy().copy()
+        return bool(go), count, mask
+
+
+def _chunks(g: _Graph, step, it_limit: int, count: int, mask=False):
+    """Chunk replays from g's loaded state until the device's condition
+    fails (every row done, or the count at it_limit): chunk j+1 is queued
+    before chunk j's condition is read. Returns (count, done mask or
+    None). The kernel counters take one iteration's share per iteration
+    run; the source's generator is left where the eager loop leaves it."""
+    plan = None if g.gen is None else draw_plan(step.noise_fn)
+    if plan is not None:
+        g.gen.set_state(plan.generator.get_state())
+    g.ctl[1].fill_(count)
+    g.limit.fill_(it_limit)
+    start, bound = count, count
+    reads = _Reads(g, mask)
+
+    def launch():
+        nonlocal bound
+        g.replay()
+        bound = min(bound + g.k, it_limit)
+        return reads.post()
+
+    posted = launch()
+    while True:
+        ahead = launch() if bound < it_limit else None
+        go, count, done = reads.read(posted)
+        if not go:
+            break
+        posted = ahead
+    n = count - start
+    _add_counts(g.per_it, n)
+    GRAPHS["chunk"] += n
+    if plan is not None:
+        _rewind(g, plan.generator, n)
+    return count, done
+
+
+def _rewind(g: _Graph, generator, n: int) -> None:
+    """`generator` moved as far as n eager iterations' draws move it (the
+    chunk's replays moved g.gen by whole chunks). On the CPU, where only
+    tests emulate a graph and a skipped body draws nothing, g.gen's state
+    is already that."""
+    if generator.device.type == "cuda":
+        generator.set_offset(generator.get_offset() + n * g.inc)
+    else:
+        generator.set_state(g.gen.get_state())
+
+
+def _loop(g: _Graph, step, it_limit: int, count: int, mask: bool = False):
+    """g's loop from its loaded state: chunks or per-iteration replays.
+    Returns the count, and with mask=True (count, the done mask read with
+    the loop's condition)."""
+    if g.route == "chunk":
+        count, done = _chunks(g, step, it_limit, count, mask)
+    else:
+        count = _iterate(g, step, it_limit, count)
+        done = g.state.done.cpu().numpy() if mask else None
+    return (count, done) if mask else count
+
+
+def _ready(g: _Graph, new: bool, step, state, it_limit: int, count: int,
+           QN=None):
+    """Before g's loop replays from `state`: on a new entry (or a state of
+    other strides) the eager iterations of _settle, and a new entry's loop
+    captured and cached, unless the solve ended in them; then the state
+    loaded. Returns (state, count, over): over, the solve ended eagerly
+    (state is then its own, and a new entry not cached)."""
+    if new or not _fits(g, state):
+        if not new:
+            _load(g, step, state, QN)     # Q0/QN/hyper/rows of this solve
+        state, count, over = _settle(g, step, state, it_limit, count)
+        if over:
+            return state, count, True
+        if new:
+            _make_room()
+            _record_loop(g, step.Q0.device)
+            _CACHE[g.key] = g
+    _load(g, step, state, QN)
+    return state, count, False
+
+
+def _first_solve(g: _Graph, step, state, it_limit: int) -> int:
+    """A whole solve of `step` from `state` that captures g's loop on its
+    way and leaves its last state in g's static state (the MPC tick's
+    first solve): its eager iterations (_settle), the capture, whether or
+    not the solve ended in them, then replays. Returns the count."""
     count, over = 0, it_limit <= 0
     if not over:
         state, count, over = _settle(g, step, state, it_limit, 0)
-        _record(g, g.body, step.Q0.device)
+        _record_loop(g, step.Q0.device)
     _load(g, step, state)
     if not over:
-        _iterate(g, step, it_limit, count)
+        count = _loop(g, step, it_limit, count)
+    return count
 
 
-def run(step, state, it_limit: int, count: int):
-    """solver.run_until's loop on a graph of step.advance: (state, count).
-    The state returned is the solve's own (a copy, never a graph buffer)."""
+def run(step, state, it_limit: int, count: int, k: int = CHUNK,
+        mask: bool = False):
+    """solver.run_until's loop on the graphs of step: (state, count), and
+    with mask=True the done mask read with the loop's condition (the
+    compacted path's one read a chunk of k). The state returned is the
+    solve's own (a copy, never a graph buffer)."""
     if count >= it_limit or bool(state.done.all()):
-        return state, count
-    key, tensors = key_of(step, state)
+        return (state, count, state.done.cpu().numpy()) if mask else (
+            state, count)
+    how = route(step)
+    key, tensors = key_of(step, layout(state), how, k)
     with _LOCK:
         _purge()
         g = _lookup(key, tensors)
         new = g is None
         if new:
-            g = _buffers(step, state, key, tensors)
-        if new or not _fits(g, state):
-            if not new:
-                _load(g, step, state)       # Q0/QN/hyper/rows of this solve
-            state, count, over = _settle(g, step, state, it_limit, count)
-            if over:
-                return state, count
-            if new:
-                _make_room()
-                _record(g, g.body, step.Q0.device)
-                _CACHE[key] = g
-        _load(g, step, state)
-        count = _iterate(g, step, it_limit, count)
+            g = _buffers(step, state, key, tensors, how, k)
+        state, count, over = _ready(g, new, step, state, it_limit, count)
+        if over:
+            return (state, count, state.done.cpu().numpy()) if mask else (
+                state, count)
+        count = _loop(g, step, it_limit, count, mask)
         out = map_tensors(g.state, torch.clone)
         _release(g, g.Q0.device)
-        return out, count
+        return (out, *count) if mask else (out, count)
+
+
+def _solve_in(g: _Graph, given: bool, init) -> None:
+    """solve-in: init (solver._init_batch) from the loaded Q0, goal and
+    warm start into the static goal and state."""
+    QN, state = init(g.step.robot, g.step.cfg, g.Q0, g.QN_in,
+                     g.theta0 if given else None)
+    g.QN.copy_(QN)
+    for buf, v in zip(_fields(g.state), _fields(state)):
+        buf.copy_(v)
+    torch.logical_not(g.state.done, out=g.active)
+
+
+def solve(step, theta0, restarts: int, shapes: tuple, init, finish,
+          loop=None, k: int = CHUNK):
+    """solver.solve_batch on the graphs of step (built over the goal
+    before wrapping): solve-in, the loop, solve-out. init(robot, cfg, Q0,
+    QN, theta0) -> (QN, state) is solver._init_batch, finish(step, state,
+    restarts) -> Solution its finalize (and choice of the best restart);
+    shapes is the layout of init's state. loop(g, count) -> count runs the
+    iterations from the entry's loaded state and leaves the last in it
+    (default: the loop to max_iterations, in chunks of k). A miss runs
+    init and finish eagerly on the capture stream, then captures them.
+    Returns (Solution, count); the Solution is the solve's own."""
+    it_limit = step.cfg.max_iterations
+    if loop is None:
+        def loop(g, count):
+            return _loop(g, step, it_limit, count)
+    how = route(step)
+    key, tensors = key_of(step, shapes, how, k)
+    dev = step.Q0.device
+    given = theta0 is not None
+    with _LOCK:
+        _purge()
+        g = _lookup(key, tensors)
+        if g is not None and given in g.enter:
+            _wait(g, dev)
+            for buf, v in [(g.QN_in, step.QN), *_inputs(g, step),
+                           *([(g.theta0, theta0)] if given else [])]:
+                buf.copy_(v)
+            g.enter[given].replay()
+            count = loop(g, 0) if it_limit > 0 else 0
+        else:
+            QN, state = _on(_stream(dev), lambda: init(
+                step.robot, step.cfg, step.Q0, step.QN, theta0))
+            new = g is None
+            if new:
+                g = _buffers(step, state, key, tensors, how, k, QN=QN)
+            count, over = 0, it_limit <= 0
+            if not over:
+                state, count, over = _ready(g, new, step, state, it_limit,
+                                            0, QN)
+            if over and g.key not in _CACHE:
+                sol = _on(_stream(dev), lambda: finish(
+                    step.over(QN=QN), state, restarts))
+                return sol, count
+            if over:
+                _load(g, step, state, QN)
+            else:
+                count = loop(g, count)
+            if given and g.theta0 is None:
+                g.theta0 = theta0.clone()
+            g.enter[given] = _Stage(entry=g, fn=lambda e, t=given: _solve_in(
+                e, t, init))
+            _record(g.enter[given], g.enter[given].body, dev)
+        out = g.leave.get(restarts)
+        if out is None:
+            sol = map_tensors(_on(_stream(dev), lambda: finish(
+                g.step, g.state, restarts)), torch.clone)
+            out = g.leave[restarts] = _Stage(
+                entry=g, fn=lambda e, R=restarts: finish(e.step, e.state, R))
+            _record(out, out.body, dev)
+        else:
+            out.replay()
+            sol = map_tensors(out.out, torch.clone)
+        _release(g, dev)
+        return sol, count

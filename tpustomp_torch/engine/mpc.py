@@ -16,9 +16,12 @@ Differences from the JAX package, by design:
     `plan_batch` at B=1). On the card a tick replays CUDA graphs, the
     counterpart of the compiled `lax.scan` body (`_Tick`): its own work
     before the solve (steps 1-3 and the solver's initial state), the
-    solver's iteration once an iteration (engine/graph.py), and its work
-    after it (the solve's finalize and step 5). The host then draws the
-    noise, replays and reads one flag an iteration.
+    solver's loop (engine/graph.py), and its work after it (the solve's
+    finalize and step 5). With the default noise the loop is
+    ceil(max_iterations / graph.CHUNK) chunk replays whose condition and
+    draws are on the device, so an episode makes no host read between its
+    load and its copy-out; a caller's noise_fn keeps the draw on the host
+    and one replay and flag read an iteration.
   - `MPCState` carries no PRNG key. Noise is an argument: by default one
     ``torch.randn`` [d, B, K, N] per solver iteration from an explicit
     generator (engine/sampling.draw_z; `_TickDraws`: exactly
@@ -49,7 +52,8 @@ from tpustomp_torch.api.plan import _resolve_device, resolve_backend
 from tpustomp_torch.dynamics.device import DeviceOps, device_ops
 from tpustomp_torch.engine import graph, solver
 from tpustomp_torch.engine.distributed import Mesh, make_mesh
-from tpustomp_torch.engine.sampling import draw_z, shard_noise
+from tpustomp_torch.engine.sampling import (DrawPlan, draw_plan, draw_z,
+                                            shard_noise)
 from tpustomp_torch.engine.trajectory import min_jerk_init, wrap_goal
 from tpustomp_torch.robot.fk import body_positions
 from tpustomp_torch.robot.model import RobotSpec, check_joint_static
@@ -75,8 +79,10 @@ GOAL_EPS = 0.05
 GOAL_FLUSH = 0.5
 
 # The default noise's draws in this process (_TickDraws): "used" reached a
-# solver iteration, "padded" were drawn and discarded to keep the stream at
-# cfg.max_iterations draws per tick after a tick's solve stopped early.
+# solver iteration, "padded" were skipped to keep the stream at
+# cfg.max_iterations draws per tick after a tick's solve stopped early
+# (drawn and discarded in the eager loop; on the graphed route a move of
+# the generator's offset, with no draw).
 NOISE_DRAWS = {"used": 0, "padded": 0}
 
 
@@ -297,12 +303,14 @@ class _Tick:
     """A graphed tick: three captured regions over static buffers, one
     cache entry of engine/graph.py. `enter` (:meth:`tick_in`) computes
     _tick_in from the static MPCState `state` and `radius` into `tin`,
-    whose world, q_next, QN and state are the iteration graph `loop`'s
-    buffers; `loop` replays once an iteration; `leave` (:meth:`tick_out`)
-    writes _tick_out into `state`. Between ticks the state stays in its
-    buffers: an episode loads it once and copies it out once. The regions
-    run over the entry's own copies of the robot, DeviceOps and static
-    world, which its key names by identity and version."""
+    whose world, q_next, QN and state are the loop graph `loop`'s
+    buffers; `loop` replays `n` chunks a tick (route "chunk": no host
+    read) or once an iteration; `leave` (:meth:`tick_out`) writes _tick_out
+    into `state` and adds the tick's iterations to `total`. Between ticks
+    the state stays in its buffers: an episode loads it once and copies it
+    out once. The regions run over the entry's own copies of the robot,
+    DeviceOps and static world, which its key names by identity and
+    version."""
 
     key: tuple
     refs: tuple
@@ -318,6 +326,8 @@ class _Tick:
     radius: torch.Tensor
     tin: _TickIn
     loop: graph._Graph
+    n: int                    # chunk replays a tick
+    total: torch.Tensor       # int32 []: iterations the ticks ran
     enter: graph._Region = dataclasses.field(default_factory=graph._Region)
     leave: graph._Region = dataclasses.field(default_factory=graph._Region)
     released: object = None
@@ -327,25 +337,28 @@ class _Tick:
                                  self.radius, self.world_dt,
                                  self.static_world))
         torch.logical_not(self.loop.state.done, out=self.loop.active)
+        self.loop.ctl[1].zero_()
 
     def tick_out(self) -> None:
         _copy(self.state, _tick_out(self.robot, self.cfg, self.ops,
                                     self.state, self.tin, self.loop.state,
                                     self.goal_eps, self.goal_flush))
+        self.total.add_(self.loop.ctl[1])
 
     def buffers(self) -> list:
         return [*graph._fields(self.state), self.radius, self.tin.centers,
-                self.tin.theta0, *self.loop.buffers()]
+                self.tin.theta0, self.total, *self.loop.buffers()]
 
     def regions(self) -> tuple:
         return (self.enter, self.loop, self.leave)
 
     def info(self) -> dict:
         regions = dict(tick_in=self.enter.cost(),
-                       iteration=self.loop.cost(),
+                       loop=self.loop.cost(),
                        tick_out=self.leave.cost())
         return dict(
-            kind="mpc_tick", batch=tuple(self.state.q.shape),
+            kind="mpc_tick", route=self.loop.route, k=self.loop.k,
+            batch=tuple(self.state.q.shape),
             static_bytes=graph._nbytes(self.buffers(), (
                 self.robot, self.ops, self.static_world)),
             **{k: sum(r[k] for r in regions.values())
@@ -354,52 +367,105 @@ class _Tick:
 
 
 def _first_tick(key, tensors, robot, cfg, ops, state, radius, world_dt,
-                static_world, goal_eps, goal_flush, noise_fn) -> _Tick:
+                static_world, goal_eps, goal_flush, source, how) -> _Tick:
     """Tick 0 of an episode that missed the cache, run as a graphed tick's
     warm-up over the new entry's buffers: _tick_in eagerly, the solve
-    through engine/graph.py's first solve (it captures the iteration),
-    _tick_out eagerly; then both regions are captured and the entry
-    cached. Its state after tick 0 is in its static state."""
+    through engine/graph.py's first solve (it captures the loop), _tick_out
+    eagerly (both on the capture stream, whose cuBLAS workspace they set
+    up); then both regions are captured and the entry cached. Its state
+    after tick 0 is in its static state, and the default noise's stream
+    at tick 1's first draw."""
     own = clone_with_mirrors
     robot, ops = own(robot), own(ops)
     static_world = None if static_world is None else own(static_world)
     state, radius = map_tensors(state, torch.clone), radius.clone()
-    tin = _tick_in(robot, cfg, state, radius, world_dt, static_world)
+    dev = state.q.device
+    tin = graph._on(graph._stream(dev), lambda: _tick_in(
+        robot, cfg, state, radius, world_dt, static_world))
     solver._check_batch(cfg, None, tin.q_next, tin.world, True, None)
     step = solver.make_step(robot, tin.world, cfg, ops, tin.q_next, tin.QN,
-                            noise_fn, world_batched=True)
+                            _TickNoise(source, 0), world_batched=True)
     graph._make_room()
-    loop = graph._buffers(step, tin.state, None, (), own=lambda x: x)
+    loop = graph._buffers(step, tin.state, None, (), how,
+                          min(graph.CHUNK, max(cfg.max_iterations, 1)),
+                          own=lambda x: x)
     tick = _Tick(
         key=key, refs=graph._refs(key, tensors),
         versions=tuple(t._version for t in tensors), robot=robot, ops=ops,
         static_world=static_world, cfg=cfg, world_dt=world_dt,
         goal_eps=goal_eps, goal_flush=goal_flush, state=state,
-        radius=radius, loop=loop,
+        radius=radius, loop=loop, n=-(-cfg.max_iterations // loop.k),
+        total=torch.zeros((), dtype=torch.int32, device=dev),
         tin=_TickIn(tin.centers.clone(), loop.step.world, loop.Q0,
                     tin.theta0.clone(), loop.QN, loop.state))
-    graph._first_solve(loop, step, tin.state, cfg.max_iterations)
-    tick.tick_out()
-    dev = state.q.device
+    used = NOISE_DRAWS["used"]
+    count = graph._first_solve(loop, step, tin.state, cfg.max_iterations)
+    if isinstance(source, _TickDraws) and how == "chunk":
+        # the chunks' draws came from the graph: tick 0 drew `count`
+        NOISE_DRAWS["used"] = used + count
+        source.drawn = count
+    graph._on(graph._stream(dev), lambda: tick.tick_out() or ())
     graph._record(tick.enter, tick.tick_in, dev)
     graph._record(tick.leave, tick.tick_out, dev)
     graph._CACHE[key] = tick
     return tick
 
 
+def _chunk_ticks(tick: _Tick, first: int, num_ticks: int, draws) -> None:
+    """Ticks first..num_ticks-1 on the chunk route: per tick one replay of
+    `enter`, `n` chunk replays and one of `leave`, and no host read. The
+    loop's generator starts at tick `first`'s first draw of the default
+    noise `draws`, and moves exactly max_iterations draws a tick."""
+    g, per_tick = tick.loop, draws.per_tick
+    g.gen.set_state(draws.generator.get_state())
+    _skip(g, first * per_tick - draws.drawn)
+    g.limit.fill_(tick.cfg.max_iterations)
+    tick.total.zero_()
+    for _ in range(first, num_ticks):
+        tick.enter.replay()
+        for _ in range(tick.n):
+            g.replay()
+        # the chunks moved the generator n·k draws; a tick moves per_tick
+        if g.gen.device.type == "cuda":
+            _skip(g, per_tick - tick.n * g.k)
+        else:
+            _skip(g, per_tick - int(g.ctl[1]))
+        tick.leave.replay()
+
+
+def _skip(g: graph._Graph, n: int) -> None:
+    """g's generator moved by n iterations' draws (back where n < 0): its
+    offset on the card; on the CPU, where a graph is only emulated and a
+    skipped body draws nothing, by n draws made and dropped."""
+    if n == 0:
+        return
+    if g.gen.device.type == "cuda":
+        g.gen.set_offset(g.gen.get_offset() + n * g.inc)
+        return
+    for _ in range(n):
+        g._draw()
+
+
 def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
-                   goal_eps, goal_flush, num_ticks, noise) -> MPCState:
+                   goal_eps, goal_flush, num_ticks, source) -> MPCState:
     """num_ticks ticks on the cached _Tick of these inputs (captured in
     tick 0 on a miss): the state loaded once, then per tick one replay of
-    `enter`, the solve's draws, replays and flag reads, one replay of
-    `leave`; the state copied out once."""
+    `enter`, the solve's chunk replays (the default noise: no host read)
+    or its draws, replays and flag reads (a caller's noise_fn), one replay
+    of `leave`; the state copied out once, with one read of the
+    iterations the ticks ran."""
+    how = graph.route(SimpleNamespace(kind="stomp",
+                                      noise_fn=_TickNoise(source, 0)))
+    plan = draw_plan(_TickNoise(source, 0)) if how == "chunk" else None
     tensors = []
     skeleton = graph._skeleton((robot, static_world, ops), tensors)
     shapes = tuple((tuple(v.shape), v.dtype)
                    for v in (*graph._fields(state), radius))
     key = ("mpc_tick", cfg, state.q.device, shapes, skeleton,
-           tuple(map(id, tensors)), world_dt, goal_eps, goal_flush)
-    solver._check_fp32_matmul(state.q.device)
+           tuple(map(id, tensors)), world_dt, goal_eps, goal_flush, how,
+           None if plan is None else plan.key())
+    dev = state.q.device
+    solver._check_fp32_matmul(dev)
     with graph._LOCK:
         graph._purge()
         tick = graph._lookup(key, tensors)
@@ -407,28 +473,68 @@ def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
         if tick is None:
             tick = _first_tick(key, tensors, robot, cfg, ops, state, radius,
                                world_dt, static_world, goal_eps, goal_flush,
-                               noise(0))
+                               source, how)
             done = 1
         else:
-            graph._wait(tick, state.q.device)
+            graph._wait(tick, dev)
             _copy(tick.state, state)
             tick.radius.copy_(radius)
-        for t in range(done, num_ticks):
-            tick.enter.replay()
-            if cfg.max_iterations > 0:
-                graph._iterate(tick.loop, dataclasses.replace(
-                    tick.loop.step, noise_fn=noise(t)), cfg.max_iterations,
-                    0)
-            tick.leave.replay()
+            if tick.loop.rows is not None:      # this shard's rows
+                tick.loop.rows.copy_(plan.index(dev))
+        if how == "chunk":
+            if done < num_ticks:
+                _chunk_ticks(tick, done, num_ticks, source)
+                ran = _read_total(tick)
+                graph._add_counts(tick.loop.per_it, ran)
+                graph.GRAPHS["chunk"] += ran
+                _skip_source(tick.loop, source, num_ticks, ran)
+        else:
+            for t in range(done, num_ticks):
+                tick.enter.replay()
+                if cfg.max_iterations > 0:
+                    graph._iterate(tick.loop, dataclasses.replace(
+                        tick.loop.step, noise_fn=_TickNoise(source, t)),
+                        cfg.max_iterations, 0)
+                tick.leave.replay()
         out = map_tensors(tick.state, torch.clone)
-        graph._release(tick, state.q.device)
+        graph._release(tick, dev)
         return out
 
 
+def _read_total(tick: _Tick) -> int:
+    """The iterations the episode's ticks ran: one read, after the last
+    tick, through pinned memory."""
+    host = torch.zeros((), dtype=torch.int32,
+                       pin_memory=tick.total.is_cuda)
+    host.copy_(tick.total, non_blocking=True)
+    if tick.total.is_cuda:
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+    return int(host)
+
+
+def _skip_source(g: graph._Graph, draws, num_ticks: int, ran: int) -> None:
+    """The default noise after chunk ticks up to num_ticks, in which `ran`
+    iterations drew: its generator at tick num_ticks's first draw (where
+    the eager episode's padding leaves it), the draws since its last
+    counted used or padded."""
+    skipped = num_ticks * draws.per_tick - draws.drawn
+    if g.gen.device.type != "cuda":
+        draws.generator.set_state(g.gen.get_state())
+    elif skipped:
+        draws.generator.set_offset(draws.generator.get_offset()
+                                   + skipped * g.inc)
+    NOISE_DRAWS["used"] += ran
+    NOISE_DRAWS["padded"] += skipped - ran
+    draws.drawn = num_ticks * draws.per_tick
+
+
 def _run_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
-               goal_eps, goal_flush, num_ticks, noise) -> MPCState:
-    """num_ticks ticks from `state` (all on one device); noise(t) is tick
-    t's solver noise_fn(iteration, active). Graphed (_graphed_ticks) but in
+               goal_eps, goal_flush, num_ticks, source) -> MPCState:
+    """num_ticks ticks from `state` (all on one device); source(tick,
+    iteration, active) is the episode's noise (_TickDraws, or a caller's
+    cut to this shard). Graphed (_graphed_ticks) but in
     graph.eager_reason's cases for the robot, the static world and
     DeviceOps (the CPU, debug_mode, graph.eager(), ...), where every tick
     runs _eager_tick."""
@@ -438,10 +544,11 @@ def _run_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
     if why is None and num_ticks > 0:
         return _graphed_ticks(robot, cfg, ops, state, radius, world_dt,
                               static_world, goal_eps, goal_flush, num_ticks,
-                              noise)
+                              source)
     for t in range(num_ticks):
         state = _eager_tick(robot, cfg, ops, state, radius, world_dt,
-                            noise(t), static_world, goal_eps, goal_flush)
+                            _TickNoise(source, t), static_world, goal_eps,
+                            goal_flush)
     return state
 
 
@@ -457,7 +564,8 @@ def mpc_step_batch(robot: RobotSpec, cfg: PlannerConfig, ops: DeviceOps,
     returned is the caller's own."""
     return _run_ticks(robot, cfg, ops, state, sphere_radius, world_dt,
                       static_world, goal_eps, goal_flush, 1,
-                      lambda t: noise_fn)
+                      lambda t, iteration, active: noise_fn(iteration,
+                                                            active))
 
 
 class _TickDraws:
@@ -495,6 +603,11 @@ class _TickDraws:
         NOISE_DRAWS["used"] += 1
         return self._draw()[:, self.lo:self.hi]
 
+    def draw_plan(self) -> DrawPlan:
+        """One iteration's draw: the whole batch's z, cut to this shard
+        (the tick's chunks draw it in the graph, engine/graph.py)."""
+        return DrawPlan(self.generator, (self.shape,), self.lo, self.hi)
+
     def into(self, tick, iteration, active, out) -> None:
         """The draw a call returns, written into out[0] (a solver graph's
         buffer): drawn there when this shard is the whole batch, else cut
@@ -522,6 +635,9 @@ class _TickNoise:
 
     def __call__(self, iteration, active):
         return self.source(self.tick, iteration, active)
+
+    def draw_plan(self) -> DrawPlan | None:
+        return draw_plan(self.source)
 
 
 def run_mpc_batch(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
@@ -589,7 +705,7 @@ def run_mpc_sharded(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness, device)
     state = _run_ticks(robot, cfg, ops, state, radius, world_dt,
                        static_world, goal_eps, goal_flush, num_ticks,
-                       lambda t: _TickNoise(noise_fn, t))
+                       noise_fn)
     if draws is not None:
         draws.finish(num_ticks)
     return state

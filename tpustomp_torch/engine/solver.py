@@ -20,10 +20,12 @@ leapfrog of hmc_leapfrog_steps gradient steps and, with hmc_metropolis,
 two more evaluator calls for the accept test.
 
 Differences from the JAX package, by design:
-  - No jit/vmap: batch axes are written out, and the loop is a Python
-    `while` over "any scenario still active" with one host sync per
-    iteration. On the card each iteration replays a cached CUDA graph of
-    the step (engine/graph.py), the counterpart of the jitted loop body.
+  - No jit/vmap: batch axes are written out. On the CPU the loop is a
+    Python `while` over "any scenario still active" with one host sync per
+    iteration. On the card a solve replays cached CUDA graphs
+    (engine/graph.py), the counterpart of the jitted solve: its init, its
+    loop in chunks of iterations whose condition is read on the device,
+    and its finalize.
   - The noise source is an argument, not state: ``noise_fn(iteration,
     active) -> z [d, B, K, N]`` (default: one ``torch.randn`` per iteration
     from an explicit generator, engine/sampling.draw_z); for HMC it returns
@@ -64,7 +66,7 @@ from tpustomp_torch.dynamics.device import DeviceOps
 from tpustomp_torch.engine import graph, pi2
 from tpustomp_torch.engine.chomp import chomp_gradient
 from tpustomp_torch.engine.limits import project_limits
-from tpustomp_torch.engine.sampling import sample_noise_tm
+from tpustomp_torch.engine.sampling import RowNoise, sample_noise_tm
 from tpustomp_torch.engine.trajectory import (full_trajectory, min_jerk_init,
                                               wrap_goal)
 from tpustomp_torch.kernels.rollout import obstacle_cost_batch
@@ -493,6 +495,17 @@ def _init_batch(robot: RobotSpec, cfg: PlannerConfig, Q0, QN, theta0=None):
     return QN, init_state(robot, cfg, Q0, QN, theta0)
 
 
+def state_layout(cfg: PlannerConfig, B: int, d: int) -> tuple:
+    """The (shape, dtype) of every SolverState field init_state makes for
+    B scenarios of d joints (a graphed solve's key, before any state)."""
+    N, Kr = cfg.num_timesteps, cfg.noise.num_rollouts_reused
+    n_m = cfg.max_iterations if cfg.record_metrics else 0
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    return (((B, N, d), f32), ((B,), i32), ((B, N, d), f32), ((B,), f32),
+            ((B,), b), ((B,), i32), ((B,), b), ((B, Kr, N, d), f32),
+            *(((B, n_m), f32),) * 4, ((B, n_m), b))
+
+
 def run_until(step: Step, state: SolverState, it_limit: int, count: int = 0):
     """Advance `state` with `step` until every row is done or the batch
     loop's count reaches `it_limit` (the reference's run_until, which the
@@ -500,10 +513,12 @@ def run_until(step: Step, state: SolverState, it_limit: int, count: int = 0):
     iterations run so far; it is handed on to noise_fn, so a resumed run
     draws what one uninterrupted run would. Returns (state, count).
 
-    On the card each iteration is the draw, one replay of a cached CUDA
-    graph of step.advance (engine/graph.py, the counterpart of JAX's jitted
-    while_loop) and one host sync, the done test. The eager loop, one
-    step(state, count) an iteration and the same sync, runs in the cases
+    On the card the loop replays cached CUDA graphs (engine/graph.py, the
+    counterpart of JAX's jitted while_loop): chunks of iterations, the draw
+    in the graph and the loop's condition read on the device, or, for a
+    noise_fn that cannot be captured, one replay of step.advance an
+    iteration, the draw on the host and the done test. The eager loop, one
+    step(state, count) an iteration and one host sync, runs in the cases
     engine/graph.eager_reason names: on the CPU; under
     utils.tracing.debug_mode, which checks the state after every iteration
     (a second sync); for tensors moved under inference_mode; and inside
@@ -732,11 +747,30 @@ def make_step(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
                               world_batched, constraints, hyper)
 
 
+def _finish(step: Step, state: SolverState, restarts: int = 1) -> Solution:
+    """finalize, and with restarts > 1 the best of each query's restarts
+    (rows restart-minor: b·R + r)."""
+    sols = finalize(step.robot, step.world, step.cfg, step.ops, step.Q0,
+                    step.QN, state, step.constraints)
+    return select_restarts(sols, restarts)
+
+
+def select_restarts(sols: Solution, restarts: int) -> Solution:
+    """[B·R, ...] -> [B, ...]: the best of each query's R restarts (rows
+    restart-minor), select_best's choice; the Solution itself at R = 1."""
+    if restarts == 1:
+        return sols
+    B = sols.trajectory.shape[0] // restarts
+    return select_best(map_tensors(
+        sols, lambda v: v.reshape((B, restarts) + v.shape[1:])))
+
+
 def solve_batch(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
                 Q0: torch.Tensor, QN: torch.Tensor, noise_fn: NoiseFn,
                 theta0: torch.Tensor | None = None,
                 world_batched: bool = False, constraints=None,
-                hyper: HyperParams | None = None) -> Solution:
+                hyper: HyperParams | None = None,
+                restarts: int = 1) -> Solution:
     """Batched planning (BASELINE configs 3 and 4): B scenarios to
     termination, with the STOMP or the CHOMP(-HMC) step by cfg.mode.
 
@@ -752,13 +786,23 @@ def solve_batch(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
     shared.
     constraints: None, one Orientation/PositionConstraint, or a tuple.
     hyper: per-scenario HyperParams (STOMP only), or None for cfg's values.
+    restarts: rows are R = restarts restarts of each query (restart-minor);
+    the Solution has the best of each (select_restarts), [B / R, ...].
+
+    On the card the whole solve replays cached CUDA graphs (graph.solve:
+    solve-in, the loop, solve-out), except in graph.eager_reason's cases.
     """
     _check_batch(cfg, constraints, Q0, world, world_batched, hyper)
-    QN, state = _init_batch(robot, cfg, Q0, QN, theta0)
     step = make_step(robot, world, cfg, ops, Q0, QN, noise_fn,
                      world_batched, constraints, hyper)
+    if graph.eager_reason(step) is None:
+        return graph.solve(step, theta0, restarts,
+                           state_layout(cfg, *Q0.shape), _init_batch,
+                           _finish)[0]
+    QN, state = _init_batch(robot, cfg, Q0, QN, theta0)
+    step = step.over(QN=QN)
     state, _ = run_until(step, state, cfg.max_iterations)
-    return finalize(robot, world, cfg, ops, Q0, QN, state, constraints)
+    return _finish(step, state, restarts)
 
 
 def _gather_world(world, idx: torch.Tensor, world_batched: bool):
@@ -783,16 +827,15 @@ def _put_rows(buf: SolverState, part: SolverState,
         for f in dataclasses.fields(SolverState)})
 
 
-def _row_noise(noise_fn: NoiseFn, rows: torch.Tensor, B: int) -> NoiseFn:
-    """The full batch's noise_fn as the rows `rows` see it: called with the
-    full-B active mask (rows outside `rows` are done) and cut to those
-    rows, so every scenario gets the noise of the uncompacted run, from a
-    generator or a replayed key chain alike."""
-    def fn(iteration, active):
-        full = torch.zeros(B, dtype=torch.bool, device=active.device)
-        return noise_fn(iteration, full.index_copy_(0, rows, active))[:, rows]
-
-    return fn
+def _run_chunk(step: Step, state: SolverState, count: int, chunk: int):
+    """The compacted path's chunk: up to `chunk` more iterations and the
+    host's one read after them, of the done mask (with the count, on the
+    card). Returns (state, count, done mask as numpy)."""
+    if graph.eager_reason(step) is None:
+        return graph.run(step, state, count + chunk, count, k=chunk,
+                         mask=True)
+    state, count = run_until(step, state, count + chunk, count)
+    return state, count, state.done.cpu().numpy()
 
 
 def solve_batch_compacted(robot: RobotSpec, world, cfg: PlannerConfig,
@@ -812,8 +855,12 @@ def solve_batch_compacted(robot: RobotSpec, world, cfg: PlannerConfig,
     rows. Finished rows are written back with index_copy of real rows only
     (there are no pad rows), and the evaluator then sees the smaller B·C.
     noise_fn is still called once per iteration with the full-B active
-    mask and cut to the current rows (_row_noise), so results equal
-    solve_batch's row for row.
+    mask and cut to the current rows (sampling.RowNoise), so results equal
+    solve_batch's row for row. On the card (graph.solve) the full batch's
+    init and finalize are regions of its cache entry, a chunk is one
+    replay of a graph of `chunk` iterations (the full batch's, or its
+    bucket's), and the mask read after it is the host's one read of the
+    chunk.
     """
     if cfg.mode != "stomp":
         raise ValueError("batch compaction is the STOMP batched path; "
@@ -823,30 +870,72 @@ def solve_batch_compacted(robot: RobotSpec, world, cfg: PlannerConfig,
     if min_bucket is None:
         min_bucket = cfg.compaction_min_bucket
     B = Q0.shape[0]
-    QN, buf = _init_batch(robot, cfg, Q0, QN, theta0)
-    rows = None                     # the current batch's rows; None: all B
-    state, count = buf, 0
-    step = make_step_batch_tm(robot, world, cfg, ops, Q0, QN, noise_fn,
+    full = make_step_batch_tm(robot, world, cfg, ops, Q0, QN, noise_fn,
                               world_batched, constraints)
-    while True:
-        state, count = run_until(step, state, count + chunk, count)
-        done = state.done.cpu().numpy()      # the chunk boundary's one read
-        n_active = int((~done).sum())
-        if n_active == 0:
-            break
-        bucket = max(min_bucket, 1 << (n_active - 1).bit_length())
-        if bucket >= done.size:
-            continue                # no win at this size; run on as it is
-        keep = torch.from_numpy(np.flatnonzero(~done)).to(Q0.device)
-        buf = _put_rows(buf, state, rows)
-        rows = keep if rows is None else rows[keep]
-        state = map_tensors(state, lambda v: v[keep])
-        step = make_step_batch_tm(
-            robot, _gather_world(world, rows, world_batched), cfg, ops,
-            Q0[rows], QN[rows], _row_noise(noise_fn, rows, B),
-            world_batched, constraints)
-    buf = _put_rows(buf, state, rows)
-    return finalize(robot, world, cfg, ops, Q0, QN, buf, constraints)
+
+    def compact(state, QN, chunk_of, put, count=0) -> int:
+        """The chunks from the full batch's `state` after `count`
+        iterations, regrouped onto the active rows when their bucket is
+        smaller (QN: the wrapped goals).
+        chunk_of(step, state, count) -> (state, count, done mask) runs a
+        chunk; put(state, rows) writes the current rows back into the full
+        batch (rows None: the state is the full batch). Returns the
+        count."""
+        rows, step = None, full
+        while True:
+            state, count, done = chunk_of(step, state, count)
+            n_active = int((~done).sum())
+            if n_active == 0:
+                break
+            bucket = max(min_bucket, 1 << (n_active - 1).bit_length())
+            if bucket >= done.size:
+                continue            # no win at this size; run on as it is
+            keep = torch.from_numpy(np.flatnonzero(~done)).to(Q0.device)
+            put(state, rows)
+            rows = keep if rows is None else rows[keep]
+            state = map_tensors(state, lambda v: v[keep])
+            step = make_step_batch_tm(
+                robot, _gather_world(world, rows, world_batched), cfg, ops,
+                Q0[rows], QN[rows], RowNoise(noise_fn, rows, B),
+                world_batched, constraints)
+        put(state, rows)
+        return count
+
+    def bucket_chunk(step, state, count):
+        return _run_chunk(step, state, count, chunk)
+
+    if graph.eager_reason(full) is None:
+        # solve-in, chunks, solve-out on the full batch's entry (chunks of
+        # `chunk`); buckets run on their own entries and write their rows
+        # back into the entry's state, which solve-out reads
+        def loop(g, first):
+            def chunk_of(step, state, count):
+                if state is not g.state:
+                    graph.hold(g)
+                    return bucket_chunk(step, state, count)
+                count, done = graph._loop(g, full, count + chunk, count,
+                                          True)
+                return state, count, done
+
+            def put(state, rows):
+                if rows is not None:
+                    for a, b in zip(graph._fields(g.state),
+                                    graph._fields(state)):
+                        a.index_copy_(0, rows, b)
+
+            return compact(g.state, g.QN, chunk_of, put, first)
+
+        return graph.solve(full, theta0, 1, state_layout(cfg, *Q0.shape),
+                           _init_batch, _finish, loop=loop, k=chunk)[0]
+    QN, state = _init_batch(robot, cfg, Q0, QN, theta0)
+    full = full.over(QN=QN)
+    buf = [state]
+
+    def put(state, rows):
+        buf[0] = _put_rows(buf[0], state, rows)
+
+    compact(state, QN, bucket_chunk, put)
+    return _finish(full, buf[0])
 
 
 def select_best(sols: Solution) -> Solution:
