@@ -53,7 +53,10 @@ default):
             sys.path), in the order other, this, this, other: replans/s,
             collision and reached rates; then a torch.profiler window of 3
             ticks after 30: the evaluator's ms per launch and share of the
-            device's kernel time;
+            device's kernel time; then chip_smoke.py phase 13's small
+            episodes on the box tabletop, a fleet of the first 256
+            scenarios and one robot's run_mpc (scenario 0), 20 ticks,
+            median ms a tick of 8 runs after one that captures;
   constrained
             chip_smoke.py phase 8's runs (config 4's 1,024 problems, config
             2's planner at 50 iterations without the early stop, the cone)
@@ -762,6 +765,31 @@ def episodes_worker(label):
             evaluator_ms_per_launch=ev / 1e3 / max(n_ev, 1),
             evaluator_pct_of_kernel_time=100 * ev / max(busy, 1e-9),
             top_kernels_ms_count=sorted(top, reverse=True)[:6])
+    small_episodes(b, label)
+
+
+def small_episodes(b, label, ticks=20, runs=8):
+    """A fleet of the first 256 scenarios (run_mpc_batch) and one robot
+    (run_mpc, scenario 0) on the box tabletop: ms a tick, the median of
+    `runs` episodes after one that captures the tick."""
+    from tpustomp_torch._tensors import map_tensors
+    from tpustomp_torch.engine.mpc import run_mpc
+
+    dev = b.robot.joint_axis.device
+    dt = float(b.spec5["world_dt"])
+    fleet = map_tensors(b.states5, lambda v: v[:256])
+    one = map_tensors(b.states5, lambda v: v[0])
+    cases = {
+        "fleet256": lambda: episode(b, b.world, ticks, fleet)[1],
+        "one_robot": lambda: cs.synced(lambda: run_mpc(
+            b.robot, b.cfg5, one, [0.12], ticks, dt, static_world=b.world,
+            device=dev, generator=torch.Generator(dev).manual_seed(0)))[1],
+    }
+    for name, run in cases.items():
+        run()
+        walls = [run() for _ in range(runs)]
+        say("episodes", world="box", case=name, version=label, ticks=ticks,
+            wall_s=walls, ms_per_tick=1e3 * float(np.median(walls)) / ticks)
 
 
 def profiled(fn):

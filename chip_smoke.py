@@ -2541,6 +2541,272 @@ def mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi,
         device=dev, generator=gen), smi, B=ticks, turns=8, ticks=ticks)
 
 
+def event_ms(fn):
+    """(fn(), ms between CUDA events around it, host ms)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b), 1e3 * (time.perf_counter() - t0)
+
+
+def incremental_tabletop(scene, dev):
+    """The scene's tabletop on its own grid as an IncrementalSDF on `dev`
+    (max_distance 0.5 m, as incremental_phase's)."""
+    from tpustomp_torch.world.edt import (IncrementalSDF,
+                                          occupancy_from_analytic)
+
+    g = scene["grid"]
+    return IncrementalSDF(occupancy_from_analytic(
+        tabletop(scene), g["origin"], tuple(g["shape"]), g["resolution"]),
+        g["origin"], g["resolution"], max_distance=0.5, device=dev)
+
+
+def graph_inputs_phase(label, kernel, changes, run, smi, B):
+    """[graph_inputs:<label>]: run(generator, **inputs) after each change
+    of `changes` (an iterator of (change, its ms, inputs)). The first call
+    captures the entry (three regions); after each later change, first the
+    replay on the cached entry (the new values loaded into its copies, the
+    captured nodes' parameter blocks rewritten where they moved; asserted:
+    no region captured, nothing invalidated, the chunk route, `kernel`
+    launched), then, in alternating order, a forced miss (graph.clear():
+    a capture a change, as before the world was an input) and the eager
+    loop; all three bitwise. Per change: its ms, the three walls, the
+    inputs loaded and nodes rewritten by the replay."""
+    from tpustomp_torch.engine import graph
+    from tpustomp_torch.kernels import rollout
+
+    dev = torch.device("cuda")
+
+    def call(route, inputs):
+        rollout.reset_launches()
+        graph.reset_counts()
+        out, wall = synced(lambda: in_route(route, lambda: run(
+            seeded(dev, 0), **inputs)))
+        return out, wall, dict(graph.GRAPHS), rollout.LAUNCHES.get(kernel, 0)
+
+    graph.clear()
+    rows, prev = [], None
+    for i, (change, change_ms, inputs) in enumerate(changes):
+        if i == 0:
+            prev, wall, g, _ = call("chunk", inputs)
+            assert g.get("captured") == 3, g
+            rows.append(dict(change=change, change_ms=change_ms,
+                             first_wall_s=wall, mean_iterations=float(
+                                 prev.iterations.float().mean())))
+            continue
+        hit, hit_wall, g, n = call("chunk", inputs)
+        assert not g.get("captured") and not g.get("invalidated"), g
+        assert g.get("chunk", 0) > 0 and n > 0, (g, n)
+        res = {}
+        for mode in (("miss", "eager") if i % 2 else ("eager", "miss")):
+            if mode == "miss":
+                graph.clear()
+            res[mode] = call("chunk" if mode == "miss" else "eager", inputs)
+        assert res["miss"][2].get("captured") == 3, res["miss"][2]
+        for mode, (out, *_) in res.items():
+            bad = differing(out, hit)
+            assert not bad, (label, change, mode, bad)
+        rows.append(dict(
+            change=change, change_ms=change_ms, replay_wall_s=hit_wall,
+            miss_wall_s=res["miss"][1], eager_wall_s=res["eager"][1],
+            regions_captured=g.get("captured", 0),
+            inputs_loaded=g.get("inputs_loaded", 0),
+            node_updates=g.get("node_updates", 0),
+            miss_regions_captured=res["miss"][2]["captured"],
+            kernel_launches=n, result_moved=bool(differing(hit, prev)),
+            mean_iterations=float(hit.iterations.float().mean()),
+            bitwise_equal_miss_and_eager=True))
+        prev = hit
+    later = rows[1:]
+    say(f"graph_inputs:{label}", B=B, changes=rows, **{
+        f"median_{m}_wall_s": float(np.median([r[f"{m}_wall_s"]
+                                               for r in later]))
+        for m in ("replay", "miss", "eager")}, card=smi)
+    return rows
+
+
+def graph_inputs_phases(robot, scene, cfg4, cfg_con, q0b, qNb, smi):
+    """Phase 13b, config 4 (B = 1,024) replanned after each change of its
+    world or constraint, on one cached entry (graph_inputs_phase):
+    `config4_grid`, the tabletop as an IncrementalSDF on the card, four
+    edits on the arm's path (set_box, add_points, the box cleared, another
+    cloud); `config4_moved_box`, a 10 cm box on the path moved in a new CPU
+    AnalyticWorld at each call (the README's form); `config4_cone_target`,
+    the cone's target moved at each call."""
+    from tpustomp_torch import OrientationConstraint, ProblemSpec, plan_batch
+    from tpustomp_torch.world.sdf import AnalyticWorld
+
+    prob = ProblemSpec(q0=q0b, qN=qNb)
+    B = q0b.shape[0]
+    inc = incremental_tabletop(scene, robot.joint_axis.device)
+    rng = np.random.default_rng(5)
+    cloud = lambda lo, hi: rng.uniform(lo, hi, (2000, 3))
+
+    def grid_changes():
+        yield "initial", 0.0, dict(world=inc.as_world())
+        # the forearm's path at mid-trajectory passes (0.64, 0.04, 0.94)
+        for change, fn in (
+                ("set_box", lambda: inc.set_box((30, 38, 34), (36, 44, 40),
+                                                True)),
+                ("add_points", lambda: inc.add_points(cloud(
+                    (0.55, -0.3, 0.8), (0.65, -0.2, 0.9)))),
+                ("set_box_cleared", lambda: inc.set_box(
+                    (30, 38, 34), (36, 44, 40), False)),
+                ("add_points_2", lambda: inc.add_points(cloud(
+                    (0.55, 0.2, 0.8), (0.65, 0.3, 0.9))))):
+            _, ms, _ = event_ms(fn)
+            yield change, ms, dict(world=inc.as_world())
+
+    def box_changes():
+        for dy in (0.0, 0.05, -0.05, 0.1, -0.1):
+            world = AnalyticWorld.make(boxes=[
+                *((tuple(b["center"]), tuple(b["half"]))
+                  for b in scene["boxes"]),
+                ((0.64, 0.04 + dy, 0.94), (0.05, 0.05, 0.05))])
+            yield f"box_y{dy:+.2f}", 0.0, dict(world=world)
+
+    def cone_changes():
+        world = tabletop(scene)
+        for tx in (0.0, 0.1, -0.1, 0.2, -0.2):
+            cone = OrientationConstraint.make(
+                axis_local=(0, 0, 1), target_world=(tx, 0.0, 1.0),
+                tolerance=0.25, weight=0.3)
+            yield f"target_x{tx:+.1f}", 0.0, dict(world=world,
+                                                  constraints=cone)
+
+    for label, kernel, changes, cfg in (
+            ("config4_grid", "rollout_grid", grid_changes(), cfg4),
+            ("config4_moved_box", "rollout_analytic", box_changes(), cfg4),
+            ("config4_cone_target", "rollout_analytic:con", cone_changes(),
+             cfg_con)):
+        graph_inputs_phase(label, kernel, changes,
+                           lambda gen, cfg=cfg, **kw: plan_batch(
+                               robot, kw.pop("world"), prob, cfg,
+                               generator=gen, **kw), smi, B)
+
+
+def graph_inputs_mpc_phase(robot, scene, cfg5, spec5, states5, smi,
+                           ticks=20, every=5):
+    """[graph_inputs:config5_grid]: config 5's scenarios over the tabletop
+    as an IncrementalSDF on the card, edited (set_box on the arm's path)
+    every `every` of `ticks` ticks: an episode of run_mpc_batch chunks,
+    one a world. Graphed (one tick entry: captured in the first chunk,
+    asserted), with a forced miss (graph.clear() before each chunk) and
+    eager, in turns; every final state bitwise. ms a tick per mode."""
+    from tpustomp_torch.engine import graph
+    from tpustomp_torch.engine.mpc import run_mpc_batch
+    from tpustomp_torch.kernels import rollout
+
+    dev = robot.joint_axis.device
+    dt = float(spec5["world_dt"])
+    inc = incremental_tabletop(scene, dev)
+    worlds, edit_ms = [inc.as_world()], []
+    for k in range(ticks // every - 1):
+        lo = (30 - 4 * k, 38 + 3 * k, 30)
+        edit_ms.append(event_ms(lambda: inc.set_box(
+            lo, (lo[0] + 4, lo[1] + 4, lo[2] + 6), True))[1])
+        worlds.append(inc.as_world())
+
+    def episode(mode):
+        gen, state = seeded(dev, 0), states5
+        for w in worlds:
+            if mode == "miss":
+                graph.clear()
+            state = in_route("eager" if mode == "eager" else "chunk",
+                             lambda s=state, w=w: run_mpc_batch(
+                                 robot, cfg5, s, [0.12], every, dt,
+                                 static_world=w, device=dev, generator=gen))
+        return state
+
+    graph.clear()
+    walls = {m: [] for m in ("replay", "miss", "eager")}
+    first = None
+    for i, order in enumerate((("replay", "miss", "eager"),
+                               ("eager", "miss", "replay"))):
+        for mode in order:
+            rollout.reset_launches()
+            graph.reset_counts()
+            out, wall = synced(lambda: episode(mode))
+            gr = dict(graph.GRAPHS)
+            if mode == "replay":
+                assert gr.get("captured", 0) == (3 if i == 0 and first is None
+                                                 else 0), gr
+                assert rollout.LAUNCHES.get("rollout_grid:per_cand_overlay",
+                                            0) > 0
+                loaded = gr.get("inputs_loaded", 0)
+            if mode == "miss":
+                assert gr.get("captured") == 3 * len(worlds), gr
+            if first is None:
+                first = out
+            bad = differing(out, first)
+            assert not bad, (mode, bad)
+            walls[mode].append(wall)
+    B5 = states5.q.shape[0]
+    say("graph_inputs:config5_grid", B=B5, ticks=ticks, edit_every=every,
+        edit_ms=edit_ms, inputs_loaded_per_episode=loaded,
+        **{f"{m}_wall_s": w for m, w in walls.items()},
+        **{f"median_{m}_ms_per_tick": 1e3 * float(np.median(w)) / ticks
+           for m, w in walls.items()},
+        regions_captured_after_first=0, bitwise_equal=True, card=smi)
+
+
+def goal_band_graph_phase(label, rollout, robot, world, cfg, q0b, qNb, smi,
+                          band=0.1, turns=8, max_launches=None):
+    """[goal_band:<label>]: a ±band goal band on every joint. Host
+    launches of api.plan._prepare with the band, in a profiler window
+    each (profile_window), eagerly and on the band's cached graph
+    (engine/graph.py goal), beside _prepare without a band; then
+    resolve_goal_tolerance's wall, eager against graphed in turns (p50),
+    the goals bitwise. `max_launches`: the graphed window's bound."""
+    from tpustomp_torch import ProblemSpec
+    from tpustomp_torch.api.plan import _prepare, resolve_goal_tolerance
+    from tpustomp_torch.engine import graph
+
+    dev = robot.joint_axis.device
+    B, d = q0b.shape
+    prob = ProblemSpec(q0=q0b, qN=qNb, goal_tolerance_below=band,
+                       goal_tolerance_above=band)
+    plain = ProblemSpec(q0=q0b, qN=qNb)
+    _prepare(robot, world, prob, cfg, dev, None)         # captures
+    launches = {route: profile_window(rollout, lambda: _prepare(
+        robot, world, prob, cfg, dev, None), route)[1]["host_launches"]
+        for route in ("eager", "chunk")}
+    launches["no_band"] = profile_window(rollout, lambda: _prepare(
+        robot, world, plain, cfg, dev, None), "chunk")[1]["host_launches"]
+    q0t, qNt = (torch.as_tensor(x, device=dev) for x in (q0b, qNb))
+    tol = torch.full((B, d), band, device=dev)
+    walls = {"eager": [], "chunk": []}
+    outs = {}
+    for i in range(turns):
+        for route in (("eager", "chunk") if i % 2 == 0
+                      else ("chunk", "eager")):
+            graph.reset_counts()
+            outs[route], wall = synced(lambda: in_route(
+                route, lambda: resolve_goal_tolerance(
+                    robot, world, cfg, q0t, qNt, tol, tol)))
+            if route == "chunk":
+                assert graph.GRAPHS["replayed"] == 1, dict(graph.GRAPHS)
+                assert not graph.GRAPHS.get("captured"), dict(graph.GRAPHS)
+            walls[route].append(wall)
+    same = bool(torch.equal(outs["eager"], outs["chunk"]))
+    say(f"goal_band:{label}", B=B, band_rad=band,
+        prepare_host_launches_eager=launches["eager"],
+        prepare_host_launches_graphed=launches["chunk"],
+        prepare_host_launches_no_band=launches["no_band"],
+        p50_eager_ms=1e3 * float(np.median(walls["eager"])),
+        p50_graphed_ms=1e3 * float(np.median(walls["chunk"])),
+        eager_wall_s=walls["eager"], graphed_wall_s=walls["chunk"],
+        bitwise_equal=same, card=smi)
+    assert same
+    if max_launches is not None:
+        assert launches["chunk"] <= max_launches, launches
+
+
 # CUDA API calls (runtime cuda*, and their cu* forms) that hand the device
 # work: a profiler window's host launches
 HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -3115,6 +3381,13 @@ def main():
                  cfg_hmc, scene, doc3, q0b, qNb, smi)
     mpc_graph_phases(robot, world, grid, cfg5, spec5, states5, smi)
     host_work_phase(rollout, robot, world, cfg4, q0b, qNb, smi)
+    # --- 13b. the world, the constraints and the goal band as inputs ------
+    graph_inputs_phases(robot, scene, cfg4, cfg_con, q0b, qNb, smi)
+    graph_inputs_mpc_phase(robot, scene, cfg5, spec5, states5, smi)
+    goal_band_graph_phase("config4", rollout, robot, world, cfg4, q0b, qNb,
+                          smi, max_launches=15)
+    goal_band_graph_phase("config2", rollout, robot, world, cfg2,
+                          q0b[:1], qNb[:1], smi)
     launches["rollout_analytic"] += profile_phase(
         rollout, robot, world, cfg4, q0b, qNb, smi)
     mpc_profile_phase(rollout, robot, world, cfg5, spec5, states5, smi)

@@ -1836,9 +1836,9 @@ def test_graphed_tune_and_stream_are_bitwise_eager(cuda_device, api):
 @pytest.mark.cuda
 def test_graph_of_a_world_changed_in_place_is_new(cuda_device):
     """A world changed in place by a torch op between two calls moves its
-    version: the cached graph (which holds the old parameter block) is
-    dropped, a new one is captured, and the result is the eager loop's on
-    the changed world."""
+    version: its new values are loaded into the cached graph's copy and
+    the captured nodes' parameter blocks are rewritten (no capture), and
+    the result is the eager loop's on the changed world."""
     from tpustomp_torch.engine import graph
 
     robot, world = _on_card(tmodel.arm_7dof(),
@@ -1855,8 +1855,10 @@ def test_graph_of_a_world_changed_in_place_is_new(cuda_device):
     world.box_half.mul_(1.25)
     graph.reset_counts()
     got = run()
-    assert graph.GRAPHS["invalidated"] == 1
-    assert graph.GRAPHS["captured"] == 3     # loop, solve-in, solve-out
+    assert graph.GRAPHS["invalidated"] == 0
+    assert graph.GRAPHS["captured"] == 0
+    assert graph.GRAPHS["inputs_loaded"] == 1
+    assert graph.GRAPHS["node_updates"] > 0
     with graph.eager():
         _assert_bitwise(got, run())
     assert not torch.equal(got.cost, before.cost)
@@ -2349,3 +2351,170 @@ def test_padded_draws_launch_nothing(cuda_device):
     assert d_chunk == d_eager and d_eager["padded"] > 0
     assert n_eager == d_eager["used"] + d_eager["padded"]
     assert n_chunk == d_chunk["used"]
+
+
+# --- the world, the constraints and the goal band as graph inputs ----------
+
+def _replans(cuda_device, calls, B=64, seed=5):
+    """plan_batch(robot, world, prob, cfg, **kw) for each (robot, world,
+    kw) of `calls` after the one before, graphed, each against the eager
+    loop on the same inputs: every result bitwise, no capture after the
+    first call, one cache entry. Returns the results."""
+    from tpustomp_torch.engine import graph
+
+    cfg = _graph_config("box")
+    prob = ProblemSpec(*_jittered(B, seed))
+
+    def run(robot, world, kw):
+        return plan_batch(robot, world, prob, cfg, device=cuda_device,
+                          generator=torch.Generator(cuda_device).manual_seed(
+                              0), **kw)
+
+    graph.clear()
+    graph.reset_counts()
+    sols = []
+    for robot, world, kw in calls():
+        got = run(robot, world, kw)
+        if not sols:
+            assert graph.GRAPHS["captured"] == 3
+        assert graph.GRAPHS["captured"] == 3, dict(graph.GRAPHS)
+        assert graph.GRAPHS["invalidated"] == 0
+        with graph.eager():
+            _assert_bitwise(got, run(robot, world, kw))
+        sols.append(got)
+    assert len(graph.cached()) == 1
+    for a, b in zip(sols, sols[1:]):
+        assert not torch.equal(a.cost, b.cost)
+    return sols
+
+
+@pytest.mark.cuda
+def test_graph_replays_an_edited_incremental_sdf(cuda_device):
+    """plan, set_box, plan, add_points, plan on an IncrementalSDF on the
+    card (64x80x48): the grid and the corner table are loaded into the
+    graph's copies, no node is rewritten (origin and resolution stay), and
+    every replan is bitwise the eager loop's on its world."""
+    from tpustomp_torch.engine import graph
+    from tpustomp_torch.world.edt import IncrementalSDF
+
+    origin, shape, res = (-0.2, -1.0, 0.0), (64, 80, 48), 0.025
+    inc = IncrementalSDF(occupancy_from_analytic(
+        AnalyticWorld.make(**_WORLDS["boxes"]), origin, shape, res), origin,
+        res, max_distance=0.5, device=cuda_device)
+    robot = tmodel.arm_7dof().to(cuda_device)
+    pts = np.random.default_rng(0).uniform(
+        (0.5, -0.35, 0.75), (0.7, -0.15, 0.95), (400, 3)).astype(np.float32)
+
+    def calls():
+        yield robot, inc.as_world(), {}
+        inc.set_box((28, 36, 32), (40, 48, 44), True)
+        yield robot, inc.as_world(), {}
+        inc.add_points(pts)
+        yield robot, inc.as_world(), {}
+
+    _replans(cuda_device, calls)
+    assert graph.GRAPHS["inputs_loaded"] == 4
+    assert graph.GRAPHS["node_updates"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["moved_box", "cone_target"])
+def test_graph_replays_new_values_of_the_same_shapes(cuda_device, case):
+    """A box moved in a new CPU AnalyticWorld, or a cone whose target
+    moves, at every call (device="cuda"): one entry, the captured nodes'
+    parameter blocks rewritten (kernels/graph_node.py), every result
+    bitwise the eager loop's."""
+    from tpustomp_torch.engine import graph
+
+    def calls():
+        for s in (0.0, 0.06, -0.08):
+            if case == "moved_box":
+                world = AnalyticWorld.make(boxes=[
+                    *_WORLDS["boxes"]["boxes"],
+                    ((0.64, 0.04 + s, 0.94), (0.05, 0.05, 0.05))])
+                yield tmodel.arm_7dof(), world, {}
+            else:
+                cone = OrientationConstraint.make(
+                    axis_local=(0, 0, 1), target_world=(s, 0.3 * s, 1.0),
+                    tolerance=0.25, weight=0.3)
+                yield (tmodel.arm_7dof(),
+                       AnalyticWorld.make(**_WORLDS["boxes"]),
+                       dict(constraints=cone))
+
+    _replans(cuda_device, calls)
+    assert graph.GRAPHS["node_updates"] > 0
+
+
+@pytest.mark.cuda
+def test_mpc_graph_replays_an_edited_grid(cuda_device):
+    """A config-5 episode (B = 64) in three chunks of 2 ticks whose static
+    grid (an IncrementalSDF on the card) is edited between them: one tick
+    entry, captured in the first chunk, and the episode bitwise the eager
+    one over the same worlds."""
+    from tpustomp_torch.engine import graph
+    from tpustomp_torch.world.edt import IncrementalSDF
+
+    origin, shape, res = (-0.2, -1.0, 0.0), (64, 80, 48), 0.025
+    inc = IncrementalSDF(occupancy_from_analytic(
+        AnalyticWorld.make(**_WORLDS["boxes"]), origin, shape, res), origin,
+        res, max_distance=0.5, device=cuda_device)
+    robot = tmodel.arm_7dof().to(cuda_device)
+    cfg, state0 = _config5(64)
+    worlds = [inc.as_world()]
+    inc.set_box((28, 36, 32), (40, 48, 44), True)
+    worlds.append(inc.as_world())
+    inc.set_box((20, 20, 24), (30, 30, 34), True)
+    worlds.append(inc.as_world())
+
+    def episode():
+        gen, state = torch.Generator(cuda_device).manual_seed(0), state0
+        for world in worlds:
+            state = tmpc.run_mpc_batch(robot, cfg, state, [0.12], 2, 0.1,
+                                       static_world=world,
+                                       device=cuda_device, generator=gen)
+        torch.cuda.synchronize()
+        return state
+
+    graph.clear()
+    graph.reset_counts()
+    got = episode()
+    assert graph.GRAPHS["captured"] == 3, dict(graph.GRAPHS)
+    assert graph.GRAPHS["inputs_loaded"] == 4
+    (entry,) = graph.cached()
+    assert entry["kind"] == "mpc_tick"
+    with graph.eager():
+        _assert_states_bitwise(got, episode())
+
+
+@pytest.mark.cuda
+def test_goal_band_graph_is_bitwise_eager(cuda_device):
+    """resolve_goal_tolerance on its cached graph (kind "goal_band"):
+    [B, d] and [d] bands, new goals and a moved box replay it, each goal
+    bitwise the eager band's."""
+    import tpustomp_torch.api.plan as tplan
+    from tpustomp_torch.engine import graph
+
+    robot = tmodel.arm_7dof().to(cuda_device)
+    cfg = _graph_config("box")
+    B = 64
+    graph.clear()
+    graph.reset_counts()
+    for rows, shift, seed in [(True, 0.0, 1), (True, 0.0, 2),
+                              (True, 0.1, 2), (False, 0.1, 3)]:
+        world = AnalyticWorld.make(boxes=[
+            *_WORLDS["boxes"]["boxes"],
+            ((0.6, shift, 0.9), (0.1, 0.1, 0.1))]).to(cuda_device)
+        q0, qN = (torch.from_numpy(x).to(cuda_device)
+                  for x in _jittered(B, seed))
+        tol = torch.full((B, 7) if rows else (7,), 0.3,
+                         device=cuda_device).expand(B, 7)
+        got = tplan.resolve_goal_tolerance(robot, world, cfg, q0, qN, tol,
+                                           tol)
+        with graph.eager():
+            ref = tplan.resolve_goal_tolerance(robot, world, cfg, q0, qN,
+                                               tol, tol)
+        assert torch.equal(got, ref)
+    assert graph.GRAPHS["captured"] == 1
+    (entry,) = graph.cached()
+    assert entry["kind"] == "goal_band" and entry["replays"] == 3
+

@@ -276,9 +276,10 @@ def test_graphed_solves_are_bitwise_the_eager_loop(emulated, case):
 
 def test_cache_hits_and_misses(emulated):
     """Equal inputs replay the cached graph; a new batch size, config,
-    robot or constraint tensor captures a new one, and a torch write in
-    place (a new _version) drops the stale graph: the result is the eager
-    loop's on the changed world."""
+    robot or constraint captures a new one, and a world written in place
+    by torch (a new _version) replays it with the world's new values
+    loaded into the graph's copy: the result is the eager loop's on the
+    changed world."""
     robot, world, prob = _scene7()
     cfg = PlannerConfig(**_BASE)
     cone = OrientationConstraint.make(axis_local=(0, 0, 1),
@@ -303,8 +304,9 @@ def test_cache_hits_and_misses(emulated):
     assert graph.GRAPHS["captured"] == 15           # a hit
     world.box_half.mul_(1.2)                        # in place
     got = solve()
-    assert graph.GRAPHS["invalidated"] == 1
-    assert graph.GRAPHS["captured"] == 18
+    assert graph.GRAPHS["invalidated"] == 0
+    assert graph.GRAPHS["captured"] == 15           # a hit, its input loaded
+    assert graph.GRAPHS["inputs_loaded"] == 1
     with graph.eager():
         _assert_same(got, solve())
     assert not torch.equal(got.cost, first.cost)
@@ -541,9 +543,11 @@ def test_a_deferred_read_settles_before_the_capture(emulated, monkeypatch,
 
 def test_a_graph_whose_tensors_are_gone_is_dropped(emulated):
     """The cache holds the key's tensors weakly, and the graph's step runs
-    on copies of them (what its kernels read stays with the graph): once
-    a world a graph was captured on is gone, the next call into the cache
-    drops the graph ("dead") and frees its pool."""
+    on copies of them and of the world (what its kernels read stays with
+    the graph): a world that is gone leaves the graph, whose key names
+    only its shapes; once the robot a graph was captured on is gone, the
+    next call into the cache drops the graph ("dead") and frees its
+    pool."""
     robot, world, prob = _scene7()
     plan_batch(robot, world, prob, PlannerConfig(**_BASE), device="cpu",
                generator=_gen())
@@ -554,6 +558,9 @@ def test_a_graph_whose_tensors_are_gone_is_dropped(emulated):
     assert g.step.robot.joint_axis.data_ptr() != robot.joint_axis.data_ptr()
     assert len(graph.cached()) == 1
     del world
+    gc.collect()
+    assert len(graph.cached()) == 1
+    del robot
     gc.collect()
     assert graph.cached() == [] and graph.GRAPHS["dead"] == 1
     assert g.graph.body is None                     # reset

@@ -194,10 +194,12 @@ def test_moving_obstacles_reach_the_graph(emulated):
 
 
 def test_new_static_world_or_robot_gets_a_new_graph(emulated):
-    """The tick's key names the robot, DeviceOps and the static world by
-    identity and version: new objects capture anew, a torch write to the
-    static world drops the stale graph ("invalidated"), and the result is
-    the eager episode on the changed world."""
+    """The tick's key names the robot and DeviceOps by identity and
+    version, the static world by type and shapes: a new robot, or a static
+    world of other shapes, captures anew; a new static world of the same
+    shapes, or one written in place by torch, replays the cached tick with
+    its values loaded into the tick's copy, and the result is the eager
+    episode on that world."""
     state = _states()
     static, robot = _static("analytic"), arm_7dof()
     _episode(robot, state, static)
@@ -205,15 +207,19 @@ def test_new_static_world_or_robot_gets_a_new_graph(emulated):
     assert graph.GRAPHS["captured"] == 3
     other = _static("analytic")
     _episode(robot, state, other)
-    assert graph.GRAPHS["captured"] == 6
+    assert graph.GRAPHS["captured"] == 3            # same shapes: a hit
     other_robot = arm_7dof()
     _episode(other_robot, state, static)
-    assert graph.GRAPHS["captured"] == 9
+    assert graph.GRAPHS["captured"] == 6
     static.box_half.mul_(1.3)                       # in place
     got = _episode(robot, state, static)
-    assert graph.GRAPHS["invalidated"] == 1
-    assert graph.GRAPHS["captured"] == 12
+    assert graph.GRAPHS["invalidated"] == 0
+    assert graph.GRAPHS["captured"] == 6
     _assert_same(got, _eager(lambda: _episode(robot, state, static)))
+    more = AnalyticWorld.make(
+        boxes=_BOXES + [((0.3, 0.4, 0.5), (0.05, 0.05, 0.05))])
+    _episode(robot, state, more)
+    assert graph.GRAPHS["captured"] == 9            # other shapes
 
 
 def test_resilient_recovery_is_bitwise_under_graphs(emulated):

@@ -54,22 +54,35 @@ def _moved(v: torch.Tensor, device) -> torch.Tensor:
     if (out is not v and v.device.type == "cpu" and out.device.type != "cpu"
             and v.numel() <= MIRROR_MAX and v.dtype != torch.bfloat16
             and not out.is_inference()):
-        key = id(out)
-        _MIRRORS[key] = (weakref.ref(out, lambda _, k=key: _MIRRORS.pop(k,
-                                                                        None)),
-                         out._version, v.detach().numpy().copy())
+        _mirror(out, v.detach().numpy().copy())
     return out
+
+
+def _mirror(t: torch.Tensor, mirror) -> None:
+    """`mirror` as t's host copy at t's current version (none if None)."""
+    key = id(t)
+    if mirror is None:
+        _MIRRORS.pop(key, None)
+        return
+    _MIRRORS[key] = (weakref.ref(t, lambda _, k=key: _MIRRORS.pop(k, None)),
+                     t._version, mirror)
 
 
 def _cloned(v: torch.Tensor) -> torch.Tensor:
     out = v.clone()
     mirror = host_mirror(v)
     if mirror is not None:
-        key = id(out)
-        _MIRRORS[key] = (weakref.ref(out, lambda _, k=key: _MIRRORS.pop(k,
-                                                                        None)),
-                         out._version, mirror)
+        _mirror(out, mirror)
     return out
+
+
+def copy_with_mirror(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """src's values into dst, and src's host copy made dst's (none where
+    src has none): a graph's copy of a world loaded from the caller's
+    keeps the host copy its parameter block is filled from
+    (engine/graph.py)."""
+    dst.copy_(src)
+    _mirror(dst, host_mirror(src))
 
 
 def clone_with_mirrors(obj):

@@ -24,6 +24,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -32,7 +33,7 @@ from tpustomp_torch.api.config import PlannerConfig, check_supported
 from tpustomp_torch.api.problem import ProblemSpec, Solution
 from tpustomp_torch.costs.constraints import as_tuple
 from tpustomp_torch.dynamics.device import device_ops
-from tpustomp_torch.engine import solver
+from tpustomp_torch.engine import graph, solver
 from tpustomp_torch.engine.distributed import Mesh, make_mesh
 from tpustomp_torch.engine.sampling import GeneratorNoise, shard_noise
 from tpustomp_torch.engine.trajectory import wrap_goal
@@ -93,8 +94,24 @@ def resolve_goal_tolerance(robot: RobotSpec, world, cfg: PlannerConfig, q0,
     the nearest collision-free candidate by d² to the nominal wins, or, if
     none is free, the one with the largest margin. Plain torch over
     body_positions and sdf, outside any kernel, as in the JAX package.
+    On the card it replays a cached CUDA graph (engine/graph.py ``goal``,
+    the counterpart of JAX's ``_jitted_goal``); eagerly in
+    graph.eager_reason's cases (the CPU, graph.eager(), ...).
     Returns the chosen qN [..., d].
     """
+    u = goal_uniforms(qN.shape[-1])
+    why = graph.eager_reason(SimpleNamespace(
+        robot=robot, world=world, world_batched=False, constraints=(),
+        ops=None, Q0=q0))
+    if why is None:
+        return graph.goal(_band_goal, robot, world, cfg, q0, qN, tol_below,
+                          tol_above, u)
+    return _band_goal(robot, world, cfg, q0, qN, tol_below, tol_above,
+                      u.to(qN.device))
+
+
+def _band_goal(robot, world, cfg, q0, qN, tol_below, tol_above, u):
+    """resolve_goal_tolerance's arithmetic, the uniforms u [64, d] given."""
     qN = wrap_goal(q0, qN, robot.joint_limited)
     lo = qN - tol_below
     hi = qN + tol_above
@@ -102,7 +119,6 @@ def resolve_goal_tolerance(robot: RobotSpec, world, cfg: PlannerConfig, q0,
     lo = torch.where(limited, torch.maximum(lo, robot.joint_lower), lo)
     hi = torch.where(limited, torch.minimum(hi, robot.joint_upper), hi)
     hi = torch.maximum(hi, lo)
-    u = goal_uniforms(qN.shape[-1]).to(qN.device)
     lo_c, hi_c = lo[..., None, :], hi[..., None, :]
     cands = torch.cat([qN[..., None, :], lo_c + u * (hi_c - lo_c)], dim=-2)
     cands = torch.minimum(torch.maximum(cands, lo_c), hi_c)   # [..., 65, d]
@@ -351,28 +367,50 @@ def plan_timed(robot: RobotSpec, world, problem: ProblemSpec,
     and return best-so-far (success=False if no iterate was ever
     collision-free). cfg.num_restarts folds into the batch as in `plan`,
     and select_best runs at finalize. With an ample budget the result
-    equals plan's under the same generator or noise_fn."""
+    equals plan's under the same generator or noise_fn. On the card the
+    init, the chunks and the finalize replay the solve's cached graphs
+    (graph.solve: solve-in, the loop to each chunk's end, solve-out; the
+    counterpart of JAX's ``_jitted_chunk`` and ``_jitted_finalize``)."""
     robot = check_joint_static(robot)
     p = _prepare(robot, world, _one(problem), cfg, device, constraints)
     R = max(1, p.cfg.num_restarts)
     q0, qN = _fold(p)
     solver._check_batch(p.cfg, p.constraints, q0, p.world, False, None)
-    QN, state = solver._init_batch(p.robot, p.cfg, q0, qN)
-    step = solver.make_step(p.robot, p.world, p.cfg, p.ops, q0, QN,
-                            _noise(p.cfg, q0.shape[1], R, p.device,
-                                   generator, noise_fn),
-                            constraints=p.constraints)
+    noise = _noise(p.cfg, q0.shape[1], R, p.device, generator, noise_fn)
+    limit = p.cfg.max_iterations
     deadline = time.monotonic() + p.cfg.planning_time_limit
-    count = 0
-    while True:
-        state, count = solver.run_until(
-            step, state, min(count + chunk_iterations, p.cfg.max_iterations),
-            count)
-        if bool(state.done.all()) or time.monotonic() >= deadline:
-            break
-    sols = solver.finalize(p.robot, p.world, p.cfg, p.ops, q0, QN, state,
-                           p.constraints)
-    sol = map_tensors(solver.select_restarts(sols, R), lambda v: v[0])
+
+    def until(count):
+        """The end of the chunk that holds iteration `count`."""
+        return min((count // chunk_iterations + 1) * chunk_iterations, limit)
+
+    def over(count, done) -> bool:
+        return done or count >= limit or time.monotonic() >= deadline
+
+    step = solver.make_step(p.robot, p.world, p.cfg, p.ops, q0, qN, noise,
+                            constraints=p.constraints)
+    if graph.eager_reason(step) is None:
+        def loop(g, count):
+            while count < limit:
+                end = until(count)
+                count = graph._loop(g, step, end, count)
+                if over(count, count < end):    # stopped early: all done
+                    break
+            return count
+
+        sols = graph.solve(step, None, R,
+                           solver.state_layout(p.cfg, *q0.shape),
+                           solver._init_batch, solver._finish, loop=loop)[0]
+    else:
+        QN, state = solver._init_batch(p.robot, p.cfg, q0, qN)
+        step = step.over(QN=QN)
+        count = 0
+        while count < limit:
+            state, count = solver.run_until(step, state, until(count), count)
+            if over(count, bool(state.done.all())):
+                break
+        sols = solver._finish(step, state, R)
+    sol = map_tensors(sols, lambda v: v[0])
     _maybe_animate(robot, world, sol, cfg)
     return sol
 

@@ -58,31 +58,46 @@ solve shape, and replays them:
   miss run eagerly on the capture stream and are captured after. A
   capture or a replay that raises is an error; nothing falls back.
 - Cache. One entry per step kind, config, state and batch shapes, device,
-  HyperParams or none, loop route (and the draw's shapes and cut), and
-  robot, world, constraints and ``DeviceOps``: their fields other than
-  tensors, and each tensor's identity and version (``_version``), as
-  ``_launch_params`` keys the parameter block. The entry points hand the
-  solver one device copy of equal CPU robots, worlds and constraints
-  (``_tensors.shared_copy``), so calls with objects built on the CPU hit
-  too. The cache holds those tensors weakly: an entry whose tensors are
-  gone is dropped at the next call. At most :data:`LIMIT` entries, least
-  recently used first out; a dropped entry's pools go back to torch's
-  allocator. The compacted path's buckets are entries of their own.
+  HyperParams or none, loop route (and the draw's shapes and cut), the
+  robot and ``DeviceOps`` (their fields other than tensors, and each
+  tensor's identity and version, ``_version``), and the world's and the
+  constraints' types and shapes. The entry points hand the solver one
+  device copy of equal CPU robots, worlds and constraints
+  (``_tensors.shared_copy``). The cache holds the robot's and DeviceOps'
+  tensors weakly: an entry whose tensors are gone is dropped at the next
+  call. At most :data:`LIMIT` entries, least recently used first out; a
+  dropped entry's pools go back to torch's allocator. The compacted
+  path's buckets are entries of their own.
+- Inputs: the world and the constraints, as JAX's jit takes them (every
+  field of a world a traced operand, the Pallas kernel built from counts).
+  A solve copies the shared world's tensors (an AnalyticWorld's four, a
+  grid's grid, packed table, origin and resolution; a composite's grid
+  where the world has rows) and the constraints' into the entry's own
+  copies (:func:`_load_inputs`), each tensor only when it is not the one
+  the copy last took, by identity and version, so a call with the world
+  of the last copies nothing; the copies take their sources' host copies.
+  The kernels read the grid and the corner table through pointers, which
+  stay the copies'. The rest goes in the kernels' by-value parameter
+  block, which a capture holds in each evaluator node: each captured
+  evaluator launch on a block is recorded (kernels/graph_node.py), and
+  after a load every node whose set's block (from the copies' host
+  copies, or one device read) moved gets the new block in the
+  instantiated graph (:func:`_rewrite`; ``GRAPHS["node_updates"]``). A
+  set on the memory path packs its vector inside the graph, from the
+  copies. An IncrementalSDF edited between plans, a moved box, a cone
+  whose target moves: replays, no capture.
 - Per-scenario worlds (``world_batched``: the MPC tick's, a batch's rows
   of ``solve_batch_compacted``). The leaves that carry the row axis (an
   AnalyticWorld's four, a composite's ``overlay``) are inputs of the
   graph, as Q0 and the state are: the key names them by type, shapes and
   dtypes only, and the loads copy them into contiguous static buffers
-  before the first replay of every solve. The rest of the world (a
-  composite's grid and packed table) is keyed by identity and version, as
-  a shared world is.
-- What a graph freezes. The kernels' parameter block is filled on the host
-  at capture and passed by value, and the host's decisions (parameter
-  route, lane plan, joint types) are taken then: from the robot, the
-  shared world and the constraints, which the key names by identity and
-  version, and from shapes. A write that moves no version (through
-  ``.data``, a DLPack alias, a custom CUDA op) is not seen, as it is not
-  by the parameter block itself.
+  before the first replay of every solve. A composite's grid is an input
+  as a shared world is.
+- What a graph freezes. The host's decisions at capture (parameter
+  route, lane plan, joint types) come from the robot, which the key names
+  by identity and version, and from shapes. A write that moves no version
+  (through ``.data``, a DLPack alias, a custom CUDA op) is not seen, as it
+  is not by the parameter block itself.
 - Results never alias the graph: a solve returns copies.
 - Counters. The kernel wrappers count host calls (``rollout.LAUNCHES``,
   ``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``). What a capture added is
@@ -103,7 +118,9 @@ solve shape, and replays them:
 - The MPC tick (engine/mpc.py ``_Tick``) is one cache entry of three
   regions over static buffers: the tick's own work before the solve, this
   module's loop, and its work after the solve; the same lock, LRU,
-  counters and ordering event serve it.
+  counters, inputs and ordering event serve it. So does the goal band
+  (:func:`goal`, api/plan.py resolve_goal_tolerance; JAX's
+  ``_jitted_goal``): one region.
 
 Graphed solves of one process run one at a time (a lock): a graph's static
 buffers hold one solve. A solve loads them only after the work of the last
@@ -122,11 +139,13 @@ import time
 import weakref
 from typing import Callable
 
+import numpy as np
 import torch
 
-from tpustomp_torch._tensors import clone_with_mirrors, map_tensors
+from tpustomp_torch._tensors import (clone_with_mirrors, copy_with_mirror,
+                                     map_tensors)
 from tpustomp_torch.engine.sampling import draw_plan
-from tpustomp_torch.kernels import graph_if, rollout
+from tpustomp_torch.kernels import graph_if, graph_node, rollout
 from tpustomp_torch.robot.model import joint_types_on_host
 from tpustomp_torch.utils import tracing
 from tpustomp_torch.world.sdf import CompositeWorld
@@ -139,8 +158,11 @@ LIMIT = 8
 CHUNK = 8
 
 # Regions captured (a solve's loop, solve-in and solve-out; an MPC tick's
-# three) and replayed; entries evicted (LIMIT), invalidated (a version
-# moved) or dead (a tensor of the key is gone); the iterations each route
+# three; a goal band's one) and replayed; entries evicted (LIMIT),
+# invalidated (a robot's or DeviceOps' version moved) or dead (a tensor of
+# the key is gone); input tensors copied into an entry ("inputs_loaded")
+# and parameter blocks rewritten in captured nodes ("node_updates"); the
+# iterations each route
 # ran ("chunk", "per_iteration:noise_fn", "per_iteration:requested"); the
 # host's reads of the loop's condition ("flag_reads"); and iterations run
 # eagerly by reason: "first_iteration" (the iteration before a capture, or
@@ -195,7 +217,7 @@ def eager_reason(step) -> str | None:
         return "requested"
     if tracing.debug_enabled():
         return "debug_mode"
-    if any(t.is_inference() for t in _keyed(step)[1]):
+    if any(t.is_inference() for t in (*_keyed(step)[1], *_step_inputs(step))):
         return "inference_tensors"
     if not joint_types_on_host(step.robot):
         return "joint_types_on_card"
@@ -220,10 +242,11 @@ def route(step) -> str:
 @dataclasses.dataclass(eq=False, kw_only=True)
 class _Region:
     """One captured region: its CUDA graph, what one replay adds to each
-    counter, and what its capture cost."""
+    counter, its evaluator nodes and what its capture cost."""
 
-    graph: object = None      # torch.cuda.CUDAGraph
+    graph: object = None      # torch.cuda.CUDAGraph (its graph kept)
     counts: tuple = ()        # what one replay adds to each counter
+    nodes: list = dataclasses.field(default_factory=list)  # graph_node.Node
     pool_bytes: int = 0
     capture_ms: float = 0.0
     instantiate_ms: float = 0.0
@@ -290,6 +313,7 @@ class _Graph(_Region):
     enter: dict = dataclasses.field(default_factory=dict)  # theta0? -> _Stage
     leave: dict = dataclasses.field(default_factory=dict)  # restarts -> _Stage
     step: object = None       # the Step over the buffers and copies
+    held: tuple = ()          # (weak ref, version) of the inputs loaded last
     released: object = None   # event after the last solve's use, or None
 
     def iteration(self) -> None:
@@ -422,15 +446,75 @@ def _shared(world, batched: bool):
 def _keyed(step) -> tuple[tuple, list]:
     """(skeleton, tensors): the structure of the step's robot, world,
     constraints and DeviceOps, and the tensors a graph names by identity
-    and version: all of them but a per-scenario world's rows, which it
-    names by type, shapes and dtypes (they are loaded like the state)."""
+    and version, the robot's and DeviceOps'. The world and the constraints
+    are named by type, shapes and dtypes: a shared world's tensors and the
+    constraints' are the graph's inputs (:func:`_inputs`, loaded at each
+    solve), a per-scenario world's rows are loaded like the state."""
     tensors = []
-    rows = _rows(step.world, step.world_batched)
-    skeleton = (_skeleton((step.robot, _shared(step.world,
-                                                step.world_batched),
-                           step.constraints, step.ops), tensors),
-                type(step.world).__qualname__, _skeleton(rows, []))
+    skeleton = (_skeleton((step.robot, step.ops), tensors),
+                _skeleton((_shared(step.world, step.world_batched),
+                           tuple(step.constraints)), []),
+                type(step.world).__qualname__,
+                _skeleton(_rows(step.world, step.world_batched), []))
     return skeleton, tensors
+
+
+def _inputs(world, batched: bool = False, constraints=()) -> list:
+    """The tensors of the shared part of a world (a composite's grid, where
+    the world has rows) and of the constraints, in the skeleton's order:
+    what a call loads into its graph's copies (:func:`_load_inputs`)."""
+    tensors = []
+    _skeleton((_shared(world, batched), tuple(constraints)), tensors)
+    return tensors
+
+
+def _step_inputs(step) -> list:
+    return _inputs(step.world, step.world_batched, step.constraints)
+
+
+def _held(tensors) -> tuple:
+    return tuple((weakref.ref(t), t._version) for t in tensors)
+
+
+def _load_inputs(entry, bufs: list, values: list) -> None:
+    """The caller's shared world and constraints (`values`) into the
+    entry's copies of them (`bufs`), each tensor only where it is not the
+    one the copy last took (by identity and version; entry.held), so a
+    call with the world of the last adds no copy. A copy takes its
+    source's host copy (_tensors.copy_with_mirror). Then every evaluator
+    node of the entry's regions whose parameter block the new values
+    change gets its new block (:func:`_rewrite`); the grid and the corner
+    table are read through pointers, which stay the copies'."""
+    moved = False
+    for i, (buf, v) in enumerate(zip(bufs, values)):
+        if buf is v or (i < len(entry.held) and entry.held[i][0]() is v
+                        and entry.held[i][1] == v._version):
+            continue
+        copy_with_mirror(buf, v)
+        GRAPHS["inputs_loaded"] += 1
+        moved = True
+    entry.held = _held(values)
+    if moved:
+        _rewrite(entry)
+
+
+def _rewrite(entry) -> None:
+    """Each evaluator node of the entry's regions (graph_node.Node) whose
+    set's parameter block (kernels/rollout.py block_params: from the
+    copies' host copies, or one device read) differs from the one it holds
+    gets the new block in the instantiated graph."""
+    blocks = {}
+    for r in entry.regions():
+        for node in r.nodes:
+            robot, world, shared, cons = node.args
+            key = (id(robot), id(world), shared, *map(id, cons))
+            vec = blocks.get(key)
+            if vec is None:
+                vec = blocks[key] = rollout.block_params(*node.args)
+            if not np.array_equal(vec.view(np.uint32),
+                                  node.params.view(np.uint32)):
+                graph_node.rewrite(r.graph.raw_cuda_graph_exec(), node, vec)
+                GRAPHS["node_updates"] += 1
 
 
 def layout(state) -> tuple:
@@ -591,7 +675,10 @@ def _capture(body: Callable[[], None], stream, generator=None):
     `generator` where it is given: (graph, capture ms, instantiate ms,
     pool bytes)."""
     graph_if.load(stream.device)
-    graph = torch.cuda.CUDAGraph()
+    graph_node.load(stream.device)
+    # the captured graph is kept beside the instantiated one: its kernel
+    # nodes are the handles graph_node rewrites
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     if generator is not None:
         graph.register_generator_state(generator)
     reserved = torch.cuda.memory_reserved(stream.device)
@@ -618,7 +705,8 @@ def _capture(body: Callable[[], None], stream, generator=None):
                 torch._C._cuda_endAllocateToPool(*pools[0])
                 graph.body_pool = pools[0]
             t1 = time.perf_counter()
-            graph.capture_end()             # instantiates
+            graph.capture_end()
+            graph.instantiate()
             t2 = time.perf_counter()
     finally:
         _BODY_POOL.reset(token)
@@ -641,8 +729,9 @@ def _record(r: _Region, body: Callable[[], None], device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     before = _snapshot()
-    r.graph, r.capture_ms, r.instantiate_ms, r.pool_bytes = _capture(
-        body, _stream(device), generator)
+    with graph_node.recording(r.nodes):
+        r.graph, r.capture_ms, r.instantiate_ms, r.pool_bytes = _capture(
+            body, _stream(device), generator)
     # the capture launched nothing: its counts move to the replays
     r.counts = tuple({k: c[k] - b[k] for k in c}
                      for c, b in zip(_COUNTERS, before))
@@ -727,6 +816,7 @@ def _buffers(step, state, key, tensors, how: str, k: int = CHUNK,
         world=_static_world(step.world, step.world_batched, own),
         constraints=tuple(map(own, step.constraints)),
         ops=own(step.ops))
+    g.held = _held(_step_inputs(step))
     return g
 
 
@@ -752,9 +842,9 @@ def _release(g, device) -> None:
         g.released.record(torch.cuda.current_stream(device))
 
 
-def _inputs(g: _Graph, step) -> list:
-    """(buffer, value) pairs of what a solve loads besides its state:
-    Q0, HyperParams, world rows and the draw's rows."""
+def _pairs(g: _Graph, step) -> list:
+    """(buffer, value) pairs of what a solve loads besides its state and
+    its inputs: Q0, HyperParams, world rows and the draw's rows."""
     pairs = [(g.Q0, step.Q0)]
     if step.hyper is not None:
         pairs += zip(_fields(g.hyper), _fields(step.hyper))
@@ -768,13 +858,14 @@ def _inputs(g: _Graph, step) -> list:
 
 def _load(g: _Graph, step, state, QN=None) -> None:
     """The solve's state, Q0/QN (QN: the wrapped goal where step.QN is not
-    yet), HyperParams and rows into the static buffers, after the last
-    solve that used them."""
+    yet), HyperParams, rows and inputs into the static buffers and copies,
+    after the last solve that used them."""
     _wait(g, g.Q0.device)
     pairs = [(g.QN, step.QN if QN is None else QN),
-             *zip(_fields(g.state), _fields(state)), *_inputs(g, step)]
+             *zip(_fields(g.state), _fields(state)), *_pairs(g, step)]
     for buf, v in pairs:
         buf.copy_(v)
+    _load_inputs(g, _step_inputs(g.step), _step_inputs(step))
     torch.logical_not(g.state.done, out=g.active)
 
 
@@ -980,6 +1071,86 @@ def run(step, state, it_limit: int, count: int, k: int = CHUNK,
         return (out, *count) if mask else (out, count)
 
 
+@dataclasses.dataclass(eq=False, kw_only=True)
+class _Goal(_Region):
+    """The goal band's graph (api/plan.py resolve_goal_tolerance, JAX's
+    ``_jitted_goal``): one region over static q0, qN, the band's rows and
+    the uniforms, and the entry's copies of the robot and the world; `out`
+    is the chosen goal."""
+
+    key: tuple
+    refs: tuple
+    versions: tuple
+    robot: object
+    world: object
+    cfg: object
+    fn: Callable
+    args: tuple               # q0, qN, below, above, u
+    out: torch.Tensor | None = None
+    held: tuple = ()
+    released: object = None
+
+    def body(self) -> None:
+        self.out = self.fn(self.robot, self.world, self.cfg, *self.args)
+
+    def buffers(self) -> list:
+        return list(self.args)
+
+    def regions(self) -> tuple:
+        return (self,)
+
+    def info(self) -> dict:
+        return dict(kind="goal_band", route=None, k=None,
+                    batch=tuple(self.args[0].shape),
+                    static_bytes=_nbytes(self.buffers(),
+                                         (self.robot, self.world)),
+                    **self.cost(), regions={"goal_band": self.cost()})
+
+
+def goal(fn, robot, world, cfg, q0, qN, below, above, u) -> torch.Tensor:
+    """fn(robot, world, cfg, q0, qN, below, above, u) -> the goal [..., d]
+    (api/plan.py's band) on a cached graph, the counterpart of JAX's
+    ``_jitted_goal``: one entry per robot (by identity and version), world
+    type and shapes, collision threshold and the arguments' shapes. A call
+    copies its arguments (u, the band's uniforms, included: never frozen)
+    and the world's values (_load_inputs) into the entry and replays it;
+    a miss runs fn eagerly on the capture stream, then captures it.
+    Returns the call's own tensor."""
+    tensors = []
+    skeleton = (_skeleton(robot, tensors), _skeleton(world, []))
+    args = (q0, qN, below, above, u)
+    inputs = _inputs(world)
+    key = ("goal_band", skeleton, tuple(map(id, tensors)),
+           cfg.collision_threshold, q0.device,
+           tuple((tuple(v.shape), v.dtype) for v in args))
+    dev = q0.device
+    with _LOCK:
+        _purge()
+        g = _lookup(key, tensors)
+        if g is None:
+            own = clone_with_mirrors
+            g = _Goal(key=key, refs=_refs(key, tensors),
+                      versions=tuple(t._version for t in tensors),
+                      robot=own(robot), world=own(world), cfg=cfg, fn=fn,
+                      args=tuple(torch.empty(v.shape, dtype=v.dtype,
+                                             device=dev).copy_(v)
+                                 for v in args), held=_held(inputs))
+            out = _on(_stream(dev), lambda: fn(g.robot, g.world, cfg,
+                                               *g.args))
+            _make_room()
+            _record(g, g.body, dev)
+            _CACHE[key] = g
+        else:
+            _wait(g, dev)
+            for buf, v in zip(g.args, args):
+                buf.copy_(v)
+            _load_inputs(g, _inputs(g.world), inputs)
+            g.replay()
+            out = g.out.clone()
+        _release(g, dev)
+        return out
+
+
 def _solve_in(g: _Graph, given: bool, init) -> None:
     """solve-in: init (solver._init_batch) from the loaded Q0, goal and
     warm start into the static goal and state."""
@@ -1015,9 +1186,10 @@ def solve(step, theta0, restarts: int, shapes: tuple, init, finish,
         g = _lookup(key, tensors)
         if g is not None and given in g.enter:
             _wait(g, dev)
-            for buf, v in [(g.QN_in, step.QN), *_inputs(g, step),
+            for buf, v in [(g.QN_in, step.QN), *_pairs(g, step),
                            *([(g.theta0, theta0)] if given else [])]:
                 buf.copy_(v)
+            _load_inputs(g, _step_inputs(g.step), _step_inputs(step))
             g.enter[given].replay()
             count = loop(g, 0) if it_limit > 0 else 0
         else:

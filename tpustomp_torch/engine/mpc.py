@@ -21,7 +21,9 @@ Differences from the JAX package, by design:
     ceil(max_iterations / graph.CHUNK) chunk replays whose condition and
     draws are on the device, so an episode makes no host read between its
     load and its copy-out; a caller's noise_fn keeps the draw on the host
-    and one replay and flag read an iteration.
+    and one replay and flag read an iteration. The static world is an
+    input of the tick's graphs (its values loaded at each episode), so a
+    grid edited between chunks of ticks replays the cached tick.
   - `MPCState` carries no PRNG key. Noise is an argument: by default one
     ``torch.randn`` [d, B, K, N] per solver iteration from an explicit
     generator (engine/sampling.draw_z; `_TickDraws`: exactly
@@ -309,8 +311,10 @@ class _Tick:
     into `state` and adds the tick's iterations to `total`. Between ticks
     the state stays in its buffers: an episode loads it once and copies it
     out once. The regions run over the entry's own copies of the robot,
-    DeviceOps and static world, which its key names by identity and
-    version."""
+    DeviceOps and static world: its key names the robot and DeviceOps by
+    identity and version, the static world by type and shapes (its values
+    are loaded into the copy at each episode, engine/graph.py
+    _load_inputs)."""
 
     key: tuple
     refs: tuple
@@ -330,6 +334,7 @@ class _Tick:
     total: torch.Tensor       # int32 []: iterations the ticks ran
     enter: graph._Region = dataclasses.field(default_factory=graph._Region)
     leave: graph._Region = dataclasses.field(default_factory=graph._Region)
+    held: tuple = ()          # the static world's tensors loaded last
     released: object = None
 
     def tick_in(self) -> None:
@@ -377,6 +382,7 @@ def _first_tick(key, tensors, robot, cfg, ops, state, radius, world_dt,
     at tick 1's first draw."""
     own = clone_with_mirrors
     robot, ops = own(robot), own(ops)
+    held = graph._held(graph._inputs(static_world))
     static_world = None if static_world is None else own(static_world)
     state, radius = map_tensors(state, torch.clone), radius.clone()
     dev = state.q.device
@@ -397,7 +403,7 @@ def _first_tick(key, tensors, robot, cfg, ops, state, radius, world_dt,
         radius=radius, loop=loop, n=-(-cfg.max_iterations // loop.k),
         total=torch.zeros((), dtype=torch.int32, device=dev),
         tin=_TickIn(tin.centers.clone(), loop.step.world, loop.Q0,
-                    tin.theta0.clone(), loop.QN, loop.state))
+                    tin.theta0.clone(), loop.QN, loop.state), held=held)
     used = NOISE_DRAWS["used"]
     count = graph._first_solve(loop, step, tin.state, cfg.max_iterations)
     if isinstance(source, _TickDraws) and how == "chunk":
@@ -458,7 +464,8 @@ def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
                                       noise_fn=_TickNoise(source, 0)))
     plan = draw_plan(_TickNoise(source, 0)) if how == "chunk" else None
     tensors = []
-    skeleton = graph._skeleton((robot, static_world, ops), tensors)
+    skeleton = (graph._skeleton((robot, ops), tensors),
+                graph._skeleton(static_world, []))
     shapes = tuple((tuple(v.shape), v.dtype)
                    for v in (*graph._fields(state), radius))
     key = ("mpc_tick", cfg, state.q.device, shapes, skeleton,
@@ -479,6 +486,8 @@ def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
             graph._wait(tick, dev)
             _copy(tick.state, state)
             tick.radius.copy_(radius)
+            graph._load_inputs(tick, graph._inputs(tick.static_world),
+                               graph._inputs(static_world))
             if tick.loop.rows is not None:      # this shard's rows
                 tick.loop.rows.copy_(plan.index(dev))
         if how == "chunk":

@@ -649,6 +649,21 @@ def _launch_params(robot, world, shared: bool, constraints=()):
     return out or ("memory", pack_params(robot, world, constraints))
 
 
+def block_params(robot, world, shared: bool, constraints=()) -> np.ndarray:
+    """The parameter block's vector of a set on "block" or "large_block"
+    (:func:`param_route`) as it stands: from the host copies
+    (:func:`_host_params`), else from one read of :func:`pack_params`'s
+    device vector, ordered after the current stream's work
+    (PARAM_READS["device"]). What engine/graph.py writes into a captured
+    launch's node when the graph's world or constraints take new
+    values."""
+    out = _host_params(robot, world, shared, constraints)
+    if out is None:
+        out = pack_params(robot, world, constraints).cpu().numpy()
+        PARAM_READS["device"] += 1
+    return out
+
+
 def _capturing() -> bool:
     """The current stream is capturing a CUDA graph (engine/graph.py)."""
     return (torch.cuda.is_available()
@@ -926,6 +941,12 @@ def _launch(robot, world, grid, prims, per, full_trajs, dt, clearance,
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if resident is not None:
         return None
+    if route != "memory" and _capturing():
+        # the node's block, rewritten when the graph's world takes new
+        # values (engine/graph.py)
+        from tpustomp_torch.kernels import graph_node
+        graph_node.record(torch.cuda.current_stream(dev), route, params,
+                          (robot, world, shared, con_set))
     LAUNCHES[name] += 1
     PARAM_ROUTES[route] += 1
     LAYOUTS["time_major" if time_major else "candidate_major"] += 1
