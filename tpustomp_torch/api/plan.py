@@ -39,6 +39,7 @@ from tpustomp_torch.engine.sampling import GeneratorNoise, shard_noise
 from tpustomp_torch.engine.trajectory import wrap_goal
 from tpustomp_torch.robot.fk import body_positions
 from tpustomp_torch.robot.model import RobotSpec, check_joint_static
+from tpustomp_torch.utils import tracing
 from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
                                       sdf)
 
@@ -174,6 +175,11 @@ def _prepare(robot, world, problem: ProblemSpec, cfg: PlannerConfig, device,
     """The checks and conversions the entry points share: the supported
     knobs, the device, true fp32 matmuls, the backend, inputs [B, d] on the
     device, the goal band. check_joint_static stays with the public call."""
+    with tracing.span("plan.prepare"):
+        return _prepared(robot, world, problem, cfg, device, constraints)
+
+
+def _prepared(robot, world, problem, cfg, device, constraints) -> _Prepared:
     check_supported(cfg, constraints)
     device = _resolve_device(device)
     solver._check_fp32_matmul(device)
@@ -271,8 +277,11 @@ def plan_batch(robot: RobotSpec, world, problem: ProblemSpec,
     disagrees with its joint arrays plans on the runtime chain, with a
     warning (check_joint_static).
     """
-    return _plan_batch(check_joint_static(robot), world, problem, cfg,
-                       device, generator, noise_fn, constraints)
+    with tracing.request("plan.call") as s:
+        sol = _plan_batch(check_joint_static(robot), world, problem, cfg,
+                          device, generator, noise_fn, constraints)
+        s.set(B=sol.cost.shape[0])
+        return sol
 
 
 def plan_sharded(robot: RobotSpec, world, problem: ProblemSpec,
@@ -304,9 +313,12 @@ def plan_sharded(robot: RobotSpec, world, problem: ProblemSpec,
     """
     if mesh is None:
         mesh = make_mesh(device)
-    return _plan_batch(check_joint_static(robot), world, problem, cfg,
-                       mesh.device, generator, noise_fn, constraints,
-                       hyper=hyper, mesh=mesh)
+    with tracing.request("plan.call") as s:
+        sol = _plan_batch(check_joint_static(robot), world, problem, cfg,
+                          mesh.device, generator, noise_fn, constraints,
+                          hyper=hyper, mesh=mesh)
+        s.set(B=sol.cost.shape[0])
+        return sol
 
 
 def _one(problem: ProblemSpec) -> ProblemSpec:
@@ -323,12 +335,13 @@ def plan(robot: RobotSpec, world, problem: ProblemSpec,
     """Solve one planning query (q0/qN [d]): `plan_batch` at B=1, with the
     batch axis removed from the result. cfg.animate_path /
     animate_endeffector dump figures of the result (_maybe_animate)."""
-    sols = plan_batch(robot, world, _one(problem), cfg, device=device,
-                      generator=generator, noise_fn=noise_fn,
-                      constraints=constraints)
-    sol = map_tensors(sols, lambda v: v[0])
-    _maybe_animate(robot, world, sol, cfg)
-    return sol
+    with tracing.request("plan.call", B=1):
+        sols = plan_batch(robot, world, _one(problem), cfg, device=device,
+                          generator=generator, noise_fn=noise_fn,
+                          constraints=constraints)
+        sol = map_tensors(sols, lambda v: v[0])
+        _maybe_animate(robot, world, sol, cfg)
+        return sol
 
 
 def _maybe_animate(robot, world, sol: Solution, cfg: PlannerConfig):

@@ -11,6 +11,7 @@ from dataclasses import dataclass
 import torch
 
 from tpustomp_torch._tensors import to_device
+from tpustomp_torch.utils import tracing
 
 
 @dataclass(frozen=True)
@@ -60,4 +61,5 @@ class Solution:
     metrics: IterationMetrics | None = None
 
     def to(self, device) -> "Solution":
-        return to_device(self, device)
+        with tracing.request("solution.copy", to=device):
+            return to_device(self, device)

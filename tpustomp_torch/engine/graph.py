@@ -242,8 +242,11 @@ def route(step) -> str:
 @dataclasses.dataclass(eq=False, kw_only=True)
 class _Region:
     """One captured region: its CUDA graph, what one replay adds to each
-    counter, its evaluator nodes and what its capture cost."""
+    counter, its evaluator nodes and what its capture cost. `region` names
+    it in the spans: solve-in, chunk, iteration, solve-out, goal, tick-in,
+    tick-out."""
 
+    region: str = ""
     graph: object = None      # torch.cuda.CUDAGraph (its graph kept)
     counts: tuple = ()        # what one replay adds to each counter
     nodes: list = dataclasses.field(default_factory=list)  # graph_node.Node
@@ -253,7 +256,10 @@ class _Region:
     replays: int = 0
 
     def replay(self) -> None:
-        self.graph.replay()
+        # no CUDA events here: a pair a replay cost ≈ 35 µs of host time on
+        # an H100 host, 2 % of a single query's 8.4 ms; mpc.tick has them
+        with tracing.span("graph.replay", region=self.region):
+            self.graph.replay()
         for c, add in zip(_COUNTERS, self.counts):
             for k, n in add.items():
                 c[k] += n
@@ -315,6 +321,9 @@ class _Graph(_Region):
     step: object = None       # the Step over the buffers and copies
     held: tuple = ()          # (weak ref, version) of the inputs loaded last
     released: object = None   # event after the last solve's use, or None
+
+    def __post_init__(self) -> None:
+        self.region = "chunk" if self.route == "chunk" else "iteration"
 
     def iteration(self) -> None:
         """The per-iteration region: advance, the new state copied into
@@ -484,26 +493,26 @@ def _load_inputs(entry, bufs: list, values: list) -> None:
     source's host copy (_tensors.copy_with_mirror). Then every evaluator
     node of the entry's regions whose parameter block the new values
     change gets its new block (:func:`_rewrite`); the grid and the corner
-    table are read through pointers, which stay the copies'."""
-    moved = False
+    table are read through pointers, which stay the copies'. Returns
+    (tensors copied, nodes rewritten)."""
+    moved = 0
     for i, (buf, v) in enumerate(zip(bufs, values)):
         if buf is v or (i < len(entry.held) and entry.held[i][0]() is v
                         and entry.held[i][1] == v._version):
             continue
         copy_with_mirror(buf, v)
         GRAPHS["inputs_loaded"] += 1
-        moved = True
+        moved += 1
     entry.held = _held(values)
-    if moved:
-        _rewrite(entry)
+    return moved, _rewrite(entry) if moved else 0
 
 
-def _rewrite(entry) -> None:
+def _rewrite(entry) -> int:
     """Each evaluator node of the entry's regions (graph_node.Node) whose
     set's parameter block (kernels/rollout.py block_params: from the
     copies' host copies, or one device read) differs from the one it holds
-    gets the new block in the instantiated graph."""
-    blocks = {}
+    gets the new block in the instantiated graph. Returns how many did."""
+    blocks, n = {}, 0
     for r in entry.regions():
         for node in r.nodes:
             robot, world, shared, cons = node.args
@@ -515,6 +524,8 @@ def _rewrite(entry) -> None:
                                   node.params.view(np.uint32)):
                 graph_node.rewrite(r.graph.raw_cuda_graph_exec(), node, vec)
                 GRAPHS["node_updates"] += 1
+                n += 1
+    return n
 
 
 def layout(state) -> tuple:
@@ -740,6 +751,13 @@ def _record(r: _Region, body: Callable[[], None], device,
     GRAPHS["captured"] += 1
 
 
+def _captured(r: _Region, device, body=None) -> None:
+    """_record of r (its body, or `body`) as a span of its own."""
+    with tracing.span("graph.capture", region=r.region) as s:
+        _record(r, body or r.body, device)
+        s.set(capture_ms=r.capture_ms, instantiate_ms=r.instantiate_ms)
+
+
 def _record_loop(g: _Graph, device) -> None:
     """g's loop region captured: a chunk (its counts become one
     iteration's share, added per iteration run) or one iteration."""
@@ -860,13 +878,15 @@ def _load(g: _Graph, step, state, QN=None) -> None:
     """The solve's state, Q0/QN (QN: the wrapped goal where step.QN is not
     yet), HyperParams, rows and inputs into the static buffers and copies,
     after the last solve that used them."""
-    _wait(g, g.Q0.device)
-    pairs = [(g.QN, step.QN if QN is None else QN),
-             *zip(_fields(g.state), _fields(state)), *_pairs(g, step)]
-    for buf, v in pairs:
-        buf.copy_(v)
-    _load_inputs(g, _step_inputs(g.step), _step_inputs(step))
-    torch.logical_not(g.state.done, out=g.active)
+    with tracing.span("graph.load") as s:
+        _wait(g, g.Q0.device)
+        pairs = [(g.QN, step.QN if QN is None else QN),
+                 *zip(_fields(g.state), _fields(state)), *_pairs(g, step)]
+        for buf, v in pairs:
+            buf.copy_(v)
+        n, updates = _load_inputs(g, _step_inputs(g.step), _step_inputs(step))
+        torch.logical_not(g.state.done, out=g.active)
+        s.set(inputs=n, node_updates=updates)
 
 
 def _settle(g: _Graph, step, state, it_limit: int, count: int):
@@ -912,9 +932,15 @@ def _iterate(g: _Graph, step, it_limit: int, count: int) -> int:
         g.replay()
         count += 1
         GRAPHS["flag_reads"] += 1
-        if count >= it_limit or bool(g.finished):
+        if count >= it_limit or _finished(g):
             GRAPHS[g.route] += count - start
             return count
+
+
+def _finished(g: _Graph) -> bool:
+    """The host's read of the per-iteration loop's condition."""
+    with tracing.span("graph.flag_wait"):
+        return bool(g.finished)
 
 
 class _Reads:
@@ -943,7 +969,8 @@ class _Reads:
     def read(self, posted):
         slot, event = posted
         if event is not None:
-            event.synchronize()
+            with tracing.span("graph.flag_wait"):
+                event.synchronize()
         GRAPHS["flag_reads"] += 1
         go, count = self.g.host[slot].tolist()
         mask = None if self.done is None else self.done[slot].numpy().copy()
@@ -1000,11 +1027,14 @@ def _loop(g: _Graph, step, it_limit: int, count: int, mask: bool = False):
     """g's loop from its loaded state: chunks or per-iteration replays.
     Returns the count, and with mask=True (count, the done mask read with
     the loop's condition)."""
-    if g.route == "chunk":
-        count, done = _chunks(g, step, it_limit, count, mask)
-    else:
-        count = _iterate(g, step, it_limit, count)
-        done = g.state.done.cpu().numpy() if mask else None
+    with tracing.span("graph.loop", route=g.route) as s:
+        start, replays = count, g.replays
+        if g.route == "chunk":
+            count, done = _chunks(g, step, it_limit, count, mask)
+        else:
+            count = _iterate(g, step, it_limit, count)
+            done = g.state.done.cpu().numpy() if mask else None
+        s.set(chunks=g.replays - replays, iterations=count - start)
     return (count, done) if mask else count
 
 
@@ -1018,13 +1048,19 @@ def _ready(g: _Graph, new: bool, step, state, it_limit: int, count: int,
     if new or not _fits(g, state):
         if not new:
             _load(g, step, state, QN)     # Q0/QN/hyper/rows of this solve
-        state, count, over = _settle(g, step, state, it_limit, count)
-        if over:
-            return state, count, True
-        if new:
-            _make_room()
-            _record_loop(g, step.Q0.device)
-            _CACHE[g.key] = g
+        # a cached entry whose layout does not fit settles eagerly and
+        # captures nothing: its iterations stay in the caller's span
+        with (tracing.span("graph.capture", region=g.region) if new
+              else tracing.OFF) as s:
+            state, count, over = _settle(g, step, state, it_limit, count)
+            if over:
+                return state, count, True
+            if new:
+                _make_room()
+                _record_loop(g, step.Q0.device)
+                _CACHE[g.key] = g
+                s.set(capture_ms=g.capture_ms,
+                      instantiate_ms=g.instantiate_ms)
     _load(g, step, state, QN)
     return state, count, False
 
@@ -1036,8 +1072,10 @@ def _first_solve(g: _Graph, step, state, it_limit: int) -> int:
     not the solve ended in them, then replays. Returns the count."""
     count, over = 0, it_limit <= 0
     if not over:
-        state, count, over = _settle(g, step, state, it_limit, 0)
-        _record_loop(g, step.Q0.device)
+        with tracing.span("graph.capture", region=g.region) as s:
+            state, count, over = _settle(g, step, state, it_limit, 0)
+            _record_loop(g, step.Q0.device)
+            s.set(capture_ms=g.capture_ms, instantiate_ms=g.instantiate_ms)
     _load(g, step, state)
     if not over:
         count = _loop(g, step, it_limit, count)
@@ -1053,11 +1091,13 @@ def run(step, state, it_limit: int, count: int, k: int = CHUNK,
     if count >= it_limit or bool(state.done.all()):
         return (state, count, state.done.cpu().numpy()) if mask else (
             state, count)
-    how = route(step)
-    key, tensors = key_of(step, layout(state), how, k)
     with _LOCK:
-        _purge()
-        g = _lookup(key, tensors)
+        with tracing.span("graph.lookup") as s:
+            how = route(step)
+            key, tensors = key_of(step, layout(state), how, k)
+            _purge()
+            g = _lookup(key, tensors)
+            s.set(hit=g is not None)
         new = g is None
         if new:
             g = _buffers(step, state, key, tensors, how, k)
@@ -1078,6 +1118,7 @@ class _Goal(_Region):
     the uniforms, and the entry's copies of the robot and the world; `out`
     is the chosen goal."""
 
+    region: str = "goal"
     key: tuple
     refs: tuple
     versions: tuple
@@ -1125,8 +1166,10 @@ def goal(fn, robot, world, cfg, q0, qN, below, above, u) -> torch.Tensor:
            tuple((tuple(v.shape), v.dtype) for v in args))
     dev = q0.device
     with _LOCK:
-        _purge()
-        g = _lookup(key, tensors)
+        with tracing.span("graph.lookup") as s:
+            _purge()
+            g = _lookup(key, tensors)
+            s.set(hit=g is not None)
         if g is None:
             own = clone_with_mirrors
             g = _Goal(key=key, refs=_refs(key, tensors),
@@ -1138,13 +1181,15 @@ def goal(fn, robot, world, cfg, q0, qN, below, above, u) -> torch.Tensor:
             out = _on(_stream(dev), lambda: fn(g.robot, g.world, cfg,
                                                *g.args))
             _make_room()
-            _record(g, g.body, dev)
+            _captured(g, dev)
             _CACHE[key] = g
         else:
-            _wait(g, dev)
-            for buf, v in zip(g.args, args):
-                buf.copy_(v)
-            _load_inputs(g, _inputs(g.world), inputs)
+            with tracing.span("graph.load") as s:
+                _wait(g, dev)
+                for buf, v in zip(g.args, args):
+                    buf.copy_(v)
+                n, updates = _load_inputs(g, _inputs(g.world), inputs)
+                s.set(inputs=n, node_updates=updates)
             g.replay()
             out = g.out.clone()
         _release(g, dev)
@@ -1177,19 +1222,24 @@ def solve(step, theta0, restarts: int, shapes: tuple, init, finish,
     if loop is None:
         def loop(g, count):
             return _loop(g, step, it_limit, count)
-    how = route(step)
-    key, tensors = key_of(step, shapes, how, k)
     dev = step.Q0.device
     given = theta0 is not None
     with _LOCK:
-        _purge()
-        g = _lookup(key, tensors)
+        with tracing.span("graph.lookup") as s:
+            how = route(step)
+            key, tensors = key_of(step, shapes, how, k)
+            _purge()
+            g = _lookup(key, tensors)
+            s.set(hit=g is not None)
         if g is not None and given in g.enter:
-            _wait(g, dev)
-            for buf, v in [(g.QN_in, step.QN), *_pairs(g, step),
-                           *([(g.theta0, theta0)] if given else [])]:
-                buf.copy_(v)
-            _load_inputs(g, _step_inputs(g.step), _step_inputs(step))
+            with tracing.span("graph.load") as s:
+                _wait(g, dev)
+                for buf, v in [(g.QN_in, step.QN), *_pairs(g, step),
+                               *([(g.theta0, theta0)] if given else [])]:
+                    buf.copy_(v)
+                n, updates = _load_inputs(g, _step_inputs(g.step),
+                                          _step_inputs(step))
+                s.set(inputs=n, node_updates=updates)
             g.enter[given].replay()
             count = loop(g, 0) if it_limit > 0 else 0
         else:
@@ -1212,16 +1262,18 @@ def solve(step, theta0, restarts: int, shapes: tuple, init, finish,
                 count = loop(g, count)
             if given and g.theta0 is None:
                 g.theta0 = theta0.clone()
-            g.enter[given] = _Stage(entry=g, fn=lambda e, t=given: _solve_in(
-                e, t, init))
-            _record(g.enter[given], g.enter[given].body, dev)
+            g.enter[given] = _Stage(
+                region="solve-in", entry=g,
+                fn=lambda e, t=given: _solve_in(e, t, init))
+            _captured(g.enter[given], dev)
         out = g.leave.get(restarts)
         if out is None:
             sol = map_tensors(_on(_stream(dev), lambda: finish(
                 g.step, g.state, restarts)), torch.clone)
             out = g.leave[restarts] = _Stage(
-                entry=g, fn=lambda e, R=restarts: finish(e.step, e.state, R))
-            _record(out, out.body, dev)
+                region="solve-out", entry=g,
+                fn=lambda e, R=restarts: finish(e.step, e.state, R))
+            _captured(out, dev)
         else:
             out.replay()
             sol = map_tensors(out.out, torch.clone)

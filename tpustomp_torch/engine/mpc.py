@@ -59,6 +59,7 @@ from tpustomp_torch.engine.sampling import (DrawPlan, draw_plan, draw_z,
 from tpustomp_torch.engine.trajectory import min_jerk_init, wrap_goal
 from tpustomp_torch.robot.fk import body_positions
 from tpustomp_torch.robot.model import RobotSpec, check_joint_static
+from tpustomp_torch.utils import tracing
 from tpustomp_torch.world.sdf import (AnalyticWorld, CompositeWorld, GridSDF,
                                       sdf)
 
@@ -103,7 +104,8 @@ class MPCState:
     reached_tick: torch.Tensor   # [B] int32 first tick within GOAL_EPS, or -1
 
     def to(self, device) -> "MPCState":
-        return to_device(self, device)
+        with tracing.request("state.copy", to=device):
+            return to_device(self, device)
 
 
 def _f32(x) -> torch.Tensor:
@@ -118,20 +120,23 @@ def init_mpc(robot: RobotSpec, cfg: PlannerConfig, q0, qN, sphere_center,
     batch axes, none for one scenario), on q0's device. The goal is wrapped
     once against q0 (continuous joints), so every replan and the warm-start
     shift share it; the plan starts as the min-jerk trajectory."""
-    q0 = _f32(q0)
-    dev = q0.device
-    qN = wrap_goal(q0, _f32(qN).to(dev), robot.joint_limited.to(dev))
-    batch = q0.shape[:-1]
-    return MPCState(
-        q=q0,
-        qN=qN,
-        theta=min_jerk_init(q0, qN, cfg.num_timesteps),
-        sphere_center=_f32(sphere_center).to(dev),
-        sphere_vel=_f32(sphere_vel).to(dev),
-        steps=torch.zeros(batch, dtype=torch.int32, device=dev),
-        collided=torch.zeros(batch, dtype=torch.bool, device=dev),
-        reached_tick=torch.full(batch, -1, dtype=torch.int32, device=dev),
-    )
+    with tracing.request("mpc.init") as s:
+        q0 = _f32(q0)
+        dev = q0.device
+        qN = wrap_goal(q0, _f32(qN).to(dev), robot.joint_limited.to(dev))
+        batch = q0.shape[:-1]
+        s.set(B=batch.numel(), device=dev)
+        return MPCState(
+            q=q0,
+            qN=qN,
+            theta=min_jerk_init(q0, qN, cfg.num_timesteps),
+            sphere_center=_f32(sphere_center).to(dev),
+            sphere_vel=_f32(sphere_vel).to(dev),
+            steps=torch.zeros(batch, dtype=torch.int32, device=dev),
+            collided=torch.zeros(batch, dtype=torch.bool, device=dev),
+            reached_tick=torch.full(batch, -1, dtype=torch.int32,
+                                    device=dev),
+        )
 
 
 def _shift_warm_start(theta: torch.Tensor, qN: torch.Tensor) -> torch.Tensor:
@@ -332,8 +337,10 @@ class _Tick:
     loop: graph._Graph
     n: int                    # chunk replays a tick
     total: torch.Tensor       # int32 []: iterations the ticks ran
-    enter: graph._Region = dataclasses.field(default_factory=graph._Region)
-    leave: graph._Region = dataclasses.field(default_factory=graph._Region)
+    enter: graph._Region = dataclasses.field(
+        default_factory=lambda: graph._Region(region="tick-in"))
+    leave: graph._Region = dataclasses.field(
+        default_factory=lambda: graph._Region(region="tick-out"))
     held: tuple = ()          # the static world's tensors loaded last
     released: object = None
 
@@ -411,8 +418,8 @@ def _first_tick(key, tensors, robot, cfg, ops, state, radius, world_dt,
         NOISE_DRAWS["used"] = used + count
         source.drawn = count
     graph._on(graph._stream(dev), lambda: tick.tick_out() or ())
-    graph._record(tick.enter, tick.tick_in, dev)
-    graph._record(tick.leave, tick.tick_out, dev)
+    graph._captured(tick.enter, dev, tick.tick_in)
+    graph._captured(tick.leave, dev, tick.tick_out)
     graph._CACHE[key] = tick
     return tick
 
@@ -427,16 +434,18 @@ def _chunk_ticks(tick: _Tick, first: int, num_ticks: int, draws) -> None:
     _skip(g, first * per_tick - draws.drawn)
     g.limit.fill_(tick.cfg.max_iterations)
     tick.total.zero_()
-    for _ in range(first, num_ticks):
-        tick.enter.replay()
-        for _ in range(tick.n):
-            g.replay()
-        # the chunks moved the generator n·k draws; a tick moves per_tick
-        if g.gen.device.type == "cuda":
-            _skip(g, per_tick - tick.n * g.k)
-        else:
-            _skip(g, per_tick - int(g.ctl[1]))
-        tick.leave.replay()
+    for t in range(first, num_ticks):
+        with tracing.span("mpc.tick", device=True, tick=t):
+            tick.enter.replay()
+            for _ in range(tick.n):
+                g.replay()
+            # the chunks moved the generator n·k draws; a tick moves
+            # per_tick
+            if g.gen.device.type == "cuda":
+                _skip(g, per_tick - tick.n * g.k)
+            else:
+                _skip(g, per_tick - int(g.ctl[1]))
+            tick.leave.replay()
 
 
 def _skip(g: graph._Graph, n: int) -> None:
@@ -483,13 +492,16 @@ def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
                                source, how)
             done = 1
         else:
-            graph._wait(tick, dev)
-            _copy(tick.state, state)
-            tick.radius.copy_(radius)
-            graph._load_inputs(tick, graph._inputs(tick.static_world),
-                               graph._inputs(static_world))
-            if tick.loop.rows is not None:      # this shard's rows
-                tick.loop.rows.copy_(plan.index(dev))
+            with tracing.span("mpc.load") as s:
+                graph._wait(tick, dev)
+                _copy(tick.state, state)
+                tick.radius.copy_(radius)
+                n, updates = graph._load_inputs(
+                    tick, graph._inputs(tick.static_world),
+                    graph._inputs(static_world))
+                if tick.loop.rows is not None:      # this shard's rows
+                    tick.loop.rows.copy_(plan.index(dev))
+                s.set(inputs=n, node_updates=updates)
         if how == "chunk":
             if done < num_ticks:
                 _chunk_ticks(tick, done, num_ticks, source)
@@ -499,13 +511,15 @@ def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
                 _skip_source(tick.loop, source, num_ticks, ran)
         else:
             for t in range(done, num_ticks):
-                tick.enter.replay()
-                if cfg.max_iterations > 0:
-                    graph._iterate(tick.loop, dataclasses.replace(
-                        tick.loop.step, noise_fn=_TickNoise(source, t)),
-                        cfg.max_iterations, 0)
-                tick.leave.replay()
-        out = map_tensors(tick.state, torch.clone)
+                with tracing.span("mpc.tick", device=True, tick=t):
+                    tick.enter.replay()
+                    if cfg.max_iterations > 0:
+                        graph._iterate(tick.loop, dataclasses.replace(
+                            tick.loop.step, noise_fn=_TickNoise(source, t)),
+                            cfg.max_iterations, 0)
+                    tick.leave.replay()
+        with tracing.span("mpc.copy_out"):
+            out = map_tensors(tick.state, torch.clone)
         graph._release(tick, dev)
         return out
 
@@ -513,14 +527,15 @@ def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
 def _read_total(tick: _Tick) -> int:
     """The iterations the episode's ticks ran: one read, after the last
     tick, through pinned memory."""
-    host = torch.zeros((), dtype=torch.int32,
-                       pin_memory=tick.total.is_cuda)
-    host.copy_(tick.total, non_blocking=True)
-    if tick.total.is_cuda:
-        event = torch.cuda.Event()
-        event.record()
-        event.synchronize()
-    return int(host)
+    with tracing.span("mpc.total_read"):
+        host = torch.zeros((), dtype=torch.int32,
+                           pin_memory=tick.total.is_cuda)
+        host.copy_(tick.total, non_blocking=True)
+        if tick.total.is_cuda:
+            event = torch.cuda.Event()
+            event.record()
+            event.synchronize()
+        return int(host)
 
 
 def _skip_source(g: graph._Graph, draws, num_ticks: int, ran: int) -> None:
@@ -555,9 +570,10 @@ def _run_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
                               static_world, goal_eps, goal_flush, num_ticks,
                               source)
     for t in range(num_ticks):
-        state = _eager_tick(robot, cfg, ops, state, radius, world_dt,
-                            _TickNoise(source, t), static_world, goal_eps,
-                            goal_flush)
+        with tracing.span("mpc.tick", device=True, tick=t):
+            state = _eager_tick(robot, cfg, ops, state, radius, world_dt,
+                                _TickNoise(source, t), static_world,
+                                goal_eps, goal_flush)
     return state
 
 
@@ -689,35 +705,37 @@ def run_mpc_sharded(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
     same on every rank); noise_fn(tick, iteration, active) is the global
     batch's and gets the global active mask. At world size 1 the result is
     run_mpc_batch's bitwise."""
-    if mesh is None:
-        mesh = make_mesh(device)
-    check_supported(cfg)
-    device = _resolve_device(mesh.device)
-    cfg = resolve_backend(cfg, robot, _probe_world(static_world))
-    robot = check_joint_static(robot)
-    # a robot or static world on the CPU: the copy made for an equal one
-    # before, so repeated episodes replay one cached tick
-    robot, state = shared_copy(robot, device), state.to(device)
-    if static_world is not None:
-        static_world = shared_copy(static_world, device)
-    radius = _f32(sphere_radius).to(device)
-    B, d = state.q.shape
-    lo, hi, total = mesh.rows(B)
-    draws = None
-    if noise_fn is None:
-        if generator is None:
-            generator = torch.Generator(device=device).manual_seed(0)
-        noise_fn = draws = _TickDraws(generator, cfg, d, lo, hi, total,
-                                      device)
-    else:
-        noise_fn = shard_noise(noise_fn, lo, hi, total)
-    ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness, device)
-    state = _run_ticks(robot, cfg, ops, state, radius, world_dt,
-                       static_world, goal_eps, goal_flush, num_ticks,
-                       noise_fn)
-    if draws is not None:
-        draws.finish(num_ticks)
-    return state
+    with tracing.request("mpc.run", ticks=num_ticks) as s:
+        if mesh is None:
+            mesh = make_mesh(device)
+        check_supported(cfg)
+        device = _resolve_device(mesh.device)
+        cfg = resolve_backend(cfg, robot, _probe_world(static_world))
+        robot = check_joint_static(robot)
+        # a robot or static world on the CPU: the copy made for an equal one
+        # before, so repeated episodes replay one cached tick
+        robot, state = shared_copy(robot, device), state.to(device)
+        if static_world is not None:
+            static_world = shared_copy(static_world, device)
+        radius = _f32(sphere_radius).to(device)
+        B, d = state.q.shape
+        s.set(B=B)
+        lo, hi, total = mesh.rows(B)
+        draws = None
+        if noise_fn is None:
+            if generator is None:
+                generator = torch.Generator(device=device).manual_seed(0)
+            noise_fn = draws = _TickDraws(generator, cfg, d, lo, hi, total,
+                                          device)
+        else:
+            noise_fn = shard_noise(noise_fn, lo, hi, total)
+        ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness, device)
+        state = _run_ticks(robot, cfg, ops, state, radius, world_dt,
+                           static_world, goal_eps, goal_flush, num_ticks,
+                           noise_fn)
+        if draws is not None:
+            draws.finish(num_ticks)
+        return state
 
 
 def run_mpc(robot: RobotSpec, cfg: PlannerConfig, state: MPCState,
