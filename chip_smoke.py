@@ -165,6 +165,12 @@ and fails (non-zero exit, no result line) on any error:
      and the device's idle share. The main path's launches are asserted
      equal to the per-iteration route's (MAIN_PATH_LAUNCHES).
 
+  2p. the propose kernel (csrc/propose.cu: the STOMP step's scale, add,
+     clip and both candidate layouts in one pass) against its plain
+     PyTorch version at the config-4 and config-5 shapes: bitwise, kernel
+     and plain ms (CUDA events), its bytes bound; its launches over the
+     config-4 plan_batch and config-5 MPC phases, asserted above 0.
+
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
 and plain ms, the least time the card could take for the same work on the
@@ -347,6 +353,22 @@ def cuda_time_ms(fn, reps):
     return float(np.median(times))
 
 
+def graph_time_ms(fn, reps, calls=10):
+    """Median milliseconds of one fn() over reps replays of a CUDA graph
+    of `calls` back-to-back fn() calls, timed with CUDA events: device
+    time with no host launch cost (fn must be capturable)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    return cuda_time_ms(graph.replay, reps) / calls
+
+
 def tabletop(scene_doc):
     from tpustomp_torch.world.sdf import AnalyticWorld
 
@@ -515,6 +537,67 @@ K4_LAUNCHES = {}
 # Launches of robots with unsorted bodies (the TPU's K1 / K2) of each kernel
 # over the same phases (rollout.BODY_ORDER)
 UNSORTED_LAUNCHES = {}
+# The propose kernel's launches over each plan_batch and MPC phase, by label
+PROPOSE_LAUNCHES = {}
+
+
+def propose_phase(label, robot, B, N, K, Kr, smi, seed=0):
+    """Phase 2p: the propose kernel against its plain version at one
+    shape: θ and the reused rollouts spread past the robot's limits,
+    per-row σ (HyperParams-like), a NaN in θ, in the noise and in a reused
+    rollout. Bitwise (max |Δ| 0, NaNs in place); kernel and plain ms (CUDA
+    events over a captured graph of 10 calls, median of 20 replays) beside
+    the bound of the bytes it must move."""
+    from tpustomp_torch.kernels import propose
+
+    dev = robot.joint_axis.device
+    d = robot.num_joints
+    g = torch.Generator(dev).manual_seed(seed)
+    lo, hi = robot.joint_lower, robot.joint_upper
+    mid, half = (lo + hi) / 2, (hi - lo) / 2
+
+    def spread(*shape):     # ±1.2 of the limits' half-width about their middle
+        u = torch.rand(*shape, d, generator=g, device=dev) * 2.4 - 1.2
+        return mid + half * u
+
+    eps_raw = torch.randn(N, d, B, K, generator=g, device=dev)
+    sigma = 0.2 * torch.rand(B, d, generator=g, device=dev) + 0.05
+    theta, reuse = spread(B, N), spread(B, Kr, N)
+    Q0, QN = spread(B), spread(B)
+    theta[B - 1, N // 2, 1] = float("nan")
+    reuse[0, Kr - 1, 3, 2] = float("nan")
+    eps_raw[1, 2, B // 2, K - 1] = float("nan")
+    args = (eps_raw, sigma, theta, reuse, Q0, QN, lo, hi,
+            robot.joint_limited)
+    before = propose.LAUNCHES["propose"]
+    cand, full = propose.propose(*args)
+    want_cand, want_full = propose.propose_plain(*args)
+    torch.cuda.synchronize()
+    assert propose.LAUNCHES["propose"] == before + 1
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    bitwise = all(torch.equal(bits(a), bits(b)) for a, b in
+                  ((cand, want_cand), (full, want_full)))
+    max_err = max(float((a - b).nan_to_num().abs().max()) for a, b in
+                  ((cand, want_cand), (full, want_full)))
+    nan_in_place = all(torch.equal(a.isnan(), b.isnan()) for a, b in
+                       ((cand, want_cand), (full, want_full)))
+    # device time as the solver's graphs run it: one launch's host time
+    # (≈ 70 µs) would hide the kernel's 3 µs at B = 1
+    ms = graph_time_ms(lambda: propose.propose(*args), 20)
+    plain_ms = graph_time_ms(lambda: propose.propose_plain(*args), 20)
+    read = sum(t.numel() * t.element_size() for t in args)
+    written = 4 * (cand.numel() + full.numel())
+    bound_ms = 1e3 * (read + written) / PEAK_BYTES
+    say(f"propose:{label}", B=B, N=N, K=K, Kr=Kr, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", read_mb=read / 1e6,
+        written_mb=written / 1e6, pct_of_bound=100 * bound_ms / ms,
+        max_abs_err=max_err, bitwise=bitwise, nan_in_place=nan_in_place,
+        card=smi)
+    assert bitwise and nan_in_place and max_err == 0.0, (max_err, bitwise)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
 
 
 def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
@@ -784,8 +867,11 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     B, d = q0b.shape
     T = cfg4.num_timesteps + 2
     dt, clearance = cfg4.dt, cfg4.collision_clearance
+    from tpustomp_torch.kernels import propose
+
     sol, wall, launches = timed_plan_batch(rollout, robot, world, cfg4, q0b,
                                            qNb)
+    PROPOSE_LAUNCHES[label] = propose.LAUNCHES["propose"]
     # the robot and world came to the card by .to(): every launch takes the
     # parameter block, none the memory path
     routes = dict(rollout.PARAM_ROUTES)
@@ -806,7 +892,8 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     say(f"plan_batch:{label}", B=B, wall_s=wall, solves_per_s=B / wall,
         success_rate=success_rate, mean_iterations=float(iters.float().mean()),
         max_iterations=int(iters.max()), kernel_launches=launches,
-        param_routes=routes, layouts=layouts, card=smi)
+        propose_launches=PROPOSE_LAUNCHES[label], param_routes=routes,
+        layouts=layouts, card=smi)
     assert launches.get(kernel, 0) >= int(iters.max()), launches
     assert sum(launches.values()) == launches[kernel], launches
     assert success_rate >= success_floor, success_rate
@@ -1026,6 +1113,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
     from tpustomp_torch._tensors import map_tensors
     from tpustomp_torch.engine import graph, mpc
     from tpustomp_torch.engine.mpc import run_mpc_batch
+    from tpustomp_torch.kernels import propose
 
     dev = robot.joint_axis.device
     B = states.q.shape[0]
@@ -1045,6 +1133,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
                         generator=torch.Generator(dev).manual_seed(0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    PROPOSE_LAUNCHES[label] = propose.LAUNCHES["propose"]
     # the episode replayed its tick's graphs, captured in its first tick
     replayed(graph)
     graphs = dict(graph.GRAPHS)
@@ -1073,7 +1162,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
                               if (reached >= 0).any() else None),
         mean_goal_distance=float((out.q - out.qN).norm(dim=1).mean()),
         kernel_launches=launches, launches_per_tick=launches[variant] / ticks,
-        layouts=layouts,
+        propose_launches=PROPOSE_LAUNCHES[label], layouts=layouts,
         noise_draws_used=draws["used"], noise_draws_padded=draws["padded"],
         padded_draw_mb=draws["padded"] * draw_mb,
         max_obstacle_drift=drift, finite=finite, graph_counts=graphs,
@@ -3040,7 +3129,7 @@ def main():
               "torso_arm_urdf": rollout.chain_of(urdf_robot)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:     # the IF-node helper beside them
-        helper = pool.submit(rollout.build, ("graph_if",))
+        helper = pool.submit(rollout.build, ("graph_if", "propose"))
         rollout.build(chains=tuple(chains.values()))
         helper.result()
     from tpustomp_torch.kernels import graph_if
@@ -3049,6 +3138,7 @@ def main():
         seconds=round(time.perf_counter() - t0, 3),
         libraries=len(rollout.BUILD_SECONDS),
         graph_if_build_seconds=rollout.BUILD_SECONDS.get(("graph_if", None)),
+        propose_build_seconds=rollout.BUILD_SECONDS.get(("propose", None)),
         first_build_seconds={
             f"{src}:{label}": rollout.BUILD_SECONDS.get((src, c))
             for label, c in chains.items() for src in rollout._SOURCES},
@@ -3086,6 +3176,19 @@ def main():
     C = B * (1 + cfg4.num_rollouts + cfg4.noise.num_rollouts_reused)
     T = cfg4.num_timesteps + 2
     dt, clearance = cfg4.dt, cfg4.collision_clearance
+
+    # --- 2p. the propose kernel at the config-4 and config-5 shapes --------
+    B5 = int(spec5["scenarios"])
+    propose_ms = {
+        "config4": propose_phase(
+            "config4", robot, B, cfg4.num_timesteps, cfg4.num_rollouts,
+            cfg4.noise.num_rollouts_reused, smi),
+        "config5": propose_phase(
+            "config5", robot, B5, cfg5.num_timesteps, cfg5.num_rollouts,
+            cfg5.noise.num_rollouts_reused, smi),
+        "config4:B1": propose_phase(
+            "config4:B1", robot, 1, cfg4.num_timesteps, cfg4.num_rollouts,
+            cfg4.noise.num_rollouts_reused, smi)}
 
     # --- 3 / 3g. kernels against plain at the config-4 shape -----------------
     rng = np.random.default_rng(0)
@@ -3287,6 +3390,11 @@ def main():
                                         cfg5, spec5, grid, states5, ticks5,
                                         smi)
     assert rate < 0.5, rate       # the CLI's pass line (tpustomp/cli.py:266)
+    # the main path's STOMP steps went through the propose kernel
+    main_propose = {k: PROPOSE_LAUNCHES[k] for k in
+                    ("config4", "config4_grid", "config5", "config5_grid")}
+    say("propose:main_path", launches=main_propose, ms=propose_ms)
+    assert all(n > 0 for n in main_propose.values()), main_propose
     eight = map_tensors(states5, lambda v: v[:8])
     mpc_cuda_vs_cpu_phase("config5", robot, cfg5, world, eight)
     mpc_cuda_vs_cpu_phase("config5_grid", robot, cfg5, grid, eight)

@@ -212,5 +212,10 @@ def sample_noise_tm(z: torch.Tensor, L: torch.Tensor,
     """Batched TIME-MAJOR draw: z [d, B, K, N], sigma [B, d] (per-scenario
     decay folded in by the caller) -> ε_tm [N, d, B, K], the evaluator's
     layout. Per scenario equal to :func:`sample_noise` transposed."""
-    eps = torch.einsum("nm,dbkm->ndbk", L, z)
-    return eps * sigma.t()[None, :, :, None]
+    return noise_product_tm(z, L) * sigma.t()[None, :, :, None]
+
+
+def noise_product_tm(z: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """L z of a batched time-major draw, before the scale: z [d, B, K, N]
+    -> [N, d, B, K] (the propose kernel, kernels/propose.py, scales it)."""
+    return torch.einsum("nm,dbkm->ndbk", L, z)

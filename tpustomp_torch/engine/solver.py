@@ -66,9 +66,11 @@ from tpustomp_torch.dynamics.device import DeviceOps
 from tpustomp_torch.engine import graph, pi2
 from tpustomp_torch.engine.chomp import chomp_gradient
 from tpustomp_torch.engine.limits import project_limits
-from tpustomp_torch.engine.sampling import RowNoise, sample_noise_tm
+from tpustomp_torch.engine.sampling import (RowNoise, noise_product_tm,
+                                            sample_noise_tm)
 from tpustomp_torch.engine.trajectory import (full_trajectory, min_jerk_init,
                                               wrap_goal)
+from tpustomp_torch.kernels import propose
 from tpustomp_torch.kernels.rollout import obstacle_cost_batch
 from tpustomp_torch.robot.model import RobotSpec
 from tpustomp_torch.utils import tracing
@@ -387,16 +389,13 @@ def _stomp_advance(s: Step):
     dev = Q0.device
     sigma0 = torch.tensor(cfg.noise_stddevs(d), dtype=torch.float32,
                           device=dev)
-    lower, upper, limited = (robot.joint_lower, robot.joint_upper,
-                             robot.joint_limited)
-    bcast = (slice(None), None, None)                   # [d] -> [d, 1, 1]
     w_obs, w_smooth = cfg.weights.obstacle, cfg.weights.smoothness
     w_con, w_tau = cfg.weights.constraint, cfg.weights.torque
-    q0_tm = Q0.t()[:, None, :, None].expand(d, 1, B, C)
-    qN_tm = QN.t()[:, None, :, None].expand(d, 1, B, C)
     rows = torch.arange(B, device=dev)[:, None]
     project = _projector(robot, cfg, ops)
     smooth = cfg.rollout_limit_projection == "smooth"
+    if dev.type == "cuda" and not smooth:
+        propose.load(dev)
     decay_base = cfg.noise.decay if hyper is None else hyper.decay
     # PI²'s h as a device scalar made here, not a host value copied to the
     # device every iteration (no copy may run inside a captured graph)
@@ -411,23 +410,21 @@ def _stomp_advance(s: Step):
         sigma = sigma0[None, :] * decay[:, None]                  # [B, d]
         if hyper is not None:
             sigma = sigma * hyper.noise_scale[:, None]
-        eps_tm = sample_noise_tm(z, ops.L_sample, sigma)          # [N,d,B,K]
         theta_tm = state.theta.permute(1, 2, 0)                   # [N, d, B]
-        cand_tm = torch.cat([theta_tm[..., None],
-                             theta_tm[..., None] + eps_tm,
-                             state.reuse_theta.permute(2, 3, 0, 1)],
-                            dim=3)                                # [N,d,B,C]
         if smooth:      # θ's projection on every candidate, [B·C, N, d]
+            cand_tm = propose.candidates_plain(
+                sample_noise_tm(z, ops.L_sample, sigma), state.theta,
+                state.reuse_theta)                                # [N,d,B,C]
             cand_tm = project(cand_tm.permute(2, 3, 0, 1).reshape(
                 B * C, N, d)).reshape(B, C, N, d).permute(2, 3, 0, 1)
-        else:
-            cand_tm = torch.where(
-                limited[bcast],
-                torch.clamp(cand_tm, lower[bcast], upper[bcast]), cand_tm)
+            full = propose.full_plain(cand_tm, Q0, QN)            # [d,T,B·C]
+        else:           # one kernel: scale, add, clip and both layouts
+            cand_tm, full = propose.propose(
+                noise_product_tm(z, ops.L_sample), sigma, state.theta,
+                state.reuse_theta, Q0, QN, robot.joint_lower,
+                robot.joint_upper, robot.joint_limited)
 
         # --- evaluate: ONE evaluator call over all B·C candidates --------
-        full = torch.cat([q0_tm, cand_tm.permute(1, 0, 2, 3), qN_tm],
-                         dim=1).reshape(d, T, B * C)              # [d,T,B·C]
         outs = _obstacle_rows(
             robot, world, cfg, full,
             row_active=active[:, None].expand(B, C).reshape(B * C),

@@ -210,8 +210,11 @@ _LAUNCH_PARAMS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
+    """Every kernel counter to 0: these and the propose kernel's
+    (kernels/propose.py, which imports this module)."""
+    from tpustomp_torch.kernels import propose
     for counts in (LAUNCHES, PARAM_ROUTES, PARAM_READS, LAYOUTS,
-                   BODY_ORDER):
+                   BODY_ORDER, propose.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
