@@ -1,0 +1,6 @@
+"""Mean CHOMP iterations a query ran, over the traced window's queries
+(Solution.iterations): engine.solver."""
+
+
+def read(t):
+    return t["counts"].get("iterations_mean")

@@ -35,7 +35,10 @@ solve shape, and replays them:
   ("per_iteration:noise_fn"), and of :func:`per_iteration` around an entry
   point ("per_iteration:requested"), for comparisons. The route is chosen
   from the step before anything runs (:func:`route`); neither falls back
-  to the other.
+  to the other. A CHOMP iteration is two regions on this route: its
+  gradient into a static buffer (the grad region, replayed under a
+  ``chomp.grad`` span, whose CUDA events time it) and the update from
+  it; the chunk's bodies keep the whole iteration.
 - Solve-in and solve-out (:func:`solve`, ``solver.solve_batch`` on the
   card): two more regions of the entry, ``_init_batch`` from the loaded
   Q0/QN (and theta0) into the static state, and ``finalize`` (with
@@ -319,6 +322,8 @@ class _Graph(_Region):
     enter: dict = dataclasses.field(default_factory=dict)  # theta0? -> _Stage
     leave: dict = dataclasses.field(default_factory=dict)  # restarts -> _Stage
     step: object = None       # the Step over the buffers and copies
+    grad: torch.Tensor | None = None  # ∇U between a CHOMP iteration's
+    grad_region: object = None        # regions (per-iteration route)
     held: tuple = ()          # (weak ref, version) of the inputs loaded last
     released: object = None   # event after the last solve's use, or None
 
@@ -326,13 +331,17 @@ class _Graph(_Region):
         self.region = "chunk" if self.route == "chunk" else "iteration"
 
     def iteration(self) -> None:
-        """The per-iteration region: advance, the new state copied into
-        the static state, then what the host reads before the next
-        iteration (the draw's active rows, the loop's condition), so it
-        launches nothing of its own for them."""
+        """The per-iteration region: advance (with a grad buffer, CHOMP's
+        update from the gradient the grad region left in it), the new
+        state copied into the static state, then what the host reads
+        before the next iteration (the draw's active rows, the loop's
+        condition), so it launches nothing of its own for them."""
         draws = (self.draws[0] if self.kind == "stomp"
                  else self.draws if self.kind == "hmc" else None)
-        self._advance(draws)
+        if self.grad is None:
+            self._advance(draws)
+        else:
+            self._store(self.step.advance.phases[1](self.state, self.grad))
         torch.logical_not(self.state.done, out=self.active)
         self.finished.copy_(self.state.done.all())
 
@@ -351,7 +360,13 @@ class _Graph(_Region):
         self._go()
 
     def _advance(self, draws) -> None:
-        new = self.step.advance(self.state, draws)
+        self._store(self.step.advance(self.state, draws))
+
+    def _grad(self) -> None:
+        """The grad region: ∇U of the static state into the grad buffer."""
+        self.grad.copy_(self.step.advance.phases[0](self.state.theta))
+
+    def _store(self, new) -> None:
         for f in dataclasses.fields(self.state):
             getattr(self.state, f.name).copy_(getattr(new, f.name))
 
@@ -385,6 +400,7 @@ class _Graph(_Region):
                 self.QN_in, *self.full,
                 *(() if self.rows is None else (self.rows,)),
                 *(() if self.theta0 is None else (self.theta0,)),
+                *(() if self.grad is None else (self.grad,)),
                 *(() if self.hyper is None else _fields(self.hyper)),
                 *(() if rows is None else _fields(rows))]
 
@@ -395,10 +411,13 @@ class _Graph(_Region):
                 self.step.constraints, self.step.ops)
 
     def regions(self) -> tuple:
-        return (self, *self.enter.values(), *self.leave.values())
+        grad = () if self.grad_region is None else (self.grad_region,)
+        return (self, *grad, *self.enter.values(), *self.leave.values())
 
     def info(self) -> dict:
         regions = {"loop": self.cost()}
+        if self.grad_region is not None:
+            regions["grad"] = self.grad_region.cost()
         for given, r in self.enter.items():
             regions["solve_in" + (":theta0" if given else "")] = r.cost()
         for R, r in self.leave.items():
@@ -760,8 +779,13 @@ def _captured(r: _Region, device, body=None) -> None:
 
 def _record_loop(g: _Graph, device) -> None:
     """g's loop region captured: a chunk (its counts become one
-    iteration's share, added per iteration run) or one iteration."""
+    iteration's share, added per iteration run) or one iteration (CHOMP's
+    as two regions, its gradient apart: the grad region)."""
     if g.route != "chunk":
+        if g.grad is not None:
+            g.grad_region = _Stage(region="grad", entry=g,
+                                   fn=_Graph._grad)
+            _record(g.grad_region, g.grad_region.body, device)
         _record(g, g.iteration, device)
         return
     _record(g, g.chunk, device, g.gen)
@@ -834,6 +858,8 @@ def _buffers(step, state, key, tensors, how: str, k: int = CHUNK,
         world=_static_world(step.world, step.world_batched, own),
         constraints=tuple(map(own, step.constraints)),
         ops=own(step.ops))
+    if how != "chunk" and getattr(g.step.advance, "phases", None):
+        g.grad = torch.empty_like(g.state.theta)
     g.held = _held(_step_inputs(step))
     return g
 
@@ -925,10 +951,14 @@ def _settle(g: _Graph, step, state, it_limit: int, count: int):
 def _iterate(g: _Graph, step, it_limit: int, count: int) -> int:
     """Per-iteration replays from g's loaded state until every row is done
     or the count reaches it_limit: each the draw into g's buffers, one
-    replay and the read of the loop's condition. Returns the count."""
+    replay (a CHOMP iteration's grad region first, under a `chomp.grad`
+    span) and the read of the loop's condition. Returns the count."""
     start = count
     while True:
         step.draw_into(count, g.active, g.draws)
+        if g.grad_region is not None:
+            with tracing.span("chomp.grad", device=True):
+                g.grad_region.replay()
         g.replay()
         count += 1
         GRAPHS["flag_reads"] += 1

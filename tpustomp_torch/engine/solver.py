@@ -272,7 +272,9 @@ class Step:
     ~done)``, always run eagerly; ``advance(state, draws)`` is all the rest,
     a function of device tensors alone that reads nothing back to the host
     (engine/graph.py captures it). ``step(state, iteration)`` is one eager
-    iteration, ``advance(state, step.draw(iteration, state.done))``.
+    iteration, ``advance(state, step.draw(iteration, state.done))``; an
+    advance with `phases` (CHOMP's) runs them in turn, the first under a
+    `chomp.grad` span.
 
     kind: "stomp" (the time-major STOMP step), "chomp" or "hmc". draws:
     z [d, B, K, N] for STOMP, (z [d, B, 1, N], u [B]) for HMC, None for
@@ -300,7 +302,13 @@ class Step:
             object.__setattr__(self, "advance", _ADVANCE[self.kind](self))
 
     def __call__(self, state: SolverState, iteration: int) -> SolverState:
-        return self.advance(state, self.draw(iteration, state.done))
+        phases = getattr(self.advance, "phases", None)
+        if phases is None:
+            return self.advance(state, self.draw(iteration, state.done))
+        grad_u, update = phases
+        with tracing.span("chomp.grad", device=True):
+            grad = grad_u(state.theta)
+        return update(state, grad)
 
     def over(self, **fields) -> "Step":
         """This step with its advance built on other fields of the same
@@ -654,14 +662,21 @@ def _chomp_parts(s: Step):
 
 def _chomp_advance(s: Step):
     """advance(state, None) of the CHOMP step `s`: chomp_delta's update,
-    −η·R⁻¹·∇U, capped and projected."""
+    −η·R⁻¹·∇U, capped and projected. Its two phases are
+    `advance.phases`: grad_u(theta) -> ∇U, and update(state, ∇U) -> the
+    new state; the per-iteration loops run them apart, the gradient under
+    a `chomp.grad` span."""
     lr, Rinv = s.cfg.learning_rate, s.ops.Rinv
     cap, _, grad_u, finish, project = _chomp_parts(s)
 
-    def advance(state: SolverState, draws=None) -> SolverState:
-        delta = -lr * (Rinv @ grad_u(state.theta))
+    def update(state: SolverState, grad: torch.Tensor) -> SolverState:
+        delta = -lr * (Rinv @ grad)
         return finish(state, project(state.theta + cap(delta)))
 
+    def advance(state: SolverState, draws=None) -> SolverState:
+        return update(state, grad_u(state.theta))
+
+    advance.phases = (grad_u, update)
     return advance
 
 

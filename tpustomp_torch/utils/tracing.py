@@ -7,7 +7,9 @@
   - `spans()`: record the program's spans inside the block. A span is one
     stage of a public call at a layer's boundary (the plan call's checks
     and copies, a graph's lookup, load, replays and loop, a read of the
-    loop's condition, an MPC episode's ticks): its name, its host start
+    loop's condition, an MPC episode's ticks, the gradient of a CHOMP
+    iteration on a loop of one iteration a replay or an eager loop,
+    `chomp.grad`): its name, its host start
     and end on the profiler trace's clock (`trace_us`), its parent, the
     request it belongs to (one public call: every span under one root)
     and its attributes. A span opened with ``device=True`` also records a
