@@ -94,7 +94,9 @@ and fails (non-zero exit, no result line) on any error:
      torque row);
   9. CHOMP (BASELINE config 3, configs/config3_chomp.yaml): plan on its
      query, plan_batch B = 1024 on jittered problems (success floor 0.9),
-     plan_batch B = 256 with the experiment suite's HMC settings;
+     plan_batch B = 256 with the experiment suite's HMC settings; the
+     CHOMP gradient kernel's launches over the three asserted equal to
+     the iterations run (L + 1 an HMC iteration);
   9c. constrained STOMP and config-3 CHOMP on the card against the CPU run,
      B = 8, under the same noise;
  10. the joint chain (TPU K3/K5 static_joints): the phases above run every
@@ -170,6 +172,13 @@ and fails (non-zero exit, no result line) on any error:
      PyTorch version at the config-4 and config-5 shapes: bitwise, kernel
      and plain ms (CUDA events), its bytes bound; its launches over the
      config-4 plan_batch and config-5 MPC phases, asserted above 0.
+  2c. the CHOMP gradient kernel (csrc/chomp_grad.cu: ∇U's point
+     Jacobians, SDF gradient, curvature term, damped pseudo-inverse and
+     Jᵀ sum in one pass) against its plain PyTorch version at config 3's
+     shape (B 1,024, N 100, two boxes): max |Δ|, kernel and plain ms (CUDA
+     events over a captured graph), the bound from benchmark/lib/
+     roofline.py's peaks, resident blocks per SM, its library's build
+     seconds.
 
 The line before the last is the kernel table as JSON (every kernel with
 its launches on its main path, max |Δ| against its plain version, kernel
@@ -537,8 +546,111 @@ K4_LAUNCHES = {}
 # Launches of robots with unsorted bodies (the TPU's K1 / K2) of each kernel
 # over the same phases (rollout.BODY_ORDER)
 UNSORTED_LAUNCHES = {}
+def chomp_grad_ops(rollout, robot, ns, nx, curvature=True, pinv=True):
+    """Float operations of one waypoint of the CHOMP gradient kernel on
+    the robot's static chain, counted from csrc/chomp_grad.cu: the FK
+    (fk_ops); per body its placement (18), velocity and acceleration (12),
+    speed (6), distance and gradient to each sphere (OPS_SPHERE + 4) and
+    box (OPS_BOX + 6), potential and derivative (6), the curvature term
+    (46; 9 without), the 3x3 adjugate solve (44); per Jacobian column of
+    a body (joints up to its link) the column once (12), its part of
+    J Jᵀ (12) and of Jᵀ f (6) (the column and Jᵀ f alone, 18, without the
+    pseudo-inverse); the epilogue (3 d). What the function needs: the
+    kernel forms each column a second time for Jᵀ f, which is not
+    counted."""
+    from benchmark.lib import roofline
+
+    per_body = (18 + 12 + 6 + 6 + ns * (roofline.OPS_SPHERE + 4)
+                + nx * (roofline.OPS_BOX + 6) + (46 if curvature else 9)
+                + (44 if pinv else 0))
+    columns = sum(link + 1 for link in robot.body_link.tolist())
+    return (fk_ops(rollout, robot) + robot.num_bodies * per_body
+            + columns * (30 if pinv else 18) + 3 * robot.num_joints)
+
+
+def chomp_grad_phase(robot, world, cfg, smi, B=1024, seed=0):
+    """Phase 2c: the CHOMP gradient kernel against its plain version at
+    config 3's shape: θ from config 3's queries ± 0.03 rad along a
+    perturbed path over the table; max |Δ| (absolute, and relative to
+    each row's largest |∇U|); kernel and plain ms (CUDA events over a
+    captured graph of 10 calls, median of 20 replays) beside the bound of
+    its operations and bytes at benchmark/lib/roofline.py's peaks;
+    resident blocks per SM; the library's first build. The plain version
+    is engine/chomp.py's functional mode, the CPU's route."""
+    from benchmark.lib import roofline
+    from tpustomp_torch.costs.smoothness import smoothness_gradient
+    from tpustomp_torch.dynamics.device import device_ops
+    from tpustomp_torch.engine.chomp import obstacle_functional_gradient
+    from tpustomp_torch.engine.trajectory import full_trajectory
+    from tpustomp_torch.kernels import chomp_grad, rollout
+
+    def plain(robot, world, theta, q0, qN, smooth, dt, clearance, w_o, w_s,
+              curvature, pinv, ridge):
+        return w_o * obstacle_functional_gradient(
+            robot, world, full_trajectory(theta, q0, qN), dt, clearance,
+            curvature, pinv, ridge) + w_s * smooth
+
+    dev = robot.joint_axis.device
+    N, d = cfg.num_timesteps, robot.num_joints
+    rng = np.random.default_rng(seed)
+    q0 = (np.asarray([-0.6, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0])
+          + rng.uniform(-0.03, 0.03, (B, d)))
+    qN = (np.asarray([0.4, 0.5, 0.0, -0.8, 0.0, -0.5, 0.0])
+          + rng.uniform(-0.03, 0.03, (B, d)))
+    u = np.linspace(0, 1, N + 2)[1:-1, None]
+    theta = (q0[:, None] + u * (qN - q0)[:, None]
+             + rng.normal(0, 0.1, (B, N, d)))
+    theta[..., 1] += 0.35 * np.sin(np.pi * u[:, 0])
+    theta, q0, qN = (torch.as_tensor(a.astype(np.float32), device=dev)
+                     for a in (theta, q0, qN))
+    ops = device_ops(N, cfg.dt, cfg.smoothness, dev)
+    smooth = smoothness_gradient(ops, theta, q0, qN)
+    args = (robot, world, theta, q0, qN, smooth, cfg.dt,
+            cfg.collision_clearance, cfg.weights.obstacle,
+            cfg.weights.smoothness, True, cfg.use_pseudo_inverse,
+            cfg.pseudo_inverse_ridge_factor)
+    chomp_grad.load(robot, world, theta)
+    build_s = rollout.BUILD_SECONDS.get(
+        ("chomp_grad", rollout.chain_of(robot), chomp_grad._definitions(world)))
+    before = chomp_grad.LAUNCHES["chomp_grad"]
+    got = chomp_grad.functional_gradient(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert chomp_grad.LAUNCHES["chomp_grad"] == before + 1
+    max_abs = float((got - want).abs().max())
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    max_rel = float(((got - want).abs() / scale).max())
+    ms = graph_time_ms(lambda: chomp_grad.functional_gradient(*args), 20)
+    plain_ms = graph_time_ms(lambda: plain(*args), 20)
+    ns = world.sphere_radius.shape[-1]
+    nx = world.box_half.shape[-2]
+    flops = B * (N + 2) * chomp_grad_ops(rollout, robot, ns, nx, True,
+                                         cfg.use_pseudo_inverse)
+    nbytes = 4 * (3 * B * N * d + 2 * B * d)   # θ, S read; ∇U written
+    t_ops = flops / roofline.PEAK_FP32_OPS
+    t_bytes = nbytes / roofline.PEAK_BYTES
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    say("chomp_grad:config3", B=B, N=N, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        gflop=flops / 1e9, mbytes=nbytes / 1e6,
+        pct_of_bound=100 * bound_ms / ms, max_abs_err=max_abs,
+        max_rel_err=max_rel,
+        resident_blocks=chomp_grad.occupancy(robot, world, theta),
+        build_seconds=build_s, card=smi)
+    assert max_rel <= 1e-4, max_rel
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                max_abs_err=max_abs)
+
+
 # The propose kernel's launches over each plan_batch and MPC phase, by label
 PROPOSE_LAUNCHES = {}
+# The CHOMP gradient kernel's launches over each plan and plan_batch phase,
+# and the solver loop's iterations there (the most any row ran), by label
+# ("plan:<label>" for plan)
+CHOMP_GRAD_LAUNCHES = {}
+LOOP_ITERATIONS = {}
 
 
 def propose_phase(label, robot, B, N, K, Kr, smi, seed=0):
@@ -867,11 +979,13 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     B, d = q0b.shape
     T = cfg4.num_timesteps + 2
     dt, clearance = cfg4.dt, cfg4.collision_clearance
-    from tpustomp_torch.kernels import propose
+    from tpustomp_torch.kernels import chomp_grad, propose
 
     sol, wall, launches = timed_plan_batch(rollout, robot, world, cfg4, q0b,
                                            qNb)
     PROPOSE_LAUNCHES[label] = propose.LAUNCHES["propose"]
+    CHOMP_GRAD_LAUNCHES[label] = chomp_grad.LAUNCHES["chomp_grad"]
+    LOOP_ITERATIONS[label] = int(sol.iterations.max())
     # the robot and world came to the card by .to(): every launch takes the
     # parameter block, none the memory path
     routes = dict(rollout.PARAM_ROUTES)
@@ -892,7 +1006,8 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     say(f"plan_batch:{label}", B=B, wall_s=wall, solves_per_s=B / wall,
         success_rate=success_rate, mean_iterations=float(iters.float().mean()),
         max_iterations=int(iters.max()), kernel_launches=launches,
-        propose_launches=PROPOSE_LAUNCHES[label], param_routes=routes,
+        propose_launches=PROPOSE_LAUNCHES[label],
+        chomp_grad_launches=CHOMP_GRAD_LAUNCHES[label], param_routes=routes,
         layouts=layouts, card=smi)
     assert launches.get(kernel, 0) >= int(iters.max()), launches
     assert sum(launches.values()) == launches[kernel], launches
@@ -958,11 +1073,13 @@ def plan_phase(label, kernel, rollout, robot, world, cfg2, scene, smi):
     that the solver loop replayed its CUDA graph."""
     from tpustomp_torch import ProblemSpec, plan
     from tpustomp_torch.engine import graph
+    from tpustomp_torch.kernels import chomp_grad
 
     dev = robot.joint_axis.device
     q0 = np.asarray(scene["q0"], np.float32)
     qN = np.asarray(scene["qN"], np.float32)
     launches0 = rollout.LAUNCHES[kernel]
+    grads0 = chomp_grad.LAUNCHES["chomp_grad"]
     graph.reset_counts()
     t0 = time.perf_counter()
     one = plan(robot, world, ProblemSpec(q0=q0, qN=qN), cfg2, device=dev,
@@ -970,10 +1087,14 @@ def plan_phase(label, kernel, rollout, robot, world, cfg2, scene, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     replayed(graph)
+    key = f"plan:{label}"
+    CHOMP_GRAD_LAUNCHES[key] = chomp_grad.LAUNCHES["chomp_grad"] - grads0
+    LOOP_ITERATIONS[key] = int(one.iterations)
     say(f"plan:{label}", success=bool(one.success),
         restarts=cfg2.num_restarts, iterations=int(one.iterations),
         cost=float(one.cost), wall_s=wall,
-        kernel_launches=rollout.LAUNCHES[kernel] - launches0, card=smi)
+        kernel_launches=rollout.LAUNCHES[kernel] - launches0,
+        chomp_grad_launches=CHOMP_GRAD_LAUNCHES[key], card=smi)
     assert bool(one.success), f"{label} plan failed"
     assert one.trajectory.shape == (cfg2.num_timesteps + 2, 7)
 
@@ -3190,6 +3311,11 @@ def main():
             "config4:B1", robot, 1, cfg4.num_timesteps, cfg4.num_rollouts,
             cfg4.noise.num_rollouts_reused, smi)}
 
+    # --- 2c. the CHOMP gradient kernel at config 3's shape ------------------
+    cfg3 = from_dict(doc3["planner"])
+    chomp_grad_res = chomp_grad_phase(robot, tabletop(doc3["scene"]).to(dev),
+                                      cfg3, smi)
+
     # --- 3 / 3g. kernels against plain at the config-4 shape -----------------
     rng = np.random.default_rng(0)
     lo = robot.joint_lower.cpu().numpy()
@@ -3427,7 +3553,6 @@ def main():
         q0b[:256], qNb[:256], smi, success_floor=0.0)
 
     # --- 9. CHOMP and HMC (config 3) ------------------------------------------
-    cfg3 = from_dict(doc3["planner"])
     world3 = tabletop(doc3["scene"]).to(dev)
     plan_phase("config3", "rollout_analytic", rollout, robot, world3, cfg3,
                doc3["scene"], smi)
@@ -3444,6 +3569,16 @@ def main():
     launches["rollout_analytic"] += plan_batch_phase(
         "config3_hmc", "rollout_analytic", rollout, robot, world3, cfg_hmc,
         q0b[:256], qNb[:256], smi, success_floor=0.0)
+    # the main path's CHOMP gradients went through the kernel: one launch
+    # an iteration, L + 1 an HMC iteration (its leapfrog's forces)
+    per_iteration = {"plan:config3": 1, "config3": 1,
+                     "config3_hmc": cfg_hmc.hmc_leapfrog_steps + 1}
+    main_grads = {k: CHOMP_GRAD_LAUNCHES[k] for k in per_iteration}
+    want_grads = {k: n * LOOP_ITERATIONS[k] for k, n in per_iteration.items()}
+    say("chomp_grad:main_path", launches=main_grads, iterations_times_per=
+        want_grads, ms=chomp_grad_res["ms"])
+    assert main_grads == want_grads, (main_grads, want_grads)
+    assert all(n > 0 for n in main_grads.values()), main_grads
     cuda_vs_cpu_modes_phase("config4_constrained", robot, world,
                             cfg_con.replace(max_iterations=10), q0b, qNb,
                             constraints=cone)
@@ -3578,6 +3713,25 @@ def main():
                 unsorted_bodies_launches=UNSORTED_LAUNCHES[name])
         if name in K4_LAUNCHES:
             rows[-1]["candidate_major_launches"] = K4_LAUNCHES[name]
+    # the CHOMP gradient kernel (replaces no Pallas kernel: the JAX package
+    # computes ∇U in XLA), timed and bounded at config 3's shape (phase 2c);
+    # its launches over the main path's CHOMP plan, plan_batch and HMC
+    rows.append({
+        "name": "chomp_grad",
+        "route": "cuda",
+        "source": "tpustomp_torch/csrc/chomp_grad.cu",
+        "replaces": "tpustomp/engine/chomp.py obstacle_functional_gradient "
+                    "+ chomp_gradient (XLA)",
+        "launches": sum(main_grads.values()),
+        "max_abs_err": chomp_grad_res["max_abs_err"],
+        "ms": chomp_grad_res["ms"],
+        "plain_ms": chomp_grad_res["plain_ms"],
+        "bound_ms": chomp_grad_res["bound_ms"],
+        "bound_by": chomp_grad_res["bound_by"],
+        "library_ms": None,
+        "runtime_ms": None,
+        "static_vs_runtime_max_abs": None,
+    })
     # the chunk route counts the iterations that ran, as the per-iteration
     # replays and the eager loop did: the main path's launches are theirs
     # (K3, K5, K3-pcw, K5-pco, :con; K4 in brackets)

@@ -205,9 +205,8 @@ def test_exact_and_chomp_gradients_match_jax():
         ref = J(lambda t, x, y: jchomp.chomp_delta(
             ops_j, jr, jw, t, x, y, jnp.concatenate([x[None], t, y[None]]),
             _DT, 0.05, 20.0, 0.1, 0.6, constraints=jc, **kw))
-        got = tchomp.chomp_delta(ops, robot, world, th, a, c,
-                                 torch.from_numpy(full), _DT, 0.05, 20.0,
-                                 0.1, 0.6, constraints=tc, **kw)
+        got = tchomp.chomp_delta(ops, robot, world, th, a, c, _DT, 0.05,
+                                 20.0, 0.1, 0.6, constraints=tc, **kw)
         _close(got, ref)
 
 

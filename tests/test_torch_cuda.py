@@ -2010,6 +2010,38 @@ def test_graphed_solution_survives_the_next_replay(cuda_device):
     assert torch.equal(first.metrics.total_cost, kept[2])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [512, 4])
+def test_solution_to_the_host_is_pinned_and_bitwise(cuda_device, B):
+    """Solution.to("cpu") from the card copies a batch's answer (B = 512:
+    1.5 MB) through page-locked memory and one query's few KB (B = 4)
+    pageable: every field, the nested metrics too, bitwise the pageable
+    copy of each tensor, pinned where the answer is large."""
+    from tpustomp_torch._tensors import PINNED_MIN_BYTES, to_device
+
+    robot, world = _on_card(tmodel.arm_7dof(),
+                            AnalyticWorld.make(**_WORLDS["boxes"]),
+                            cuda_device)
+    sol = plan_batch(robot, world, ProblemSpec(*_jittered(B, 3)),
+                     _graph_config("box"),
+                     generator=torch.Generator(cuda_device).manual_seed(3))
+    pinned = sol.trajectory.numel() * 4 >= PINNED_MIN_BYTES
+    assert pinned == (B == 512)
+    host, pageable = sol.to("cpu"), to_device(sol, "cpu")
+    fields = [(host, pageable)]
+    while fields:
+        a, b = fields.pop()
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, torch.Tensor):
+                assert x.device.type == "cpu", f.name
+                assert x.is_pinned() == pinned, f.name
+                assert x.dtype == y.dtype and torch.equal(x, y), f.name
+            elif dataclasses.is_dataclass(x):
+                fields.append((x, y))
+    assert host.metrics is not None
+
+
 # --- the MPC tick's CUDA graphs (engine/mpc.py _Tick) ----------------------
 
 def _config5(B, seed=0):

@@ -86,6 +86,20 @@ def test_solution_with_metrics_and_numbers_roundtrip(tmp_path):
         checkpoint.save(path, {"bad": object()})
 
 
+def test_solution_to_the_host_on_the_cpu_is_itself():
+    """Solution.to("cpu") of a solution made on the CPU hands back its own
+    tensors, as before the pinned copy from the card."""
+    cfg = PlannerConfig(num_timesteps=8, num_rollouts=4, max_iterations=3,
+                        record_metrics=True)
+    prob = ProblemSpec(q0=np.zeros((2, 2), np.float32),
+                       qN=np.ones((2, 2), np.float32))
+    sol = plan_batch(planar_2r(), _SPHERE, prob, cfg, device="cpu")
+    host = sol.to("cpu")
+    assert host.trajectory is sol.trajectory
+    assert host.metrics.total_cost is sol.metrics.total_cost
+    _equal(host, sol)
+
+
 def _mpc_setup():
     robot = planar_2r(body_radius=0.05)
     cfg = PlannerConfig(

@@ -97,6 +97,46 @@ def to_device(obj, device):
     return map_tensors(obj, lambda v: _moved(v, device))
 
 
+# to_host's least bytes of CUDA tensors for the pinned copy: below it (one
+# query's answer, a few KB) the pageable copies cost less than the pinned
+# allocations and their events
+PINNED_MIN_BYTES = 1 << 20
+
+
+def to_host(obj):
+    """`obj` with every tensor on the host. When its CUDA tensors hold
+    PINNED_MIN_BYTES or more, each is copied into page-locked memory from
+    torch's caching host allocator, the copies queued on their device's
+    current stream, then one wait for them: a pageable copy is staged by
+    CUDA through a bounce buffer and waits at every tensor (8.5 MB of a
+    CHOMP batch's answer: 3-13 ms against 0.33 ms pinned on an H100).
+    Else as :func:`to_device`. The values are the same."""
+    size = 0
+
+    def count(v):
+        nonlocal size
+        if v.device.type == "cuda":
+            size += v.numel() * v.element_size()
+        return v
+
+    map_tensors(obj, count)
+    if size < PINNED_MIN_BYTES:
+        return to_device(obj, "cpu")
+    streams = {}
+
+    def down(v):
+        if v.device.type != "cuda":
+            return v.to("cpu")
+        streams[v.device] = torch.cuda.current_stream(v.device)
+        return torch.empty(v.shape, dtype=v.dtype,
+                           pin_memory=True).copy_(v, non_blocking=True)
+
+    out = map_tensors(obj, down)
+    for stream in streams.values():
+        stream.synchronize()
+    return out
+
+
 # Device copies that shared_copy made of CPU objects (robots, worlds,
 # constraints handed to the entry points): value key -> (weak references
 # to the large CPU tensors it names by identity, the copy). At most

@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from tpustomp_torch._tensors import to_device
+from tpustomp_torch._tensors import to_device, to_host
 from tpustomp_torch.utils import tracing
 
 
@@ -61,5 +61,10 @@ class Solution:
     metrics: IterationMetrics | None = None
 
     def to(self, device) -> "Solution":
+        """This solution on `device`; to the host from the card through
+        page-locked memory when it is large (_tensors.to_host: a batch's
+        answer), so those tensors are pinned."""
         with tracing.request("solution.copy", to=device):
+            if torch.device(device).type == "cpu":
+                return to_host(self)
             return to_device(self, device)

@@ -4,11 +4,14 @@
 Every function takes a leading scenario axis written out: theta [B, N, d],
 q0/qN [B, d], full trajectories [B, T, d].
 
-The JAX package computes these gradients in XLA, outside any Pallas kernel,
-and so does the port, in plain PyTorch, on the CPU and on the card alike:
+The JAX package computes these gradients in XLA, outside any Pallas kernel.
+The port computes
 - the functional gradient (A.11) from FK Jacobians (robot/fk.py) and the
   SDF gradient (world/sdf.py ``sdf_grad``), optionally mapped through the
-  damped Jacobian pseudo-inverse (``_dls_solve3``, a closed-form 3×3 solve);
+  damped Jacobian pseudo-inverse (``_dls_solve3``, a closed-form 3×3 solve):
+  in plain PyTorch here (:func:`obstacle_functional_gradient`, the CPU's
+  route), and on the card in one kernel with the smoothness term added
+  (kernels/chomp_grad.py, held to this version);
 - the exact gradients, which differentiate the plain ``obstacle_cost``,
   ``constraint_cost`` and ``torque_cost`` with ``torch.autograd``, as the
   reference differentiates them with ``jax.grad``. No evaluator kernel has
@@ -27,6 +30,7 @@ from tpustomp_torch.costs.obstacle import (obstacle_cost, potential,
 from tpustomp_torch.costs.smoothness import smoothness_gradient
 from tpustomp_torch.costs.torque import torque_cost
 from tpustomp_torch.engine.trajectory import full_trajectory
+from tpustomp_torch.kernels import chomp_grad
 from tpustomp_torch.robot.fk import body_pos_jac_traj
 from tpustomp_torch.robot.model import RobotSpec
 from tpustomp_torch.world.sdf import safe_norm, sdf_grad
@@ -137,8 +141,8 @@ def exact_extra_gradient(robot: RobotSpec, theta: torch.Tensor,
 
 
 def chomp_gradient(ops, robot: RobotSpec, world, theta: torch.Tensor,
-                   q0: torch.Tensor, qN: torch.Tensor,
-                   full_traj: torch.Tensor, dt: float, clearance: float,
+                   q0: torch.Tensor, qN: torch.Tensor, dt: float,
+                   clearance: float,
                    w_obstacle: float, w_smoothness: float,
                    use_curvature: bool = True,
                    use_pseudo_inverse: bool = False,
@@ -150,16 +154,23 @@ def chomp_gradient(ops, robot: RobotSpec, world, theta: torch.Tensor,
     [B, N, d]. Shared by the CHOMP update and HMC's leapfrog force.
     gradient_mode "exact" differentiates the discretized obstacle cost and
     ignores use_pseudo_inverse; the constraint and torque terms are always
-    exact."""
-    if gradient_mode == "exact":
-        g_obs = exact_obstacle_gradient(robot, world, theta, q0, qN, dt,
-                                        clearance)
+    exact. The functional mode's first two terms are one kernel on CUDA
+    tensors (kernels/chomp_grad.py ``functional_gradient``, held to this
+    module's plain version) and that plain version on the CPU."""
+    smooth = smoothness_gradient(ops, theta, q0, qN)
+    if gradient_mode != "exact" and theta.device.type == "cuda":
+        g = chomp_grad.functional_gradient(
+            robot, world, theta, q0, qN, smooth, dt, clearance, w_obstacle,
+            w_smoothness, use_curvature, use_pseudo_inverse, pinv_ridge)
     else:
-        g_obs = obstacle_functional_gradient(robot, world, full_traj, dt,
-                                             clearance, use_curvature,
-                                             use_pseudo_inverse, pinv_ridge)
-    g = w_obstacle * g_obs + w_smoothness * smoothness_gradient(ops, theta,
-                                                                q0, qN)
+        if gradient_mode == "exact":
+            g_obs = exact_obstacle_gradient(robot, world, theta, q0, qN, dt,
+                                            clearance)
+        else:
+            g_obs = obstacle_functional_gradient(
+                robot, world, full_trajectory(theta, q0, qN), dt, clearance,
+                use_curvature, use_pseudo_inverse, pinv_ridge)
+        g = w_obstacle * g_obs + w_smoothness * smooth
     if (as_tuple(constraints) and w_constraint > 0.0) or w_torque > 0.0:
         g = g + exact_extra_gradient(robot, theta, q0, qN, dt, constraints,
                                      w_constraint, w_torque)
@@ -167,7 +178,7 @@ def chomp_gradient(ops, robot: RobotSpec, world, theta: torch.Tensor,
 
 
 def chomp_delta(ops, robot: RobotSpec, world, theta: torch.Tensor,
-                q0: torch.Tensor, qN: torch.Tensor, full_traj: torch.Tensor,
+                q0: torch.Tensor, qN: torch.Tensor,
                 dt: float, clearance: float, w_obstacle: float,
                 w_smoothness: float, learning_rate: float,
                 use_curvature: bool = True,
@@ -178,7 +189,7 @@ def chomp_delta(ops, robot: RobotSpec, world, theta: torch.Tensor,
     """One CHOMP update direction, −η·R⁻¹·∇U [B, N, d]. R⁻¹ makes the
     smoothness part an exact Newton step, a cancellation that needs true
     fp32 matmuls (the solver refuses TF32 on CUDA)."""
-    grad = chomp_gradient(ops, robot, world, theta, q0, qN, full_traj, dt,
+    grad = chomp_gradient(ops, robot, world, theta, q0, qN, dt,
                           clearance, w_obstacle, w_smoothness, use_curvature,
                           use_pseudo_inverse, pinv_ridge, gradient_mode,
                           constraints, w_constraint, w_torque)

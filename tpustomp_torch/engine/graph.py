@@ -103,7 +103,8 @@ solve shape, and replays them:
   is not by the parameter block itself.
 - Results never alias the graph: a solve returns copies.
 - Counters. The kernel wrappers count host calls (``rollout.LAUNCHES``,
-  ``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``, ``propose.LAUNCHES``). What a capture added is
+  ``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``, ``propose.LAUNCHES``,
+  ``chomp_grad.LAUNCHES``). What a capture added is
   taken back; a region's replay adds it again, and a chunk adds one
   iteration's share times the iterations that ran (read with the loop's
   condition), so a graphed run counts what the eager loop counts.
@@ -148,7 +149,8 @@ import torch
 from tpustomp_torch._tensors import (clone_with_mirrors, copy_with_mirror,
                                      map_tensors)
 from tpustomp_torch.engine.sampling import draw_plan
-from tpustomp_torch.kernels import graph_if, graph_node, propose, rollout
+from tpustomp_torch.kernels import (chomp_grad, graph_if, graph_node, propose,
+                                    rollout)
 from tpustomp_torch.robot.model import joint_types_on_host
 from tpustomp_torch.utils import tracing
 from tpustomp_torch.world.sdf import CompositeWorld
@@ -184,7 +186,7 @@ _DEAD: list = []        # keys of graphs a tensor of which is gone
 _STREAMS: dict = {}
 _LOCK = threading.RLock()
 _COUNTERS = (rollout.LAUNCHES, rollout.PARAM_ROUTES, rollout.LAYOUTS,
-             rollout.BODY_ORDER, propose.LAUNCHES)
+             rollout.BODY_ORDER, propose.LAUNCHES, chomp_grad.LAUNCHES)
 
 
 @contextlib.contextmanager

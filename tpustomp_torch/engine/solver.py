@@ -70,7 +70,7 @@ from tpustomp_torch.engine.sampling import (RowNoise, noise_product_tm,
                                             sample_noise_tm)
 from tpustomp_torch.engine.trajectory import (full_trajectory, min_jerk_init,
                                               wrap_goal)
-from tpustomp_torch.kernels import propose
+from tpustomp_torch.kernels import chomp_grad, propose
 from tpustomp_torch.kernels.rollout import obstacle_cost_batch
 from tpustomp_torch.robot.model import RobotSpec
 from tpustomp_torch.utils import tracing
@@ -632,10 +632,12 @@ def _chomp_parts(s: Step):
         return _evaluate(robot, world, cons, cfg, ops, Q0, QN, theta,
                          row_active=active)[1]
 
+    if Q0.device.type == "cuda" and cfg.chomp_gradient_mode != "exact":
+        chomp_grad.load(robot, world, Q0[:, None, :])
+
     def grad_u(theta):
-        return chomp_gradient(ops, robot, world, theta, Q0, QN,
-                              full_trajectory(theta, Q0, QN), dt, clearance,
-                              w.obstacle, w.smoothness, **grad_kw)
+        return chomp_gradient(ops, robot, world, theta, Q0, QN, dt,
+                              clearance, w.obstacle, w.smoothness, **grad_kw)
 
     def finish(state: SolverState, theta_new) -> SolverState:
         _, total, margin, parts = _evaluate(robot, world, cons, cfg, ops,

@@ -210,11 +210,12 @@ _LAUNCH_PARAMS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    """Every kernel counter to 0: these and the propose kernel's
-    (kernels/propose.py, which imports this module)."""
-    from tpustomp_torch.kernels import propose
+    """Every kernel counter to 0: these, the propose kernel's and the CHOMP
+    gradient kernel's (kernels/propose.py, kernels/chomp_grad.py, which
+    import this module)."""
+    from tpustomp_torch.kernels import chomp_grad, propose
     for counts in (LAUNCHES, PARAM_ROUTES, PARAM_READS, LAYOUTS,
-                   BODY_ORDER, propose.LAUNCHES):
+                   BODY_ORDER, propose.LAUNCHES, chomp_grad.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -276,39 +277,47 @@ def chain_definition(chain) -> str:
         f"_{'n' if c < 0 else ''}{abs(c)}" for c in chain)
 
 
-def _nvcc_flags(chain) -> tuple[str, ...]:
-    """nvcc's flags for a library of `chain` (None: the runtime chain)."""
+def _nvcc_flags(chain, defines=()) -> tuple[str, ...]:
+    """nvcc's flags for a library of `chain` (None: the runtime chain),
+    with `defines` ("-DNAME=value" strings) after them."""
     if chain is None:
-        return _NVCC_FLAGS
-    return _NVCC_FLAGS + (chain_definition(chain),)
+        return _NVCC_FLAGS + tuple(defines)
+    return _NVCC_FLAGS + (chain_definition(chain),) + tuple(defines)
 
 
-def _lib_path(name: str, chain=None) -> Path:
+def _lib_path(name: str, chain=None, defines=()) -> Path:
     """The library's name carries a hash of the flags (the chain's
-    definition among them) and of every source it is built from, so an
-    edited source or header is never served by a stale build."""
-    h = hashlib.sha256(" ".join(_nvcc_flags(chain)).encode())
+    definition and `defines` among them) and of every source it is built
+    from, so an edited source or header is never served by a stale
+    build."""
+    h = hashlib.sha256(" ".join(_nvcc_flags(chain, defines)).encode())
     for src in _sources(name):
         h.update(src.name.encode() + b"\0" + src.read_bytes())
     return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def _nvcc_job(nvcc, name, chain, out):
+def _nvcc_job(nvcc, name, chain, defines, out):
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc, *_nvcc_flags(chain), "-o", out, str(_CSRC / f"{name}.cu")],
+        [nvcc, *_nvcc_flags(chain, defines), "-o", out,
+         str(_CSRC / f"{name}.cu")],
         capture_output=True, text=True)
     return proc, time.perf_counter() - t0
 
 
-def build(names=_SOURCES, chains=(None,)) -> dict[tuple, ctypes.CDLL]:
-    """Compile (once per version of the sources and chain) and load the
-    named kernel libraries (sources in csrc/) for each chain (None: the
-    runtime chain; else a :func:`chain_of` tuple). Missing builds run at the
-    same time, one nvcc each; their seconds go to BUILD_SECONDS. Returns
-    {(name, chain): library}."""
+def build(names=_SOURCES, chains=(None,),
+          defines=()) -> dict[tuple, ctypes.CDLL]:
+    """Compile (once per version of the sources, chain and definitions)
+    and load the named kernel libraries (sources in csrc/) for each chain
+    (None: the runtime chain; else a :func:`chain_of` tuple), each built
+    with `defines` ("-DNAME=value" strings) as well. Missing builds run at
+    the same time, one nvcc each; their seconds go to BUILD_SECONDS, by
+    (name, chain), with the definitions appended where there are any.
+    Returns {(name, chain): library}."""
+    defines = tuple(defines)
     keys = [(n, c) for c in chains for n in names]
-    missing = [k for k in keys if k not in _libs and not _lib_path(*k).exists()]
+    missing = [k for k in keys if (*k, defines) not in _libs
+               and not _lib_path(*k, defines).exists()]
     if missing:
         nvcc = _nvcc()
         _BUILD_DIR.mkdir(exist_ok=True)
@@ -319,7 +328,7 @@ def build(names=_SOURCES, chains=(None,)) -> dict[tuple, ctypes.CDLL]:
                 os.close(fd)
                 tmps.append(tmp)
             with ThreadPoolExecutor(len(missing)) as pool:
-                jobs = [pool.submit(_nvcc_job, nvcc, n, c, tmp)
+                jobs = [pool.submit(_nvcc_job, nvcc, n, c, defines, tmp)
                         for (n, c), tmp in zip(missing, tmps)]
                 done = [job.result() for job in jobs]
             errors = []
@@ -329,8 +338,9 @@ def build(names=_SOURCES, chains=(None,)) -> dict[tuple, ctypes.CDLL]:
                                   f"({proc.returncode}):\n{proc.stdout}\n"
                                   f"{proc.stderr}")
                 else:
-                    BUILD_SECONDS[(n, c)] = seconds
-                    os.replace(tmp, _lib_path(n, c))   # atomic: no races
+                    BUILD_SECONDS[(n, c) + ((defines,) if defines
+                                            else ())] = seconds
+                    os.replace(tmp, _lib_path(n, c, defines))  # atomic
             if errors:
                 raise RuntimeError("\n".join(errors))
         finally:
@@ -338,15 +348,15 @@ def build(names=_SOURCES, chains=(None,)) -> dict[tuple, ctypes.CDLL]:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
     for n, c in keys:
-        if (n, c) not in _libs:
-            lib = ctypes.CDLL(str(_lib_path(n, c)))
+        if (n, c, defines) not in _libs:
+            lib = ctypes.CDLL(str(_lib_path(n, c, defines)))
             for source, entry, argtypes in _ENTRIES.values():
                 if source == n:
                     fn = getattr(lib, entry)
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
-            _libs[(n, c)] = lib
-    return {k: _libs[k] for k in keys}
+            _libs[(n, c, defines)] = lib
+    return {k: _libs[(*k, defines)] for k in keys}
 
 
 def _world_parts(world):
