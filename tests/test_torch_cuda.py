@@ -1901,7 +1901,7 @@ def test_graph_of_a_device_made_world_makes_no_read(cuda_device,
     assert tr.PARAM_READS["device"] == 1
     assert graph.GRAPHS["eager:param_read"] == 1
     (g,) = graph._CACHE.values()
-    per_replay = g.per_it[1]            # PARAM_ROUTES, a chunk iteration
+    per_replay = g.loop.per_it[1]       # PARAM_ROUTES, a chunk iteration
     assert per_replay["memory"] == 0 and per_replay["block"] > 0
     with graph.eager():
         ref = plan_batch(robot, world, prob, cfg, generator=torch.Generator(
@@ -2249,7 +2249,7 @@ def test_chunk_capture_that_fails_raises(cuda_device, monkeypatch):
                             cuda_device)
     cfg = _graph_config("box")
     prob = ProblemSpec(*_jittered(16, 4))
-    real = graph._Graph._advance
+    real = graph.Loop._advance
 
     def failing(self, draws):
         if torch.cuda.is_current_stream_capturing():
@@ -2257,11 +2257,11 @@ def test_chunk_capture_that_fails_raises(cuda_device, monkeypatch):
         return real(self, draws)
 
     graph.clear()
-    monkeypatch.setattr(graph._Graph, "_advance", failing)
+    monkeypatch.setattr(graph.Loop, "_advance", failing)
     with pytest.raises(ValueError, match="inside the IF node"):
         plan_batch(robot, world, prob, cfg)
     assert graph.cached() == []
-    monkeypatch.setattr(graph._Graph, "_advance", real)
+    monkeypatch.setattr(graph.Loop, "_advance", real)
     graph.reset_counts()
     with graph.eager():
         ref = plan_batch(robot, world, prob, cfg)

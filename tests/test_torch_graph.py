@@ -14,9 +14,9 @@ static buffers, the draws into them, the loads and the copy out. The card's own 
 capture) are the `cuda` tests of tests/test_torch_cuda.py.
 """
 
+import collections
 import dataclasses
 import gc
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -35,7 +35,7 @@ from tpustomp_torch import (OrientationConstraint, ProblemSpec, convert,
 from tpustomp_torch import _tensors
 from tpustomp_torch.api.config import CostWeights, NoiseConfig, PlannerConfig
 from tpustomp_torch.dynamics.device import device_ops
-from tpustomp_torch.engine import graph
+from tpustomp_torch.engine import graph, mpc
 from tpustomp_torch.engine import solver as tsolver
 from tpustomp_torch.engine.sampling import GeneratorNoise
 from tpustomp_torch.kernels import rollout as tr
@@ -135,8 +135,8 @@ def _emulate(monkeypatch):
     """The graph path on CPU tensors (see the module docstring)."""
     real = graph.eager_reason
 
-    def reason(step):
-        why = real(step)
+    def reason(*a, **k):
+        why = real(*a, **k)
         return None if why == "cpu" else why
 
     monkeypatch.setattr(graph, "eager_reason", reason)
@@ -207,7 +207,7 @@ def test_step_is_its_draw_then_its_advance(case):
     step.noise_fn.generator.set_state(gen_state)
     draws = step.draw(1, state.done)
     ref = step.advance(state, draws)
-    for a, b in zip(graph._fields(got), graph._fields(ref)):
+    for a, b in zip(_tensors.fields(got), _tensors.fields(ref)):
         assert torch.equal(a, b)
     bufs = tuple(torch.empty(s) for s in step.draw_shapes())
     for source in (step.noise_fn, lambda it, active: draws):
@@ -324,6 +324,73 @@ def test_cache_is_bounded(emulated, monkeypatch):
     assert graph.GRAPHS["evicted"] == 2 and graph.GRAPHS["captured"] == 12
 
 
+def test_cached_reports_every_kind_with_the_same_keys(emulated):
+    """A solve, a goal band and an MPC tick are entries of one kind
+    (graph.Entry): graph.cached() reports each with the same keys, its
+    regions under their names."""
+    robot, world, prob = _scene7()
+    band = dataclasses.replace(prob, goal_tolerance_below=0.05,
+                               goal_tolerance_above=0.05)
+    plan_batch(robot, world, band, PlannerConfig(**_BASE), device="cpu",
+               generator=_gen())
+    cfg = PlannerConfig(**{**_BASE, "max_iterations": 3,
+                           "record_metrics": False})
+    rng = np.random.default_rng(1)
+    state = mpc.init_mpc(robot, cfg, prob.q0, prob.qN,
+                         rng.uniform(0.4, 0.7, (3, 1, 3)),
+                         rng.normal(0, 0.3, (3, 1, 3)))
+    mpc.run_mpc_batch(robot, cfg, state, [0.12], 2, 0.1, static_world=world,
+                      device="cpu", generator=_gen())
+    entries = {e["kind"]: e for e in graph.cached()}
+    assert set(entries) == {"stomp", "goal_band", "mpc_tick"}
+    keys = ["kind", "route", "k", "batch", "static_bytes", "pool_bytes",
+            "capture_ms", "instantiate_ms", "replays", "regions"]
+    assert all(list(e) == keys for e in entries.values())
+    assert set(entries["stomp"]["regions"]) == {"loop", "solve_in",
+                                                "solve_out"}
+    assert set(entries["goal_band"]["regions"]) == {"goal_band"}
+    assert set(entries["mpc_tick"]["regions"]) == {"tick_in", "loop",
+                                                   "tick_out"}
+    assert entries["goal_band"]["route"] is None
+    assert entries["stomp"]["route"] == entries["mpc_tick"]["route"] == (
+        "chunk")
+    assert all(e["batch"] == (3, 7) and e["static_bytes"] > 0
+               for e in entries.values())
+
+
+_CALLERS = ("tpustomp_torch/engine/mpc.py", "tpustomp_torch/engine/solver.py",
+            "tpustomp_torch/api/plan.py")
+
+
+@pytest.mark.parametrize("path", _CALLERS)
+def test_callers_use_only_the_public_seam_of_graph(path):
+    """engine/graph.py owns its cache and the graph-or-eager choice: its
+    callers name none of its private names, build no SimpleNamespace
+    stand-in step, never ask graph.route and ask graph.eager_reason at
+    most once (the MPC tick's choice)."""
+    import ast
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    tree = ast.parse((root / path).read_text())
+    private, calls = [], collections.Counter()
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id == "graph"):
+            if node.attr.startswith("_"):
+                private.append(f"graph.{node.attr}:{node.lineno}")
+            calls[node.attr] += 1
+        names = ([a.name for a in node.names]
+                 if isinstance(node, ast.ImportFrom) else
+                 [node.id] if isinstance(node, ast.Name) else
+                 [node.attr] if isinstance(node, ast.Attribute) else [])
+        assert "SimpleNamespace" not in names, (path, node.lineno)
+    assert private == []
+    assert calls["route"] == 0
+    assert calls["eager_reason"] <= (1 if path.endswith("mpc.py") else 0)
+
+
 def test_results_survive_the_next_replay(emulated):
     """A Solution is the solve's own: it shares no storage with the graph's
     buffers (iterations and metrics come from the returned state), and the
@@ -333,10 +400,11 @@ def test_results_survive_the_next_replay(emulated):
     first = plan_batch(robot, world, prob, cfg, device="cpu",
                        generator=_gen())
     tensors = [first.trajectory, first.cost, first.success, first.iterations,
-               *graph._fields(first.metrics)]
+               *_tensors.fields(first.metrics)]
     kept = [v.clone() for v in tensors]
     (g,) = graph._CACHE.values()
-    bufs = {v.untyped_storage().data_ptr() for v in graph._fields(g.state)}
+    bufs = {v.untyped_storage().data_ptr()
+            for v in _tensors.fields(g.loop.state)}
     assert not bufs & {v.untyped_storage().data_ptr() for v in tensors}
     other = ProblemSpec(q0=prob.q0[::-1].copy(), qN=prob.qN[::-1].copy())
     plan_batch(robot, world, other, cfg, device="cpu", generator=_gen(4))
@@ -384,7 +452,7 @@ def _rows_solve(robot, world, prob, cfg):
     """solve_batch with one world row per scenario (the MPC tick's)."""
     B = len(prob.q0)
     rows = AnalyticWorld(*(v[None].expand((B,) + v.shape).clone()
-                           for v in graph._fields(world)))
+                           for v in _tensors.fields(world)))
     q0 = torch.as_tensor(prob.q0)
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness, "cpu")
     noise = GeneratorNoise(_gen(), 7, B, cfg.num_rollouts,
@@ -552,10 +620,11 @@ def test_a_graph_whose_tensors_are_gone_is_dropped(emulated):
     plan_batch(robot, world, prob, PlannerConfig(**_BASE), device="cpu",
                generator=_gen())
     (g,) = graph._CACHE.values()
-    for a, b in zip(graph._fields(g.step.world), graph._fields(world)):
+    for a, b in zip(_tensors.fields(g.loop.step.world),
+                    _tensors.fields(world)):
         assert torch.equal(a, b) and a is not b
         assert a.numel() == 0 or a.data_ptr() != b.data_ptr()
-    assert g.step.robot.joint_axis.data_ptr() != robot.joint_axis.data_ptr()
+    assert g.robot.joint_axis.data_ptr() != robot.joint_axis.data_ptr()
     assert len(graph.cached()) == 1
     del world
     gc.collect()
@@ -563,7 +632,7 @@ def test_a_graph_whose_tensors_are_gone_is_dropped(emulated):
     del robot
     gc.collect()
     assert graph.cached() == [] and graph.GRAPHS["dead"] == 1
-    assert g.graph.body is None                     # reset
+    assert g.loop.graph.body is None                # reset
 
 
 def test_shared_copy_of_equal_cpu_objects():
@@ -610,7 +679,6 @@ def test_joint_types_come_from_joint_static():
         assert torch.equal(a, b)
     bare = dataclasses.replace(elsewhere, joint_static=None)
     assert not joint_types_on_host(bare)
-    step = SimpleNamespace(robot=bare, world=AnalyticWorld.make(boxes=_BOXES),
-                           constraints=(), ops=None, world_batched=False,
-                           Q0=torch.zeros(1, 7))
-    assert graph.eager_reason(step) == "joint_types_on_card"
+    world = AnalyticWorld.make(boxes=_BOXES)
+    assert graph.eager_reason(torch.device("cpu"), bare,
+                              world=world) == "joint_types_on_card"

@@ -376,7 +376,7 @@ def test_loads_rewrite_only_the_nodes_whose_block_moved(monkeypatch):
         node.params = params.copy()
 
     monkeypatch.setattr(graph_node, "rewrite", rewrite)
-    region = graph._Region(graph=SimpleNamespace(
+    region = graph.Region(graph=SimpleNamespace(
         raw_cuda_graph_exec=lambda: 7))
     region.nodes.append(graph_node.Node(
         0, 1, tr._PARAM_FLOATS, tr.pack_params(robot, copy).numpy(),

@@ -30,6 +30,7 @@ from tests.test_torch_solver import _ReplayJaxNoise, _configs, _jitter, _scene
 from tpustomp.api.plan import plan_batch as j_plan_batch
 from tpustomp.api.problem import ProblemSpec as JProblem
 from tpustomp_torch import ProblemSpec, plan_batch, plan_timed
+from tpustomp_torch._tensors import fields
 from tpustomp_torch.api.config import PlannerConfig
 from tpustomp_torch.dynamics.device import device_ops
 from tpustomp_torch.engine import graph, mpc
@@ -118,7 +119,7 @@ def _run(cfg, limits, eager: bool, scene):
 
 
 def _same_states(a, b):
-    for x, y in zip(graph._fields(a), graph._fields(b)):
+    for x, y in zip(fields(a), fields(b)):
         assert torch.equal(x, y)
 
 
@@ -295,9 +296,8 @@ def test_a_callers_noise_fn_takes_the_per_iteration_route(emulated):
     _assert_same(own_noise(), ref)
     assert graph.GRAPHS["per_iteration:noise_fn"] > 0
     assert graph.GRAPHS["chunk"] == 0
-    assert graph.route(tsolver.make_step(
-        robot, world, cfg, None, torch.zeros(3, 7), torch.zeros(3, 7),
-        lambda it, active: None)) == "per_iteration:noise_fn"
+    assert graph.route("stomp", lambda it, active: None) == (
+        "per_iteration:noise_fn")
     graph.reset_counts()
     with graph.per_iteration():
         got = plan_batch(robot, world, prob, cfg, device="cpu",
@@ -337,7 +337,7 @@ def test_replayed_jax_draws_through_the_chunk_bodies(emulated, monkeypatch):
         g.draws[0].copy_(noise(int(g.ctl[1]), ~g.state.done))
         return g.draws[0]
 
-    monkeypatch.setattr(graph._Graph, "_draw", injected)
+    monkeypatch.setattr(graph.Loop, "draw", injected)
     got = plan_batch(robot, world, ProblemSpec(q0=q0, qN=qN), ct,
                      device="cpu", noise_fn=noise)
     assert graph.GRAPHS["chunk"] > 0

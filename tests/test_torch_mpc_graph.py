@@ -19,6 +19,7 @@ import torch
 
 from tests.test_torch_graph import _BOXES, _emulate, _gen, _rows_solve
 from tpustomp_torch import ProblemSpec
+from tpustomp_torch._tensors import fields
 from tpustomp_torch.api.config import CostWeights, NoiseConfig, PlannerConfig
 from tpustomp_torch.api.plan import resolve_backend
 from tpustomp_torch.dynamics.device import device_ops
@@ -156,7 +157,7 @@ def test_episode_captures_its_regions_once(emulated):
     assert entry["regions"]["tick_out"]["replays"] == TICKS - 1
     assert entry["regions"]["loop"]["replays"] > 0
     assert graph.GRAPHS["eager:first_iteration"] == 1
-    kept = map(torch.clone, graph._fields(first))
+    kept = map(torch.clone, fields(first))
     again = _episode(robot, state, static)
     assert graph.GRAPHS["captured"] == 3
     assert _ticks()["regions"]["tick_in"]["replays"] == 2 * TICKS - 1
@@ -165,10 +166,10 @@ def test_episode_captures_its_regions_once(emulated):
     (tick,) = graph._CACHE.values()
     bufs = {v.untyped_storage().data_ptr() for v in tick.buffers()}
     assert not bufs & {v.untyped_storage().data_ptr()
-                       for v in graph._fields(again)}
+                       for v in fields(again)}
     _episode(robot, _states(seed=1), static)      # the same graph, other values
     assert all(torch.equal(a, b)
-               for a, b in zip(graph._fields(first), kept))
+               for a, b in zip(fields(first), kept))
 
 
 def test_moving_obstacles_reach_the_graph(emulated):
@@ -318,7 +319,7 @@ def test_row_worlds_are_graph_inputs(emulated):
     assert graph.GRAPHS["captured"] == 3 and len(graph.cached()) == 1
 
     rows = AnalyticWorld(*(v[None].expand((3,) + v.shape).clone()
-                           for v in graph._fields(world)))
+                           for v in fields(world)))
     ops = device_ops(cfg.num_timesteps, cfg.dt, cfg.smoothness, "cpu")
 
     def compacted():

@@ -94,8 +94,8 @@ def _capture(body, stream, generator=None):
 def emulated(monkeypatch):
     """The graph path on CPU tensors."""
     real = graph.eager_reason
-    monkeypatch.setattr(graph, "eager_reason", lambda step: (
-        None if real(step) == "cpu" else real(step)))
+    monkeypatch.setattr(graph, "eager_reason", lambda *a, **k: (
+        None if real(*a, **k) == "cpu" else real(*a, **k)))
     monkeypatch.setattr(graph, "_stream", lambda *a, **k: None)
     monkeypatch.setattr(graph, "_on", lambda stream, fn: fn())
     monkeypatch.setattr(graph, "_capture", _capture)
@@ -433,13 +433,13 @@ def test_an_eager_settle_of_a_cached_entry_is_no_capture(monkeypatch):
     """A cached entry whose layout does not fit the state settles eagerly
     inside the caller's span: no graph.capture span."""
     monkeypatch.setattr(graph, "_fits", lambda g, state: False)
-    monkeypatch.setattr(graph, "_load", lambda *a, **k: None)
+    monkeypatch.setattr(graph, "_load_state", lambda *a, **k: None)
     monkeypatch.setattr(graph, "_settle", lambda g, step, state, it_limit,
                         count: (state, count + 1, False))
-    g = types.SimpleNamespace(region="chunk")
+    e = types.SimpleNamespace(loop=types.SimpleNamespace(region="chunk"))
     with tracing.spans():
         with tracing.span("caller"):
-            assert graph._ready(g, False, None, "state", 3, 0) == (
+            assert graph.ready(e, False, None, "state", 3, 0) == (
                 "state", 1, False)
     assert [s.name for s in tracing.recorded().spans] == ["caller"]
 

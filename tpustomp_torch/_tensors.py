@@ -36,6 +36,11 @@ def map_tensors(obj, fn):
     return dataclasses.replace(obj, **changes)
 
 
+def fields(obj) -> list:
+    """The values of the dataclass `obj`'s fields, in order."""
+    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+
+
 def host_mirror(t: torch.Tensor):
     """The numpy copy of device tensor `t` kept when to_device moved it
     there, or None: no copy, or `t` changed in place since. A write that

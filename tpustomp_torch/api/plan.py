@@ -24,7 +24,6 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from types import SimpleNamespace
 
 import torch
 
@@ -100,15 +99,8 @@ def resolve_goal_tolerance(robot: RobotSpec, world, cfg: PlannerConfig, q0,
     graph.eager_reason's cases (the CPU, graph.eager(), ...).
     Returns the chosen qN [..., d].
     """
-    u = goal_uniforms(qN.shape[-1])
-    why = graph.eager_reason(SimpleNamespace(
-        robot=robot, world=world, world_batched=False, constraints=(),
-        ops=None, Q0=q0))
-    if why is None:
-        return graph.goal(_band_goal, robot, world, cfg, q0, qN, tol_below,
-                          tol_above, u)
-    return _band_goal(robot, world, cfg, q0, qN, tol_below, tol_above,
-                      u.to(qN.device))
+    return graph.goal(_band_goal, robot, world, cfg, q0, qN, tol_below,
+                      tol_above, goal_uniforms(qN.shape[-1]))
 
 
 def _band_goal(robot, world, cfg, q0, qN, tol_below, tol_above, u):
@@ -397,32 +389,20 @@ def plan_timed(robot: RobotSpec, world, problem: ProblemSpec,
         """The end of the chunk that holds iteration `count`."""
         return min((count // chunk_iterations + 1) * chunk_iterations, limit)
 
-    def over(count, done) -> bool:
-        return done or count >= limit or time.monotonic() >= deadline
-
     step = solver.make_step(p.robot, p.world, p.cfg, p.ops, q0, qN, noise,
                             constraints=p.constraints)
-    if graph.eager_reason(step) is None:
-        def loop(g, count):
-            while count < limit:
-                end = until(count)
-                count = graph._loop(g, step, end, count)
-                if over(count, count < end):    # stopped early: all done
-                    break
-            return count
 
-        sols = graph.solve(step, None, R,
-                           solver.state_layout(p.cfg, *q0.shape),
-                           solver._init_batch, solver._finish, loop=loop)[0]
-    else:
-        QN, state = solver._init_batch(p.robot, p.cfg, q0, qN)
-        step = step.over(QN=QN)
-        count = 0
+    def loop(h, count):
         while count < limit:
-            state, count = solver.run_until(step, state, until(count), count)
-            if over(count, bool(state.done.all())):
+            end = until(count)
+            count = h.run(end, count)
+            # stopped early (every row done), or out of time
+            if count < end or time.monotonic() >= deadline:
                 break
-        sols = solver._finish(step, state, R)
+        return count
+
+    sols = graph.solve(step, None, R, solver.state_layout(p.cfg, *q0.shape),
+                       solver._init_batch, solver._finish, loop=loop)[0]
     sol = map_tensors(sols, lambda v: v[0])
     _maybe_animate(robot, world, sol, cfg)
     return sol

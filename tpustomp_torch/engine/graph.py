@@ -1,135 +1,91 @@
-"""CUDA graphs of the solver: the port's counterpart of the JAX package's
-compiled solve program.
+"""CUDA graphs of the port: its counterpart of the JAX package's compiled
+programs, and the one owner of their cache.
 
 JAX runs a batched solve as one device program, compiled once per (config,
 shapes) and cached: ``_jitted_solve_batch`` (``tpustomp/api/plan.py:177-211``)
 holds ``_init_batch``, the ``lax.while_loop`` of ``solver.solve_batch``
 (``tpustomp/engine/solver.py:827-849``), ``_finalize_batch`` and
-``select_best``; the compacted path runs ``_jitted_init_batch``, then
-``_jitted_chunk_batch`` (``solver.py:900-919``, a ``while_loop`` bounded by
-``chunk``) once a chunk, then ``_jitted_finalize_batch``. The port captures
-the same program as CUDA graphs over static buffers, one cache entry a
-solve shape, and replays them:
+``select_best``; the compacted path runs ``_jitted_chunk_batch`` a chunk;
+``_jitted_goal`` picks a goal in its band; MPC's ``lax.scan`` body is a
+tick. The port captures the same programs as CUDA graphs over static
+buffers and replays them. Its callers see this interface:
 
-- The loop (:func:`run`, ``solver.run_until`` on the card). By default a
-  chunk: one graph of :data:`CHUNK` iterations (the compacted path's
-  ``chunk``), each under a conditional IF node (kernels/graph_if.py) whose
-  condition ``ctl[0]`` is ``any(~done) & (count < limit)`` on the device,
-  written before the first body and again at the end of each. A body draws
-  its noise inside the graph from a generator of the entry's own, set to
-  the noise source's state before the replays (the source's
-  ``sampling.DrawPlan``; each captured draw has its own Philox offset, so
-  the draws of the iterations that run are the eager loop's), then
-  advances the state, copies it into the static state and counts
-  ``ctl[1]``. Iterations past the end are skipped by the device. The host
-  replays chunk j+1 before it reads chunk j's ``ctl`` (a copy to pinned
-  memory and an event), so the device never waits for the host, and a
-  solve makes at most ceil(iterations / CHUNK) + 1 reads, not one an
-  iteration. A replay moves the generator by the whole chunk's draws, so
-  the source's generator is then set to where the eager loop leaves it:
-  its offset plus the iterations run times one iteration's offset
-  advance (measured at the entry's first eager draw).
-- The other route replays one iteration a replay (``advance`` only), with
-  the draw on the host and one read of the loop's condition after it:
-  the route of a caller's own noise_fn, which cannot be captured
-  ("per_iteration:noise_fn"), and of :func:`per_iteration` around an entry
-  point ("per_iteration:requested"), for comparisons. The route is chosen
-  from the step before anything runs (:func:`route`); neither falls back
-  to the other. A CHOMP iteration is two regions on this route: its
-  gradient into a static buffer (the grad region, replayed under a
-  ``chomp.grad`` span, whose CUDA events time it) and the update from
-  it; the chunk's bodies keep the whole iteration.
-- Solve-in and solve-out (:func:`solve`, ``solver.solve_batch`` on the
-  card): two more regions of the entry, ``_init_batch`` from the loaded
-  Q0/QN (and theta0) into the static state, and ``finalize`` (with
-  restarts, the choice of the best) into a static ``Solution``. A graphed
-  ``plan_batch`` is then its input copies, solve-in, the chunk replays,
-  solve-out and one clone out.
-- Capture (on a cache miss). The solve's own first iteration runs eagerly
-  on the stream the loop is captured from: it builds the kernel libraries,
-  settles every parameter route (kernels/rollout.py ``_launch_params``) and
-  sets up that stream's cuBLAS workspace. A set built on the card defers
-  its one device read to its second launch (a capture may not read), so
-  while an eager iteration deferred one, one more runs ("param_read"): the
-  graph then holds the parameter block, as the eager loop does from its
-  second iteration. These iterations and the captures run the graph's own
-  step, over copies of the robot, world, constraints and ``DeviceOps``
-  (with their host copies). The parent regions are captured on a capture
-  stream; a chunk's bodies on one body stream into one body pool of the
-  chunk's own, so every body reuses the blocks the one before freed (a
-  chunk's pool is about one iteration's). The solve-in and solve-out of a
-  miss run eagerly on the capture stream and are captured after. A
-  capture or a replay that raises is an error; nothing falls back.
-- Cache. One entry per step kind, config, state and batch shapes, device,
-  HyperParams or none, loop route (and the draw's shapes and cut), the
-  robot and ``DeviceOps`` (their fields other than tensors, and each
-  tensor's identity and version, ``_version``), and the world's and the
-  constraints' types and shapes. The entry points hand the solver one
-  device copy of equal CPU robots, worlds and constraints
-  (``_tensors.shared_copy``). The cache holds the robot's and DeviceOps'
-  tensors weakly: an entry whose tensors are gone is dropped at the next
-  call. At most :data:`LIMIT` entries, least recently used first out; a
-  dropped entry's pools go back to torch's allocator. The compacted
-  path's buckets are entries of their own.
-- Inputs: the world and the constraints, as JAX's jit takes them (every
-  field of a world a traced operand, the Pallas kernel built from counts).
-  A solve copies the shared world's tensors (an AnalyticWorld's four, a
-  grid's grid, packed table, origin and resolution; a composite's grid
-  where the world has rows) and the constraints' into the entry's own
-  copies (:func:`_load_inputs`), each tensor only when it is not the one
-  the copy last took, by identity and version, so a call with the world
-  of the last copies nothing; the copies take their sources' host copies.
-  The kernels read the grid and the corner table through pointers, which
-  stay the copies'. The rest goes in the kernels' by-value parameter
-  block, which a capture holds in each evaluator node: each captured
-  evaluator launch on a block is recorded (kernels/graph_node.py), and
-  after a load every node whose set's block (from the copies' host
-  copies, or one device read) moved gets the new block in the
-  instantiated graph (:func:`_rewrite`; ``GRAPHS["node_updates"]``). A
-  set on the memory path packs its vector inside the graph, from the
-  copies. An IncrementalSDF edited between plans, a moved box, a cone
-  whose target moves: replays, no capture.
-- Per-scenario worlds (``world_batched``: the MPC tick's, a batch's rows
-  of ``solve_batch_compacted``). The leaves that carry the row axis (an
-  AnalyticWorld's four, a composite's ``overlay``) are inputs of the
-  graph, as Q0 and the state are: the key names them by type, shapes and
-  dtypes only, and the loads copy them into contiguous static buffers
-  before the first replay of every solve. A composite's grid is an input
-  as a shared world is.
-- What a graph freezes. The host's decisions at capture (parameter
-  route, lane plan, joint types) come from the robot, which the key names
-  by identity and version, and from shapes. A write that moves no version
-  (through ``.data``, a DLPack alias, a custom CUDA op) is not seen, as it
-  is not by the parameter block itself.
-- Results never alias the graph: a solve returns copies.
-- Counters. The kernel wrappers count host calls (``rollout.LAUNCHES``,
-  ``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``, ``propose.LAUNCHES``,
-  ``chomp_grad.LAUNCHES``). What a capture added is
-  taken back; a region's replay adds it again, and a chunk adds one
-  iteration's share times the iterations that ran (read with the loop's
-  condition), so a graphed run counts what the eager loop counts.
-  :data:`GRAPHS` counts regions captured and replayed, evictions,
-  invalidations, the iterations each route ran ("chunk",
-  "per_iteration:<reason>"), the host reads of the loop's condition
-  ("flag_reads") and eager iterations by reason.
-- Eager cases, decided before any capture (:func:`eager_reason`): a CPU
-  step ("cpu"), ``utils.tracing.debug_mode`` ("debug_mode": the state is
-  checked after every iteration), keyed tensors moved under
-  ``torch.inference_mode`` ("inference_tensors": no version to key on), a
-  robot whose joint types only the device holds ("joint_types_on_card":
-  FK would read them inside the capture), and the caller's request
-  ("requested": :func:`eager`, around any entry point, for comparisons).
-- The MPC tick (engine/mpc.py ``_Tick``) is one cache entry of three
-  regions over static buffers: the tick's own work before the solve, this
-  module's loop, and its work after the solve; the same lock, LRU,
-  counters, inputs and ordering event serve it. So does the goal band
-  (:func:`goal`, api/plan.py resolve_goal_tolerance; JAX's
-  ``_jitted_goal``): one region.
+- :func:`run` (``solver.run_until``), :func:`solve` (``solve_batch``,
+  ``solve_batch_compacted``, ``plan_timed``) and :func:`goal` (the goal
+  band) each make the graph-or-eager choice themselves
+  (:func:`eager_reason`) and run the eager path in its cases: a CPU step,
+  ``utils.tracing.debug_mode`` (the state checked after every
+  iteration), keyed tensors moved under ``torch.inference_mode``, a robot
+  whose joint types only the device holds, and :func:`eager` around any
+  entry point. :func:`solve`'s ``loop`` callback drives a :class:`Handle`
+  (the solve's state and its loop, graphed or eager), so a caller writes
+  its loop once.
+- A cache entry (:class:`Entry`: a solve shape, a goal band, an MPC tick)
+  is a set of named regions (:class:`Region`) over static buffers and the
+  entry's own copies of the robot, DeviceOps, shared world and
+  constraints. Every kind goes through one protocol: :func:`entry` opens
+  it (lock, lookup, the caller's builder on a miss, caching once a
+  capture succeeded, the release event), :func:`load` is a hit's input
+  load, and :func:`ready` settles a new loop eagerly and captures it. A
+  program with a loop holds a :class:`Loop` (its static solver state and
+  the loop region); engine/mpc.py builds the tick's entry on this
+  interface and keeps only the tick's own regions.
 
-Graphed solves of one process run one at a time (a lock): a graph's static
-buffers hold one solve. A solve loads them only after the work of the last
-solve that used them (an event), so solves on different streams that share
-a graph stay ordered on the device too.
+The loop has two routes, chosen before anything runs (:func:`route`):
+
+- "chunk" (the default noise): one graph of :data:`CHUNK` iterations (the
+  compacted path's ``chunk``), each under a conditional IF node
+  (kernels/graph_if.py) whose condition ``ctl[0]`` is ``any(~done) &
+  (count < limit)``, on the device. A body draws its noise inside the
+  graph from the entry's own generator, set to the source's state before
+  the replays (``sampling.DrawPlan``), advances, and counts ``ctl[1]``.
+  The host queues chunk j+1 before it reads chunk j's ``ctl`` (pinned
+  memory and an event): at most ceil(iterations / CHUNK) + 1 reads a
+  solve. The source's generator is then moved as far as the eager loop
+  moves it (one iteration's offset advance, measured at the first eager
+  draw, times the iterations run).
+- One iteration a replay, the draw on the host and one read of the
+  condition after it: a caller's own noise_fn ("per_iteration:noise_fn")
+  and :func:`per_iteration` ("per_iteration:requested"). A CHOMP
+  iteration is two regions here: its gradient (the "grad" region, under
+  a ``chomp.grad`` span) and the update from it.
+
+Capture (a miss): the loop's first iteration runs eagerly on the stream
+the loop is captured from (it builds the kernel libraries, settles every
+parameter route and that stream's cuBLAS workspace), and one more
+("param_read") while it deferred a parameter read (kernels/rollout.py
+``_launch_params``); then the loop is captured. The other regions
+(solve-in: ``_init_batch``; solve-out: finalize, with restarts the best's
+choice; the goal band; tick-in and tick-out) run eagerly on the capture
+stream and are captured after. A chunk's bodies are captured on one body
+stream into one pool of their own. A capture or a replay that raises is an
+error; nothing falls back.
+
+Cache: one entry per kind, config and shapes, device, loop route (and the
+draw's shapes and cut), the robot and DeviceOps (each tensor by identity
+and ``_version``, held weakly: an entry whose tensors are gone is dropped
+at the next call) and the world's and constraints' types and shapes; at
+most :data:`LIMIT` entries, least recently used first out. The world and
+the constraints are inputs, as JAX's jit takes them: a call copies their
+tensors into the entry's copies where they are not the ones the copies
+last took (by identity and version; the copies take their sources' host
+copies), and every captured evaluator node whose by-value parameter block
+moved gets the new block (kernels/graph_node.py, :func:`_rewrite`). A
+per-scenario world's rows are loaded like the state. What a graph
+freezes otherwise comes from the robot, which the key names, and from
+shapes; a write that moves no version is not seen. Results never alias
+the graph.
+
+Counters: the kernel wrappers' host counts (``rollout.LAUNCHES``,
+``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``, ``propose.LAUNCHES``,
+``chomp_grad.LAUNCHES``) that a capture added move to its region's
+replays, and a chunk adds one iteration's share per iteration run, so a
+graphed run counts what the eager loop counts. :data:`GRAPHS` counts the
+rest.
+
+Graphed programs of one process run one at a time (a lock); an entry's
+next load waits for the device work of its last call (an event), so calls
+on different streams stay ordered.
 """
 
 from __future__ import annotations
@@ -147,7 +103,7 @@ import numpy as np
 import torch
 
 from tpustomp_torch._tensors import (clone_with_mirrors, copy_with_mirror,
-                                     map_tensors)
+                                     fields, map_tensors)
 from tpustomp_torch.engine.sampling import draw_plan
 from tpustomp_torch.kernels import (chomp_grad, graph_if, graph_node, propose,
                                     rollout)
@@ -167,13 +123,13 @@ CHUNK = 8
 # invalidated (a robot's or DeviceOps' version moved) or dead (a tensor of
 # the key is gone); input tensors copied into an entry ("inputs_loaded")
 # and parameter blocks rewritten in captured nodes ("node_updates"); the
-# iterations each route
-# ran ("chunk", "per_iteration:noise_fn", "per_iteration:requested"); the
-# host's reads of the loop's condition ("flag_reads"); and iterations run
-# eagerly by reason: "first_iteration" (the iteration before a capture, or
-# before replays from a state whose strides differ from the graph's),
-# "param_read" (the one after a first iteration that deferred a parameter
-# read) and the reasons of eager_reason.
+# iterations each route ran ("chunk", "per_iteration:noise_fn",
+# "per_iteration:requested"); the host's reads of the loop's condition
+# ("flag_reads"); and iterations run eagerly by reason: "first_iteration"
+# (the iteration before a capture, or before replays from a state whose
+# strides differ from the graph's), "param_read" (the one after a first
+# iteration that deferred a parameter read) and the reasons of
+# eager_reason.
 GRAPHS = collections.Counter()
 
 _ENABLED = contextvars.ContextVar("tpustomp_torch_graphs", default=True)
@@ -214,42 +170,52 @@ def per_iteration():
         _PER_ITERATION.reset(token)
 
 
-def eager_reason(step) -> str | None:
-    """Why `step` runs in the eager loop, or None when it replays a graph.
-    `step` may be any object with a Step's robot, world, world_batched,
-    constraints, ops and Q0 (the MPC tick passes its own)."""
+def eager_reason(device, robot, ops=None, world=None,
+                 constraints=()) -> str | None:
+    """Why a program on `device` over `robot`, DeviceOps `ops` and the
+    shared world and constraints (its inputs) runs eagerly, or None when
+    it replays graphs."""
     if not _ENABLED.get():
         return "requested"
     if tracing.debug_enabled():
         return "debug_mode"
-    if any(t.is_inference() for t in (*_keyed(step)[1], *_step_inputs(step))):
+    tensors = []
+    _skeleton((robot, ops, world, tuple(constraints)), tensors)
+    if any(t.is_inference() for t in tensors):
         return "inference_tensors"
-    if not joint_types_on_host(step.robot):
+    if not joint_types_on_host(robot):
         return "joint_types_on_card"
-    if step.Q0.device.type != "cuda":
+    if device.type != "cuda":
         return "cpu"
     return None
 
 
-def route(step) -> str:
-    """How a graphed loop of `step` runs: "chunk" (CHUNK iterations a
-    replay under IF nodes, the draws in the graph), or one iteration a
-    replay, by reason: "per_iteration:noise_fn" (a noise_fn without a
-    DrawPlan: a caller's own draws stay on the host) or
-    "per_iteration:requested" (inside :func:`per_iteration`)."""
+def _why(step) -> str | None:
+    return eager_reason(step.Q0.device, step.robot, step.ops,
+                        _shared(step.world, step.world_batched),
+                        step.constraints)
+
+
+def route(kind: str, noise_fn) -> str:
+    """How a graphed loop of a step of `kind` drawing from `noise_fn`
+    runs: "chunk" (CHUNK iterations a replay under IF nodes, the draws in
+    the graph), or one iteration a replay, by reason:
+    "per_iteration:noise_fn" (a noise_fn without a DrawPlan: a caller's
+    own draws stay on the host) or "per_iteration:requested" (inside
+    :func:`per_iteration`)."""
     if _PER_ITERATION.get():
         return "per_iteration:requested"
-    if step.kind != "chomp" and draw_plan(step.noise_fn) is None:
+    if kind != "chomp" and draw_plan(noise_fn) is None:
         return "per_iteration:noise_fn"
     return "chunk"
 
 
 @dataclasses.dataclass(eq=False, kw_only=True)
-class _Region:
+class Region:
     """One captured region: its CUDA graph, what one replay adds to each
     counter, its evaluator nodes and what its capture cost. `region` names
-    it in the spans: solve-in, chunk, iteration, solve-out, goal, tick-in,
-    tick-out."""
+    it in the spans: solve-in, chunk, iteration, grad, solve-out, goal,
+    tick-in, tick-out."""
 
     region: str = ""
     graph: object = None      # torch.cuda.CUDAGraph (its graph kept)
@@ -278,29 +244,82 @@ class _Region:
 
 
 @dataclasses.dataclass(eq=False, kw_only=True)
-class _Stage(_Region):
-    """A region that runs fn(entry) over an entry's static buffers and keeps
-    what it returns: a solve's solve-in or solve-out."""
+class _Stage(Region):
+    """A region that runs fn(owner) over the owner's static buffers and
+    keeps what it returns: solve-in, solve-out, the goal band, the grad."""
 
-    entry: object
+    owner: object
     fn: Callable
     out: object = None
 
     def body(self) -> None:
-        self.out = self.fn(self.entry)
+        self.out = self.fn(self.owner)
 
     def buffers(self) -> list:
-        return self.entry.buffers()
+        return self.owner.buffers()
 
 
 @dataclasses.dataclass(eq=False, kw_only=True)
-class _Graph(_Region):
-    """One solve shape: its loop region (a chunk, or one iteration), its
-    solve-in and solve-out stages and their static buffers."""
+class Entry:
+    """One cached graphed program: its regions by name (`parts`, the
+    names :func:`cached` reports), its loop (a :class:`Loop`, or None),
+    other static buffers, and its own copies of the keyed robot and
+    DeviceOps and of its inputs, the shared world and the constraints.
+    :func:`entry` sets its identity in the cache (key, weak references
+    and versions of the keyed tensors, the inputs its copies hold last)
+    and the event after its last call's work."""
 
-    key: tuple
-    refs: tuple               # weak references to the key's tensors
-    versions: tuple
+    kind: str
+    device: torch.device
+    batch: tuple
+    robot: object = None
+    ops: object = None
+    world: object = None
+    constraints: tuple = ()
+    loop: Loop | None = None
+    static: list = dataclasses.field(default_factory=list)
+    parts: dict = dataclasses.field(default_factory=dict)
+    key: tuple = ()
+    refs: tuple = ()
+    versions: tuple = ()
+    held: tuple = ()          # (weak ref, version) of the inputs loaded last
+    released: object = None   # event after the last call's use, or None
+
+    def regions(self) -> tuple:
+        return tuple(self.parts.values())
+
+    def buffers(self) -> list:
+        """Every static buffer: what a call loads and the regions write."""
+        return [*self.static,
+                *(() if self.loop is None else self.loop.buffers())]
+
+    def inputs(self) -> list:
+        """The tensors of the entry's copies of its inputs."""
+        return _inputs(self.world, self.constraints)
+
+    def info(self) -> dict:
+        regions = {name: r.cost() for name, r in self.parts.items()}
+        loop = self.loop
+        return dict(kind=self.kind,
+                    route=None if loop is None else loop.route,
+                    k=None if loop is None else loop.k,
+                    batch=self.batch,
+                    static_bytes=_nbytes(self.buffers(), (
+                        self.robot, self.world, self.constraints, self.ops)),
+                    **{k: sum(r[k] for r in regions.values())
+                       for k in ("pool_bytes", "capture_ms",
+                                 "instantiate_ms")},
+                    replays=(self.regions()[0] if loop is None
+                             else loop).replays,
+                    regions=regions)
+
+
+@dataclasses.dataclass(eq=False, kw_only=True)
+class Loop(Region):
+    """A program's solver loop: its region (a chunk, or one iteration)
+    over the static buffers of one solve shape, and the step over them
+    and over the entry's copies (:meth:`over`)."""
+
     kind: str
     route: str                # "chunk" or "per_iteration:<reason>"
     k: int                    # iterations a chunk holds
@@ -321,16 +340,56 @@ class _Graph(_Region):
     inc: int | None = None    # its Philox offset advance an iteration
     per_it: tuple = ()        # what a chunk iteration adds to each counter
     theta0: torch.Tensor | None = None  # solve-in's warm start
-    enter: dict = dataclasses.field(default_factory=dict)  # theta0? -> _Stage
-    leave: dict = dataclasses.field(default_factory=dict)  # restarts -> _Stage
     step: object = None       # the Step over the buffers and copies
     grad: torch.Tensor | None = None  # ∇U between a CHOMP iteration's
-    grad_region: object = None        # regions (per-iteration route)
-    held: tuple = ()          # (weak ref, version) of the inputs loaded last
-    released: object = None   # event after the last solve's use, or None
+    grad_region: _Stage | None = None  # regions (per-iteration route)
 
     def __post_init__(self) -> None:
         self.region = "chunk" if self.route == "chunk" else "iteration"
+
+    @classmethod
+    def over(cls, step, state, k: int = CHUNK, QN=None,
+             own=clone_with_mirrors) -> Loop:
+        """The loop of `step` from `state` (QN: the wrapped goal where
+        step.QN is the goal before wrapping), in chunks of k on the chunk
+        route: static buffers, and its step over them and over `own`'s
+        copies of the robot, world, constraints and DeviceOps (by default
+        clones with their host copies: the entry holds nothing of the
+        caller's but weak references, and its step keeps what the captured
+        kernels read for as long as it may replay)."""
+        dev = step.Q0.device
+        how = route(step.kind, step.noise_fn)
+        hyper = (None if step.hyper is None
+                 else map_tensors(step.hyper, torch.clone))
+        plan = (draw_plan(step.noise_fn)
+                if how == "chunk" and step.kind != "chomp" else None)
+        cut = plan is not None and plan.cut()
+        g = cls(kind=step.kind, route=how, k=k, Q0=step.Q0.clone(),
+                QN=(step.QN if QN is None else QN).clone(),
+                QN_in=step.QN.clone(), hyper=hyper,
+                state=map_tensors(state, torch.clone),
+                draws=tuple(torch.empty(shape, dtype=torch.float32,
+                                        device=dev)
+                            for shape in step.draw_shapes()),
+                active=torch.empty_like(state.done),
+                finished=torch.empty((), dtype=torch.bool, device=dev),
+                ctl=torch.zeros(2, dtype=torch.int32, device=dev),
+                limit=torch.zeros((), dtype=torch.int32, device=dev),
+                host=torch.zeros((2, 2), dtype=torch.int32,
+                                 pin_memory=dev.type == "cuda"),
+                full=(tuple(torch.empty(s, dtype=torch.float32, device=dev)
+                            for s in plan.shapes) if cut else ()),
+                rows=plan.index(dev).clone() if cut else None,
+                gen=None if plan is None else torch.Generator(device=dev))
+        g.step = step.over(
+            Q0=g.Q0, QN=g.QN, hyper=hyper, noise_fn=None,
+            robot=own(step.robot),
+            world=_static_world(step.world, step.world_batched, own),
+            constraints=tuple(map(own, step.constraints)),
+            ops=own(step.ops))
+        if how != "chunk" and getattr(g.step.advance, "phases", None):
+            g.grad = torch.empty_like(g.state.theta)
+        return g
 
     def iteration(self) -> None:
         """The per-iteration region: advance (with a grad buffer, CHOMP's
@@ -357,7 +416,7 @@ class _Graph(_Region):
     def _body(self) -> None:
         """One chunk iteration: the draw, advance, the count and the
         condition for the next."""
-        self._advance(self._draw())
+        self._advance(self.draw())
         self.ctl[1].add_(1)
         self._go()
 
@@ -377,7 +436,7 @@ class _Graph(_Region):
                           torch.lt(self.ctl[1], self.limit),
                           out=self.ctl[0])
 
-    def _draw(self):
+    def draw(self):
         """The iteration's draw from the chunk's generator into the draws'
         buffers (through the whole batch's, when the solve takes a cut)."""
         if self.kind == "chomp":
@@ -395,43 +454,42 @@ class _Graph(_Region):
         return _rows(self.step.world, self.step.world_batched)
 
     def buffers(self) -> list:
-        """Every static buffer: what a solve loads and the regions write."""
         rows = self.rows_world()
-        return [*self.draws, *_fields(self.state), self.active,
+        return [*self.draws, *fields(self.state), self.active,
                 self.finished, self.ctl, self.limit, self.Q0, self.QN,
                 self.QN_in, *self.full,
                 *(() if self.rows is None else (self.rows,)),
                 *(() if self.theta0 is None else (self.theta0,)),
                 *(() if self.grad is None else (self.grad,)),
-                *(() if self.hyper is None else _fields(self.hyper)),
-                *(() if rows is None else _fields(rows))]
+                *(() if self.hyper is None else fields(self.hyper)),
+                *(() if rows is None else fields(rows))]
 
-    def copies(self) -> tuple:
-        """The graph's copies of the keyed inputs."""
-        return (self.step.robot, _shared(self.step.world,
-                                         self.step.world_batched),
-                self.step.constraints, self.step.ops)
+    def iterate(self, step, it_limit: int, count: int) -> int:
+        """Per-iteration replays from the loaded state until every row is
+        done or the count reaches it_limit: each the draw of `step` into
+        the draws' buffers, one replay (a CHOMP iteration's grad region
+        first, under a `chomp.grad` span) and the read of the loop's
+        condition. Returns the count."""
+        start = count
+        while True:
+            step.draw_into(count, self.active, self.draws)
+            if self.grad_region is not None:
+                with tracing.span("chomp.grad", device=True):
+                    self.grad_region.replay()
+            self.replay()
+            count += 1
+            GRAPHS["flag_reads"] += 1
+            if count >= it_limit or _finished(self):
+                GRAPHS[self.route] += count - start
+                return count
 
-    def regions(self) -> tuple:
-        grad = () if self.grad_region is None else (self.grad_region,)
-        return (self, *grad, *self.enter.values(), *self.leave.values())
-
-    def info(self) -> dict:
-        regions = {"loop": self.cost()}
-        if self.grad_region is not None:
-            regions["grad"] = self.grad_region.cost()
-        for given, r in self.enter.items():
-            regions["solve_in" + (":theta0" if given else "")] = r.cost()
-        for R, r in self.leave.items():
-            regions["solve_out" + (f":restarts={R}" if R > 1 else "")] = \
-                r.cost()
-        return dict(kind=self.kind, route=self.route, k=self.k,
-                    batch=tuple(self.Q0.shape),
-                    static_bytes=_nbytes(self.buffers(), self.copies()),
-                    **{k: sum(r[k] for r in regions.values())
-                       for k in ("pool_bytes", "capture_ms",
-                                 "instantiate_ms")},
-                    replays=self.replays, regions=regions)
+    def tally(self, n: int) -> None:
+        """n iterations of chunk replays ran: one iteration's share of
+        the kernel counters n times, and GRAPHS["chunk"]."""
+        for c, add in zip(_COUNTERS, self.per_it):
+            for name, v in add.items():
+                c[name] += v * n
+        GRAPHS["chunk"] += n
 
 
 def _skeleton(obj, tensors: list):
@@ -473,33 +531,13 @@ def _shared(world, batched: bool):
     return world.grid if isinstance(world, CompositeWorld) else None
 
 
-def _keyed(step) -> tuple[tuple, list]:
-    """(skeleton, tensors): the structure of the step's robot, world,
-    constraints and DeviceOps, and the tensors a graph names by identity
-    and version, the robot's and DeviceOps'. The world and the constraints
-    are named by type, shapes and dtypes: a shared world's tensors and the
-    constraints' are the graph's inputs (:func:`_inputs`, loaded at each
-    solve), a per-scenario world's rows are loaded like the state."""
+def _inputs(world, constraints=()) -> list:
+    """The tensors of a shared world and of the constraints, in the
+    skeleton's order: what a call loads into its entry's copies
+    (:func:`_load_inputs`)."""
     tensors = []
-    skeleton = (_skeleton((step.robot, step.ops), tensors),
-                _skeleton((_shared(step.world, step.world_batched),
-                           tuple(step.constraints)), []),
-                type(step.world).__qualname__,
-                _skeleton(_rows(step.world, step.world_batched), []))
-    return skeleton, tensors
-
-
-def _inputs(world, batched: bool = False, constraints=()) -> list:
-    """The tensors of the shared part of a world (a composite's grid, where
-    the world has rows) and of the constraints, in the skeleton's order:
-    what a call loads into its graph's copies (:func:`_load_inputs`)."""
-    tensors = []
-    _skeleton((_shared(world, batched), tuple(constraints)), tensors)
+    _skeleton((world, tuple(constraints)), tensors)
     return tensors
-
-
-def _step_inputs(step) -> list:
-    return _inputs(step.world, step.world_batched, step.constraints)
 
 
 def _held(tensors) -> tuple:
@@ -524,8 +562,10 @@ def _load_inputs(entry, bufs: list, values: list) -> None:
         copy_with_mirror(buf, v)
         GRAPHS["inputs_loaded"] += 1
         moved += 1
+    if not moved:
+        return 0, 0
     entry.held = _held(values)
-    return moved, _rewrite(entry) if moved else 0
+    return moved, _rewrite(entry)
 
 
 def _rewrite(entry) -> int:
@@ -551,26 +591,7 @@ def _rewrite(entry) -> int:
 
 def layout(state) -> tuple:
     """The (shape, dtype) of every field of a solver state."""
-    return tuple((tuple(v.shape), v.dtype) for v in _fields(state))
-
-
-def key_of(step, shapes: tuple, how: str, k: int = CHUNK
-           ) -> tuple[tuple, list]:
-    """(key, tensors): the cache key of `step` run from a state of the
-    given layout by the loop route `how` (chunks of k), and the tensors
-    it names by identity (their versions are checked on a hit)."""
-    skeleton, tensors = _keyed(step)
-    plan = draw_plan(step.noise_fn) if how == "chunk" else None
-    key = (step.kind, step.cfg, tuple(step.Q0.shape), step.Q0.device,
-           step.hyper is None, step.world_batched, shapes, skeleton,
-           tuple(map(id, tensors)), how,
-           k if how == "chunk" else None,
-           None if plan is None else plan.key())
-    return key, tensors
-
-
-def _fields(obj) -> list:
-    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    return tuple((tuple(v.shape), v.dtype) for v in fields(state))
 
 
 def _refs(key, tensors) -> tuple:
@@ -596,7 +617,7 @@ def _lookup(key, tensors):
 
 
 def _drop(g, why: str) -> None:
-    """Free an entry's graphs and pools once the last solve that used it is
+    """Free an entry's graphs and pools once the last call that used it is
     done."""
     GRAPHS[why] += 1
     if g.released is not None:
@@ -621,8 +642,8 @@ def _purge() -> None:
 
 
 def _make_room() -> None:
-    """Evict least recently used entries down to LIMIT - 1, before a
-    capture: one pool less."""
+    """Evict least recently used entries down to LIMIT - 1: one pool
+    less."""
     while len(_CACHE) >= LIMIT:
         _drop(_CACHE.popitem(last=False)[1], "evicted")
 
@@ -649,11 +670,78 @@ def reset_counts() -> None:
 def cached() -> list[dict]:
     """What each cached entry holds and cost, oldest first: kind, batch,
     loop route, pool and static bytes, capture and instantiate ms (summed
-    over its regions, each region's under "regions") and the loop's
-    replays."""
+    over its regions, each region's under "regions") and the replays of
+    its loop (or of its one region)."""
     with _LOCK:
         _purge()
         return [g.info() for g in _CACHE.values()]
+
+
+@contextlib.contextmanager
+def entry(kind: str, *parts, build: Callable[[], Entry], robot, ops=None,
+          world=None, constraints=(), draws=None, k: int = CHUNK,
+          span: str | None = "graph.lookup"):
+    """The cached entry of a graphed program, opened under the lock:
+    ``with entry(...) as (e, new):``. Its key is `kind`, the hashable
+    `parts`, the structure of the robot, DeviceOps, shared world and
+    constraints, the robot's and DeviceOps' tensors by identity (their
+    versions checked: an entry whose versions moved is dropped), and,
+    with `draws` = (step kind, noise_fn), the loop's route (chunks of k).
+    The lookup is a `span` (with `hit`; None: no span). On a miss, room is
+    made and build() makes the entry (new is True); it is cached when the
+    block ends with a region captured. At the block's end the entry's
+    buffers are marked in use until the device's queued work is done."""
+    with _LOCK:
+        with (tracing.span(span) if span else tracing.OFF) as s:
+            if draws is not None:
+                how = route(*draws)
+                plan = draw_plan(draws[1]) if how == "chunk" else None
+                parts += (how, k if how == "chunk" else None,
+                          None if plan is None else plan.key())
+            tensors = []
+            key = (kind, *parts, _skeleton((robot, ops), tensors),
+                   _skeleton((world, tuple(constraints)), []),
+                   tuple(map(id, tensors)))
+            _purge()
+            e = _lookup(key, tensors)
+            s.set(hit=e is not None)
+        new = e is None
+        if new:
+            _make_room()
+            e = build()
+            e.key, e.refs = key, _refs(key, tensors)
+            e.versions = tuple(t._version for t in tensors)
+            e.held = _held(_inputs(world, constraints))
+        yield e, new
+        if new and any(r.graph is not None for r in e.regions()):
+            _make_room()
+            _CACHE[key] = e
+        _release(e)
+
+
+def _open(step, shapes: tuple, k: int, build):
+    """:func:`entry` of a solve shape: `step`'s kind, config, batch,
+    device, HyperParams or none, world rows, the state's layout `shapes`
+    and its loop route."""
+    return entry(step.kind, step.cfg, tuple(step.Q0.shape), step.Q0.device,
+                 step.hyper is None, step.world_batched, shapes,
+                 type(step.world).__qualname__,
+                 _skeleton(_rows(step.world, step.world_batched), []),
+                 build=build, robot=step.robot, ops=step.ops,
+                 world=_shared(step.world, step.world_batched),
+                 constraints=step.constraints,
+                 draws=(step.kind, step.noise_fn), k=k)
+
+
+def _solve_entry(step, state, k: int, QN=None) -> Entry:
+    """A new entry of a solve shape: its loop from `state` and nothing
+    else captured yet."""
+    g = Loop.over(step, state, k, QN)
+    s = g.step
+    return Entry(kind=step.kind, device=step.Q0.device,
+                 batch=tuple(step.Q0.shape), robot=s.robot, ops=s.ops,
+                 world=_shared(s.world, s.world_batched),
+                 constraints=s.constraints, loop=g, parts={"loop": g})
 
 
 def _stream(device, body: bool = False) -> torch.cuda.Stream:
@@ -679,6 +767,12 @@ def _on(stream, fn):
     for v in tensors:
         v.record_stream(cur)
     return out
+
+
+def eagerly(device, fn):
+    """fn() run eagerly on the device's capture stream (a miss's work
+    before its capture: it sets up that stream's cuBLAS workspace)."""
+    return _on(_stream(device), fn)
 
 
 def _if_node(pred: torch.Tensor, fn: Callable[[], None]) -> None:
@@ -751,7 +845,7 @@ def _snapshot() -> list[dict]:
     return [dict(c) for c in _COUNTERS]
 
 
-def _record(r: _Region, body: Callable[[], None], device,
+def _record(r: Region, body: Callable[[], None], device,
             generator=None) -> None:
     """body() captured into the region r on the device's capture stream;
     what the capture counted moves to r's replays. The allocator's cached
@@ -772,22 +866,24 @@ def _record(r: _Region, body: Callable[[], None], device,
     GRAPHS["captured"] += 1
 
 
-def _captured(r: _Region, device, body=None) -> None:
-    """_record of r (its body, or `body`) as a span of its own."""
+def capture(r: Region, device, body=None) -> None:
+    """r captured from its body (or `body`, a bound method of an object
+    with the buffers it writes), as a `graph.capture` span."""
     with tracing.span("graph.capture", region=r.region) as s:
         _record(r, body or r.body, device)
         s.set(capture_ms=r.capture_ms, instantiate_ms=r.instantiate_ms)
 
 
-def _record_loop(g: _Graph, device) -> None:
-    """g's loop region captured: a chunk (its counts become one
+def _record_loop(e: Entry, device) -> None:
+    """e's loop region captured: a chunk (its counts become one
     iteration's share, added per iteration run) or one iteration (CHOMP's
-    as two regions, its gradient apart: the grad region)."""
+    as two regions, its gradient apart: the entry's grad region)."""
+    g = e.loop
     if g.route != "chunk":
         if g.grad is not None:
-            g.grad_region = _Stage(region="grad", entry=g,
-                                   fn=_Graph._grad)
+            g.grad_region = _Stage(region="grad", owner=g, fn=Loop._grad)
             _record(g.grad_region, g.grad_region.body, device)
+            e.parts["grad"] = g.grad_region
         _record(g, g.iteration, device)
         return
     _record(g, g.chunk, device, g.gen)
@@ -798,12 +894,6 @@ def _record_loop(g: _Graph, device) -> None:
                                f"counts: {c}")
         per_it.append({name: n // g.k for name, n in c.items()})
     g.per_it, g.counts = tuple(per_it), ()
-
-
-def _add_counts(per_it: tuple, n: int) -> None:
-    for c, add in zip(_COUNTERS, per_it):
-        for name, v in add.items():
-            c[name] += v * n
 
 
 def _static_world(world, batched: bool, own):
@@ -819,105 +909,68 @@ def _static_world(world, batched: bool, own):
     return bufs
 
 
-def _buffers(step, state, key, tensors, how: str, k: int = CHUNK,
-             QN=None, own=clone_with_mirrors) -> _Graph:
-    """A graph's static buffers for `step` from `state` (QN: the wrapped
-    goal where step.QN is the goal before wrapping), the loop route `how`
-    in chunks of k, and its step over them and over `own`'s copies of the
-    robot, world, constraints and DeviceOps (by default clones with their
-    host copies: the graph holds nothing of the caller's but weak
-    references, so it goes when they do, and its step keeps what the
-    captured kernels read (the copies, and what building the step put on
-    the device) for as long as it may replay)."""
-    dev = step.Q0.device
-    hyper = (None if step.hyper is None
-             else map_tensors(step.hyper, torch.clone))
-    plan = (draw_plan(step.noise_fn)
-            if how == "chunk" and step.kind != "chomp" else None)
-    cut = plan is not None and plan.cut()
-    g = _Graph(key=key, refs=_refs(key, tensors),
-               versions=tuple(t._version for t in tensors),
-               kind=step.kind, route=how, k=k, Q0=step.Q0.clone(),
-               QN=(step.QN if QN is None else QN).clone(),
-               QN_in=step.QN.clone(), hyper=hyper,
-               state=map_tensors(state, torch.clone),
-               draws=tuple(torch.empty(shape, dtype=torch.float32,
-                                       device=dev)
-                           for shape in step.draw_shapes()),
-               active=torch.empty_like(state.done),
-               finished=torch.empty((), dtype=torch.bool, device=dev),
-               ctl=torch.zeros(2, dtype=torch.int32, device=dev),
-               limit=torch.zeros((), dtype=torch.int32, device=dev),
-               host=torch.zeros((2, 2), dtype=torch.int32,
-                                pin_memory=dev.type == "cuda"),
-               full=(tuple(torch.empty(s, dtype=torch.float32, device=dev)
-                           for s in plan.shapes) if cut else ()),
-               rows=plan.index(dev).clone() if cut else None,
-               gen=None if plan is None else torch.Generator(device=dev))
-    g.step = step.over(
-        Q0=g.Q0, QN=g.QN, hyper=hyper, noise_fn=None,
-        robot=own(step.robot),
-        world=_static_world(step.world, step.world_batched, own),
-        constraints=tuple(map(own, step.constraints)),
-        ops=own(step.ops))
-    if how != "chunk" and getattr(g.step.advance, "phases", None):
-        g.grad = torch.empty_like(g.state.theta)
-    g.held = _held(_step_inputs(step))
-    return g
-
-
-def _fits(g: _Graph, state) -> bool:
+def _fits(g: Loop, state) -> bool:
     """The state has the static state's strides, so the replayed kernels
     see the layout the eager loop's would."""
     return all(a.stride() == b.stride()
-               for a, b in zip(_fields(g.state), _fields(state)))
+               for a, b in zip(fields(g.state), fields(state)))
 
 
-def _wait(g, device) -> None:
-    """The current stream waits for the last solve that used g's buffers
+def _wait(e: Entry) -> None:
+    """The current stream waits for the last call that used e's buffers
     (on whichever stream it ran)."""
-    if g.released is not None:
-        torch.cuda.current_stream(device).wait_event(g.released)
+    if e.released is not None:
+        torch.cuda.current_stream(e.device).wait_event(e.released)
 
 
-def _release(g, device) -> None:
-    """Mark g's buffers as in use until the current stream's queued work
+def _release(e: Entry) -> None:
+    """Mark e's buffers as in use until the current stream's queued work
     is done."""
-    if device.type == "cuda":
-        g.released = torch.cuda.Event()
-        g.released.record(torch.cuda.current_stream(device))
+    if e.device.type == "cuda":
+        e.released = torch.cuda.Event()
+        e.released.record(torch.cuda.current_stream(e.device))
 
 
-def _pairs(g: _Graph, step) -> list:
+def load(e: Entry, pairs, world=None, constraints=(),
+         span: str = "graph.load") -> None:
+    """A call's load of e, as a `span` with the inputs copied and the
+    nodes rewritten: after the device work of e's last call, each
+    (buffer, value) of `pairs` copied, and the call's shared world and
+    constraints into e's copies of them (:func:`_load_inputs`)."""
+    with tracing.span(span) as s:
+        _wait(e)
+        for buf, v in pairs:
+            buf.copy_(v)
+        n, updates = _load_inputs(e, e.inputs(),
+                                  _inputs(world, constraints))
+        s.set(inputs=n, node_updates=updates)
+
+
+def _pairs(g: Loop, step) -> list:
     """(buffer, value) pairs of what a solve loads besides its state and
     its inputs: Q0, HyperParams, world rows and the draw's rows."""
     pairs = [(g.Q0, step.Q0)]
     if step.hyper is not None:
-        pairs += zip(_fields(g.hyper), _fields(step.hyper))
+        pairs += zip(fields(g.hyper), fields(step.hyper))
     rows = g.rows_world()
     if rows is not None:
-        pairs += zip(_fields(rows), _fields(_rows(step.world, True)))
+        pairs += zip(fields(rows), fields(_rows(step.world, True)))
     if g.rows is not None:
         pairs.append((g.rows, draw_plan(step.noise_fn).index(g.rows.device)))
     return pairs
 
 
-def _load(g: _Graph, step, state, QN=None) -> None:
+def _load_state(e: Entry, step, state, QN=None) -> None:
     """The solve's state, Q0/QN (QN: the wrapped goal where step.QN is not
-    yet), HyperParams, rows and inputs into the static buffers and copies,
-    after the last solve that used them."""
-    with tracing.span("graph.load") as s:
-        _wait(g, g.Q0.device)
-        pairs = [(g.QN, step.QN if QN is None else QN),
-                 *zip(_fields(g.state), _fields(state)), *_pairs(g, step)]
-        for buf, v in pairs:
-            buf.copy_(v)
-        n, updates = _load_inputs(g, _step_inputs(g.step), _step_inputs(step))
-        torch.logical_not(g.state.done, out=g.active)
-        s.set(inputs=n, node_updates=updates)
+    yet), HyperParams, rows and inputs into e's loop buffers and copies."""
+    g = e.loop
+    load(e, [(g.QN, step.QN if QN is None else QN),
+             *zip(fields(g.state), fields(state)), *_pairs(g, step)],
+         _shared(step.world, step.world_batched), step.constraints)
+    torch.logical_not(g.state.done, out=g.active)
 
 
-def _settle(g: _Graph, step, state, it_limit: int, count: int):
+def _settle(g: Loop, step, state, it_limit: int, count: int):
     """The solve's next iteration, run eagerly over g's step on the stream
     g's loop is captured from (it builds the kernels' libraries, settles
     their parameter routes and the stream's cuBLAS workspace), and one more
@@ -950,26 +1003,34 @@ def _settle(g: _Graph, step, state, it_limit: int, count: int):
     return state, count, False
 
 
-def _iterate(g: _Graph, step, it_limit: int, count: int) -> int:
-    """Per-iteration replays from g's loaded state until every row is done
-    or the count reaches it_limit: each the draw into g's buffers, one
-    replay (a CHOMP iteration's grad region first, under a `chomp.grad`
-    span) and the read of the loop's condition. Returns the count."""
-    start = count
-    while True:
-        step.draw_into(count, g.active, g.draws)
-        if g.grad_region is not None:
-            with tracing.span("chomp.grad", device=True):
-                g.grad_region.replay()
-        g.replay()
-        count += 1
-        GRAPHS["flag_reads"] += 1
-        if count >= it_limit or _finished(g):
-            GRAPHS[g.route] += count - start
-            return count
+def ready(e: Entry, new: bool, step, state, it_limit: int, count: int = 0,
+          QN=None, keep: bool = False):
+    """Before e's loop replays from `state` (count iterations run): on a
+    new entry, or a state of other strides, the eager iterations of
+    _settle, and a new entry's loop captured unless the solve ended in
+    them (with `keep`, whether or not); then the state loaded, unless a
+    new entry's solve ended eagerly without `keep`. Returns (state, count,
+    over): over, the solve is over (its state then the eager loop's)."""
+    g = e.loop
+    over = count >= it_limit
+    if not over and (new or not _fits(g, state)):
+        if not new:
+            _load_state(e, step, state, QN)  # Q0/QN/hyper/rows of this call
+        # a cached entry whose layout does not fit settles eagerly and
+        # captures nothing: its iterations stay in the caller's span
+        with (tracing.span("graph.capture", region=g.region) if new
+              else tracing.OFF) as s:
+            state, count, over = _settle(g, step, state, it_limit, count)
+            if new and (keep or not over):
+                _record_loop(e, step.Q0.device)
+                s.set(capture_ms=g.capture_ms,
+                      instantiate_ms=g.instantiate_ms)
+    if keep or not (new and over):
+        _load_state(e, step, state, QN)
+    return state, count, over
 
 
-def _finished(g: _Graph) -> bool:
+def _finished(g: Loop) -> bool:
     """The host's read of the per-iteration loop's condition."""
     with tracing.span("graph.flag_wait"):
         return bool(g.finished)
@@ -980,7 +1041,7 @@ class _Reads:
     slot (two, taken in turn) behind an event after each replay, read only
     once the next chunk is queued; with `mask`, the done mask too."""
 
-    def __init__(self, g: _Graph, mask: bool):
+    def __init__(self, g: Loop, mask: bool):
         self.g, self.slot = g, 0
         self.done = (torch.zeros((2,) + tuple(g.state.done.shape),
                                  dtype=torch.bool, pin_memory=g.ctl.is_cuda)
@@ -1009,7 +1070,7 @@ class _Reads:
         return bool(go), count, mask
 
 
-def _chunks(g: _Graph, step, it_limit: int, count: int, mask=False):
+def _chunks(g: Loop, step, it_limit: int, count: int, mask=False):
     """Chunk replays from g's loaded state until the device's condition
     fails (every row done, or the count at it_limit): chunk j+1 is queued
     before chunk j's condition is read. Returns (count, done mask or
@@ -1037,14 +1098,13 @@ def _chunks(g: _Graph, step, it_limit: int, count: int, mask=False):
             break
         posted = ahead
     n = count - start
-    _add_counts(g.per_it, n)
-    GRAPHS["chunk"] += n
+    g.tally(n)
     if plan is not None:
         _rewind(g, plan.generator, n)
     return count, done
 
 
-def _rewind(g: _Graph, generator, n: int) -> None:
+def _rewind(g: Loop, generator, n: int) -> None:
     """`generator` moved as far as n eager iterations' draws move it (the
     chunk's replays moved g.gen by whole chunks). On the CPU, where only
     tests emulate a graph and a skipped body draws nothing, g.gen's state
@@ -1055,7 +1115,7 @@ def _rewind(g: _Graph, generator, n: int) -> None:
         generator.set_state(g.gen.get_state())
 
 
-def _loop(g: _Graph, step, it_limit: int, count: int, mask: bool = False):
+def _loop(g: Loop, step, it_limit: int, count: int, mask: bool = False):
     """g's loop from its loaded state: chunks or per-iteration replays.
     Returns the count, and with mask=True (count, the done mask read with
     the loop's condition)."""
@@ -1064,250 +1124,215 @@ def _loop(g: _Graph, step, it_limit: int, count: int, mask: bool = False):
         if g.route == "chunk":
             count, done = _chunks(g, step, it_limit, count, mask)
         else:
-            count = _iterate(g, step, it_limit, count)
+            count = g.iterate(step, it_limit, count)
             done = g.state.done.cpu().numpy() if mask else None
         s.set(chunks=g.replays - replays, iterations=count - start)
     return (count, done) if mask else count
 
 
-def _ready(g: _Graph, new: bool, step, state, it_limit: int, count: int,
-           QN=None):
-    """Before g's loop replays from `state`: on a new entry (or a state of
-    other strides) the eager iterations of _settle, and a new entry's loop
-    captured and cached, unless the solve ended in them; then the state
-    loaded. Returns (state, count, over): over, the solve ended eagerly
-    (state is then its own, and a new entry not cached)."""
-    if new or not _fits(g, state):
-        if not new:
-            _load(g, step, state, QN)     # Q0/QN/hyper/rows of this solve
-        # a cached entry whose layout does not fit settles eagerly and
-        # captures nothing: its iterations stay in the caller's span
-        with (tracing.span("graph.capture", region=g.region) if new
-              else tracing.OFF) as s:
-            state, count, over = _settle(g, step, state, it_limit, count)
-            if over:
-                return state, count, True
-            if new:
-                _make_room()
-                _record_loop(g, step.Q0.device)
-                _CACHE[g.key] = g
-                s.set(capture_ms=g.capture_ms,
-                      instantiate_ms=g.instantiate_ms)
-    _load(g, step, state, QN)
-    return state, count, False
+class Handle:
+    """A program's solver loop as its caller drives it (:func:`solve`'s
+    `loop`): `state`, the solve's state, and :meth:`run`, its loop from
+    there. Graphed (`entry`), the state is the entry's static state and
+    the loop its chunk or per-iteration replays; eager (`why`, the
+    reason), the state is the eager loop's own and the loop one
+    step(state, count) an iteration. `step` draws the noise."""
+
+    def __init__(self, step, state=None, why: str | None = None,
+                 entry: Entry | None = None):
+        self.step, self.why, self.entry = step, why, entry
+        self.state = state if entry is None else entry.loop.state
+
+    @property
+    def QN(self) -> torch.Tensor:
+        """The wrapped goals."""
+        return self.step.QN if self.entry is None else self.entry.loop.QN
+
+    def run(self, end: int, count: int, mask: bool = False):
+        """The loop from `state` after `count` iterations until every row
+        is done or the count reaches `end`: the count, and with mask=True
+        (count, the done mask read with the loop's condition). The eager
+        loop makes one host sync an iteration (and, under debug_mode,
+        checks the state after each)."""
+        if self.entry is not None:
+            return _loop(self.entry.loop, self.step, end, count, mask)
+        check = tracing.debug_enabled()
+        state = self.state
+        while count < end and not bool(state.done.all()):
+            state = self.step(state, count)
+            GRAPHS["eager:" + self.why] += 1
+            if check:
+                tracing.check_state(state, count)
+            count += 1
+        self.state = state
+        return (count, state.done.cpu().numpy()) if mask else count
+
+    def put(self, part, rows: torch.Tensor) -> None:
+        """part, the state of the rows `rows`, written back into `state`:
+        in place in the entry's static state; eagerly as new tensors (the
+        eager state may alias a caller's tensor, as init_state's warm
+        start)."""
+        if self.entry is not None:
+            for a, b in zip(fields(self.state), fields(part)):
+                a.index_copy_(0, rows, b)
+            return
+        self.state = dataclasses.replace(self.state, **{
+            f.name: getattr(self.state, f.name).index_copy(
+                0, rows, getattr(part, f.name))
+            for f in dataclasses.fields(part)})
+
+    def hold(self) -> None:
+        """Keep a graphed solve's entry the most recently used (:func:`hold`)
+        while other entries are captured and replayed."""
+        if self.entry is not None:
+            hold(self.entry)
 
 
-def _first_solve(g: _Graph, step, state, it_limit: int) -> int:
-    """A whole solve of `step` from `state` that captures g's loop on its
-    way and leaves its last state in g's static state (the MPC tick's
-    first solve): its eager iterations (_settle), the capture, whether or
-    not the solve ended in them, then replays. Returns the count."""
-    count, over = 0, it_limit <= 0
-    if not over:
-        with tracing.span("graph.capture", region=g.region) as s:
-            state, count, over = _settle(g, step, state, it_limit, 0)
-            _record_loop(g, step.Q0.device)
-            s.set(capture_ms=g.capture_ms, instantiate_ms=g.instantiate_ms)
-    _load(g, step, state)
-    if not over:
-        count = _loop(g, step, it_limit, count)
-    return count
-
-
-def run(step, state, it_limit: int, count: int, k: int = CHUNK,
+def run(step, state, it_limit: int, count: int = 0, k: int = CHUNK,
         mask: bool = False):
-    """solver.run_until's loop on the graphs of step: (state, count), and
-    with mask=True the done mask read with the loop's condition (the
-    compacted path's one read a chunk of k). The state returned is the
-    solve's own (a copy, never a graph buffer)."""
+    """solver.run_until's loop: `state` advanced by `step` until every row
+    is done or the count reaches it_limit, on the graphs of step (chunks
+    of k) but in eager_reason's cases. Returns (state, count), and with
+    mask=True the done mask read with the loop's condition (the compacted
+    path's one read a chunk). The state returned is the call's own (never
+    a graph buffer)."""
+    why = _why(step)
+    if why is not None:
+        h = Handle(step, state, why)
+        out = h.run(it_limit, count, mask)
+        return (h.state, *out) if mask else (h.state, out)
     if count >= it_limit or bool(state.done.all()):
         return (state, count, state.done.cpu().numpy()) if mask else (
             state, count)
-    with _LOCK:
-        with tracing.span("graph.lookup") as s:
-            how = route(step)
-            key, tensors = key_of(step, layout(state), how, k)
-            _purge()
-            g = _lookup(key, tensors)
-            s.set(hit=g is not None)
-        new = g is None
-        if new:
-            g = _buffers(step, state, key, tensors, how, k)
-        state, count, over = _ready(g, new, step, state, it_limit, count)
+    with _open(step, layout(state), k,
+               lambda: _solve_entry(step, state, k)) as (e, new):
+        state, count, over = ready(e, new, step, state, it_limit, count)
         if over:
             return (state, count, state.done.cpu().numpy()) if mask else (
                 state, count)
-        count = _loop(g, step, it_limit, count, mask)
-        out = map_tensors(g.state, torch.clone)
-        _release(g, g.Q0.device)
-        return (out, *count) if mask else (out, count)
+        out = _loop(e.loop, step, it_limit, count, mask)
+        state = map_tensors(e.loop.state, torch.clone)
+    return (state, *out) if mask else (state, out)
 
 
-@dataclasses.dataclass(eq=False, kw_only=True)
-class _Goal(_Region):
-    """The goal band's graph (api/plan.py resolve_goal_tolerance, JAX's
-    ``_jitted_goal``): one region over static q0, qN, the band's rows and
-    the uniforms, and the entry's copies of the robot and the world; `out`
-    is the chosen goal."""
-
-    region: str = "goal"
-    key: tuple
-    refs: tuple
-    versions: tuple
-    robot: object
-    world: object
-    cfg: object
-    fn: Callable
-    args: tuple               # q0, qN, below, above, u
-    out: torch.Tensor | None = None
-    held: tuple = ()
-    released: object = None
-
-    def body(self) -> None:
-        self.out = self.fn(self.robot, self.world, self.cfg, *self.args)
-
-    def buffers(self) -> list:
-        return list(self.args)
-
-    def regions(self) -> tuple:
-        return (self,)
-
-    def info(self) -> dict:
-        return dict(kind="goal_band", route=None, k=None,
-                    batch=tuple(self.args[0].shape),
-                    static_bytes=_nbytes(self.buffers(),
-                                         (self.robot, self.world)),
-                    **self.cost(), regions={"goal_band": self.cost()})
-
-
-def goal(fn, robot, world, cfg, q0, qN, below, above, u) -> torch.Tensor:
-    """fn(robot, world, cfg, q0, qN, below, above, u) -> the goal [..., d]
-    (api/plan.py's band) on a cached graph, the counterpart of JAX's
-    ``_jitted_goal``: one entry per robot (by identity and version), world
-    type and shapes, collision threshold and the arguments' shapes. A call
-    copies its arguments (u, the band's uniforms, included: never frozen)
-    and the world's values (_load_inputs) into the entry and replays it;
-    a miss runs fn eagerly on the capture stream, then captures it.
-    Returns the call's own tensor."""
-    tensors = []
-    skeleton = (_skeleton(robot, tensors), _skeleton(world, []))
-    args = (q0, qN, below, above, u)
-    inputs = _inputs(world)
-    key = ("goal_band", skeleton, tuple(map(id, tensors)),
-           cfg.collision_threshold, q0.device,
-           tuple((tuple(v.shape), v.dtype) for v in args))
-    dev = q0.device
-    with _LOCK:
-        with tracing.span("graph.lookup") as s:
-            _purge()
-            g = _lookup(key, tensors)
-            s.set(hit=g is not None)
-        if g is None:
-            own = clone_with_mirrors
-            g = _Goal(key=key, refs=_refs(key, tensors),
-                      versions=tuple(t._version for t in tensors),
-                      robot=own(robot), world=own(world), cfg=cfg, fn=fn,
-                      args=tuple(torch.empty(v.shape, dtype=v.dtype,
-                                             device=dev).copy_(v)
-                                 for v in args), held=_held(inputs))
-            out = _on(_stream(dev), lambda: fn(g.robot, g.world, cfg,
-                                               *g.args))
-            _make_room()
-            _captured(g, dev)
-            _CACHE[key] = g
-        else:
-            with tracing.span("graph.load") as s:
-                _wait(g, dev)
-                for buf, v in zip(g.args, args):
-                    buf.copy_(v)
-                n, updates = _load_inputs(g, _inputs(g.world), inputs)
-                s.set(inputs=n, node_updates=updates)
-            g.replay()
-            out = g.out.clone()
-        _release(g, dev)
-        return out
-
-
-def _solve_in(g: _Graph, given: bool, init) -> None:
+def _solve_in(g: Loop, given: bool, init) -> None:
     """solve-in: init (solver._init_batch) from the loaded Q0, goal and
     warm start into the static goal and state."""
     QN, state = init(g.step.robot, g.step.cfg, g.Q0, g.QN_in,
                      g.theta0 if given else None)
     g.QN.copy_(QN)
-    for buf, v in zip(_fields(g.state), _fields(state)):
+    for buf, v in zip(fields(g.state), fields(state)):
         buf.copy_(v)
     torch.logical_not(g.state.done, out=g.active)
 
 
 def solve(step, theta0, restarts: int, shapes: tuple, init, finish,
           loop=None, k: int = CHUNK):
-    """solver.solve_batch on the graphs of step (built over the goal
-    before wrapping): solve-in, the loop, solve-out. init(robot, cfg, Q0,
-    QN, theta0) -> (QN, state) is solver._init_batch, finish(step, state,
-    restarts) -> Solution its finalize (and choice of the best restart);
-    shapes is the layout of init's state. loop(g, count) -> count runs the
-    iterations from the entry's loaded state and leaves the last in it
-    (default: the loop to max_iterations, in chunks of k). A miss runs
-    init and finish eagerly on the capture stream, then captures them.
-    Returns (Solution, count); the Solution is the solve's own."""
+    """solver.solve_batch of step (built over the goal before wrapping):
+    solve-in, the loop, solve-out, on the graphs of step but in
+    eager_reason's cases. init(robot, cfg, Q0, QN, theta0) -> (QN, state)
+    is solver._init_batch, finish(step, state, restarts) -> Solution its
+    finalize (and choice of the best restart); shapes is the layout of
+    init's state. loop(h, count) -> count runs the iterations through the
+    :class:`Handle` h and leaves the last state in h.state (default: the
+    loop to max_iterations, in chunks of k). A miss runs init and finish
+    eagerly on the capture stream, then captures them. Returns (Solution,
+    count); the Solution is the solve's own."""
     it_limit = step.cfg.max_iterations
     if loop is None:
-        def loop(g, count):
-            return _loop(g, step, it_limit, count)
+        def loop(h, count):
+            return h.run(it_limit, count)
+    why = _why(step)
+    if why is not None:
+        QN, state = init(step.robot, step.cfg, step.Q0, step.QN, theta0)
+        h = Handle(step.over(QN=QN), state, why)
+        count = loop(h, 0)
+        return finish(h.step, h.state, restarts), count
     dev = step.Q0.device
     given = theta0 is not None
-    with _LOCK:
-        with tracing.span("graph.lookup") as s:
-            how = route(step)
-            key, tensors = key_of(step, shapes, how, k)
-            _purge()
-            g = _lookup(key, tensors)
-            s.set(hit=g is not None)
-        if g is not None and given in g.enter:
-            with tracing.span("graph.load") as s:
-                _wait(g, dev)
-                for buf, v in [(g.QN_in, step.QN), *_pairs(g, step),
-                               *([(g.theta0, theta0)] if given else [])]:
-                    buf.copy_(v)
-                n, updates = _load_inputs(g, _step_inputs(g.step),
-                                          _step_inputs(step))
-                s.set(inputs=n, node_updates=updates)
-            g.enter[given].replay()
-            count = loop(g, 0) if it_limit > 0 else 0
+    enter = "solve_in" + (":theta0" if given else "")
+    leave = "solve_out" + (f":restarts={restarts}" if restarts > 1 else "")
+    started = None
+
+    def begin():
+        return eagerly(dev, lambda: init(step.robot, step.cfg, step.Q0,
+                                         step.QN, theta0))
+
+    def build():
+        nonlocal started
+        started = begin()
+        return _solve_entry(step, started[1], k, started[0])
+
+    with _open(step, shapes, k, build) as (e, new):
+        g, h = e.loop, Handle(step, entry=e)
+        if enter in e.parts:
+            load(e, [(g.QN_in, step.QN), *_pairs(g, step),
+                     *([(g.theta0, theta0)] if given else [])],
+                 _shared(step.world, step.world_batched), step.constraints)
+            e.parts[enter].replay()
+            count = loop(h, 0) if it_limit > 0 else 0
         else:
-            QN, state = _on(_stream(dev), lambda: init(
-                step.robot, step.cfg, step.Q0, step.QN, theta0))
-            new = g is None
-            if new:
-                g = _buffers(step, state, key, tensors, how, k, QN=QN)
-            count, over = 0, it_limit <= 0
+            QN, state = started if new else begin()
+            state, count, over = ready(e, new, step, state, it_limit, 0, QN)
+            if over and new:
+                return eagerly(dev, lambda: finish(
+                    step.over(QN=QN), state, restarts)), count
             if not over:
-                state, count, over = _ready(g, new, step, state, it_limit,
-                                            0, QN)
-            if over and g.key not in _CACHE:
-                sol = _on(_stream(dev), lambda: finish(
-                    step.over(QN=QN), state, restarts))
-                return sol, count
-            if over:
-                _load(g, step, state, QN)
-            else:
-                count = loop(g, count)
+                count = loop(h, count)
             if given and g.theta0 is None:
                 g.theta0 = theta0.clone()
-            g.enter[given] = _Stage(
-                region="solve-in", entry=g,
-                fn=lambda e, t=given: _solve_in(e, t, init))
-            _captured(g.enter[given], dev)
-        out = g.leave.get(restarts)
-        if out is None:
-            sol = map_tensors(_on(_stream(dev), lambda: finish(
+            stage = _Stage(region="solve-in", owner=e,
+                           fn=lambda e, t=given: _solve_in(e.loop, t, init))
+            capture(stage, dev)
+            e.parts[enter] = stage
+        stage = e.parts.get(leave)
+        if stage is None:
+            sol = map_tensors(eagerly(dev, lambda: finish(
                 g.step, g.state, restarts)), torch.clone)
-            out = g.leave[restarts] = _Stage(
-                region="solve-out", entry=g,
-                fn=lambda e, R=restarts: finish(e.step, e.state, R))
-            _captured(out, dev)
+            stage = _Stage(region="solve-out", owner=e,
+                           fn=lambda e, R=restarts: finish(
+                               e.loop.step, e.loop.state, R))
+            capture(stage, dev)
+            e.parts[leave] = stage
         else:
-            out.replay()
-            sol = map_tensors(out.out, torch.clone)
-        _release(g, dev)
+            stage.replay()
+            sol = map_tensors(stage.out, torch.clone)
         return sol, count
+
+
+def goal(fn, robot, world, cfg, q0, qN, below, above, u) -> torch.Tensor:
+    """fn(robot, world, cfg, q0, qN, below, above, u) -> the goal [..., d]
+    (api/plan.py's band) on a cached graph but in eager_reason's cases,
+    the counterpart of JAX's ``_jitted_goal``: one entry per robot (by
+    identity and version), world type and shapes, collision threshold and
+    the arguments' shapes. A call copies its arguments (u, the band's
+    uniforms, included: never frozen) and the world's values into the
+    entry and replays it; a miss runs fn eagerly on the capture stream,
+    then captures it. Returns the call's own tensor."""
+    dev = q0.device
+    if eager_reason(dev, robot, world=world) is not None:
+        return fn(robot, world, cfg, q0, qN, below, above, u.to(dev))
+    args = (q0, qN, below, above, u)
+
+    def build():
+        e = Entry(kind="goal_band", device=dev, batch=tuple(q0.shape),
+                  robot=clone_with_mirrors(robot),
+                  world=clone_with_mirrors(world),
+                  static=[torch.empty(v.shape, dtype=v.dtype,
+                                      device=dev).copy_(v) for v in args])
+        e.parts["goal_band"] = _Stage(region="goal", owner=e, fn=lambda e: fn(
+            e.robot, e.world, cfg, *e.static))
+        return e
+
+    with entry("goal_band", cfg.collision_threshold, dev,
+               tuple((tuple(v.shape), v.dtype) for v in args),
+               build=build, robot=robot, world=world) as (e, new):
+        stage = e.parts["goal_band"]
+        if new:
+            out = eagerly(dev, lambda: stage.fn(e))
+            capture(stage, dev)
+        else:
+            load(e, zip(e.static, args), world)
+            stage.replay()
+            out = stage.out.clone()
+    return out

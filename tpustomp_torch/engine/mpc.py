@@ -14,16 +14,21 @@ Differences from the JAX package, by design:
   - No jit/scan/vmap: the tick loop is a Python loop, the batch axis is
     written out, and `run_mpc` is `run_mpc_batch` at B=1 (as `plan` is
     `plan_batch` at B=1). On the card a tick replays CUDA graphs, the
-    counterpart of the compiled `lax.scan` body (`_Tick`): its own work
-    before the solve (steps 1-3 and the solver's initial state), the
-    solver's loop (engine/graph.py), and its work after it (the solve's
-    finalize and step 5). With the default noise the loop is
+    counterpart of the compiled `lax.scan` body: `_Tick`, an entry of
+    engine/graph.py's cache (graph.Entry), opened, loaded and captured
+    through that module's interface (graph.entry, graph.load,
+    graph.ready, graph.capture). This module keeps what is the tick's:
+    its regions before the solve (steps 1-3 and the solver's initial
+    state) and after it (the solve's finalize and step 5), and the
+    generator arithmetic of its draws; the loop between them is
+    graph.py's (graph.Loop). With the default noise the loop is
     ceil(max_iterations / graph.CHUNK) chunk replays whose condition and
     draws are on the device, so an episode makes no host read between its
     load and its copy-out; a caller's noise_fn keeps the draw on the host
     and one replay and flag read an iteration. The static world is an
-    input of the tick's graphs (its values loaded at each episode), so a
-    grid edited between chunks of ticks replays the cached tick.
+    input of the entry (its values loaded at each episode), so a grid
+    edited between chunks of ticks replays the cached tick. The eager
+    tick runs in graph.eager_reason's cases.
   - `MPCState` carries no PRNG key. Noise is an argument: by default one
     ``torch.randn`` [d, B, K, N] per solver iteration from an explicit
     generator (engine/sampling.draw_z; `_TickDraws`: exactly
@@ -41,14 +46,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
 import torch
 
-from tpustomp_torch._tensors import (clone_with_mirrors, map_tensors,
-                                     shared_copy, to_device)
+from tpustomp_torch._tensors import (clone_with_mirrors, fields,
+                                     map_tensors, shared_copy, to_device)
 from tpustomp_torch.api.config import PlannerConfig, check_supported
 from tpustomp_torch.api.plan import _resolve_device, resolve_backend
 from tpustomp_torch.dynamics.device import DeviceOps, device_ops
@@ -297,7 +301,7 @@ def _eager_tick(robot, cfg, ops, state, radius, world_dt, noise_fn,
 def _copy(dst, src) -> None:
     """src's tensors into dst's, field by field through nested dataclasses
     (a tensor that is dst's own is left as it is)."""
-    for a, b in zip(graph._fields(dst), graph._fields(src)):
+    for a, b in zip(fields(dst), fields(src)):
         if isinstance(a, torch.Tensor):
             if a is not b:
                 a.copy_(b)
@@ -306,27 +310,18 @@ def _copy(dst, src) -> None:
 
 
 @dataclasses.dataclass(eq=False, kw_only=True)
-class _Tick:
-    """A graphed tick: three captured regions over static buffers, one
-    cache entry of engine/graph.py. `enter` (:meth:`tick_in`) computes
-    _tick_in from the static MPCState `state` and `radius` into `tin`,
-    whose world, q_next, QN and state are the loop graph `loop`'s
-    buffers; `loop` replays `n` chunks a tick (route "chunk": no host
-    read) or once an iteration; `leave` (:meth:`tick_out`) writes _tick_out
-    into `state` and adds the tick's iterations to `total`. Between ticks
-    the state stays in its buffers: an episode loads it once and copies it
-    out once. The regions run over the entry's own copies of the robot,
-    DeviceOps and static world: its key names the robot and DeviceOps by
-    identity and version, the static world by type and shapes (its values
-    are loaded into the copy at each episode, engine/graph.py
-    _load_inputs)."""
+class _Tick(graph.Entry):
+    """A graphed tick: an engine/graph.py entry of three regions over
+    static buffers. "tick_in" (:meth:`tick_in`) computes _tick_in from the
+    static MPCState `state` and `radius` into `tin`, whose world, q_next,
+    QN and state are the loop's buffers; "loop" replays `n` chunks a tick
+    (route "chunk": no host read) or once an iteration; "tick_out"
+    (:meth:`tick_out`) writes _tick_out into `state` and adds the tick's
+    iterations to `total`. Between ticks the state stays in its buffers:
+    an episode loads it once and copies it out once. The regions run over
+    the entry's own robot, DeviceOps and static world (`world`, the
+    entry's input, loaded at each episode)."""
 
-    key: tuple
-    refs: tuple
-    versions: tuple
-    robot: RobotSpec
-    ops: DeviceOps
-    static_world: object
     cfg: PlannerConfig
     world_dt: float
     goal_eps: float
@@ -334,20 +329,12 @@ class _Tick:
     state: MPCState
     radius: torch.Tensor
     tin: _TickIn
-    loop: graph._Graph
     n: int                    # chunk replays a tick
     total: torch.Tensor       # int32 []: iterations the ticks ran
-    enter: graph._Region = dataclasses.field(
-        default_factory=lambda: graph._Region(region="tick-in"))
-    leave: graph._Region = dataclasses.field(
-        default_factory=lambda: graph._Region(region="tick-out"))
-    held: tuple = ()          # the static world's tensors loaded last
-    released: object = None
 
     def tick_in(self) -> None:
         _copy(self.tin, _tick_in(self.robot, self.cfg, self.state,
-                                 self.radius, self.world_dt,
-                                 self.static_world))
+                                 self.radius, self.world_dt, self.world))
         torch.logical_not(self.loop.state.done, out=self.loop.active)
         self.loop.ctl[1].zero_()
 
@@ -358,75 +345,60 @@ class _Tick:
         self.total.add_(self.loop.ctl[1])
 
     def buffers(self) -> list:
-        return [*graph._fields(self.state), self.radius, self.tin.centers,
+        return [*fields(self.state), self.radius, self.tin.centers,
                 self.tin.theta0, self.total, *self.loop.buffers()]
 
-    def regions(self) -> tuple:
-        return (self.enter, self.loop, self.leave)
 
-    def info(self) -> dict:
-        regions = dict(tick_in=self.enter.cost(),
-                       loop=self.loop.cost(),
-                       tick_out=self.leave.cost())
-        return dict(
-            kind="mpc_tick", route=self.loop.route, k=self.loop.k,
-            batch=tuple(self.state.q.shape),
-            static_bytes=graph._nbytes(self.buffers(), (
-                self.robot, self.ops, self.static_world)),
-            **{k: sum(r[k] for r in regions.values())
-               for k in ("pool_bytes", "capture_ms", "instantiate_ms")},
-            replays=self.loop.replays, regions=regions)
-
-
-def _first_tick(key, tensors, robot, cfg, ops, state, radius, world_dt,
-                static_world, goal_eps, goal_flush, source, how) -> _Tick:
-    """Tick 0 of an episode that missed the cache, run as a graphed tick's
-    warm-up over the new entry's buffers: _tick_in eagerly, the solve
-    through engine/graph.py's first solve (it captures the loop), _tick_out
-    eagerly (both on the capture stream, whose cuBLAS workspace they set
-    up); then both regions are captured and the entry cached. Its state
-    after tick 0 is in its static state, and the default noise's stream
-    at tick 1's first draw."""
+def _first_tick(robot, cfg, ops, state, radius, world_dt, static_world,
+                goal_eps, goal_flush, source) -> _Tick:
+    """The entry of a miss, built by running tick 0 as its warm-up over its
+    buffers: _tick_in eagerly, the solve's eager iterations, the loop's
+    capture and its replays (graph.ready), _tick_out eagerly (both on the
+    capture stream, whose cuBLAS workspace they set up), then tick-in and
+    tick-out captured. Its state after tick 0 is in its static state, and
+    the default noise's stream at tick 1's first draw."""
     own = clone_with_mirrors
     robot, ops = own(robot), own(ops)
-    held = graph._held(graph._inputs(static_world))
     static_world = None if static_world is None else own(static_world)
     state, radius = map_tensors(state, torch.clone), radius.clone()
     dev = state.q.device
-    tin = graph._on(graph._stream(dev), lambda: _tick_in(
+    tin = graph.eagerly(dev, lambda: _tick_in(
         robot, cfg, state, radius, world_dt, static_world))
     solver._check_batch(cfg, None, tin.q_next, tin.world, True, None)
     step = solver.make_step(robot, tin.world, cfg, ops, tin.q_next, tin.QN,
                             _TickNoise(source, 0), world_batched=True)
-    graph._make_room()
-    loop = graph._buffers(step, tin.state, None, (), how,
-                          min(graph.CHUNK, max(cfg.max_iterations, 1)),
-                          own=lambda x: x)
+    loop = graph.Loop.over(step, tin.state,
+                           min(graph.CHUNK, max(cfg.max_iterations, 1)),
+                           own=lambda x: x)
     tick = _Tick(
-        key=key, refs=graph._refs(key, tensors),
-        versions=tuple(t._version for t in tensors), robot=robot, ops=ops,
-        static_world=static_world, cfg=cfg, world_dt=world_dt,
-        goal_eps=goal_eps, goal_flush=goal_flush, state=state,
-        radius=radius, loop=loop, n=-(-cfg.max_iterations // loop.k),
+        kind="mpc_tick", device=dev, batch=tuple(state.q.shape),
+        robot=robot, ops=ops, world=static_world, loop=loop,
+        parts=dict(tick_in=graph.Region(region="tick-in"), loop=loop,
+                   tick_out=graph.Region(region="tick-out")),
+        cfg=cfg, world_dt=world_dt, goal_eps=goal_eps,
+        goal_flush=goal_flush, state=state, radius=radius,
+        n=-(-cfg.max_iterations // loop.k),
         total=torch.zeros((), dtype=torch.int32, device=dev),
         tin=_TickIn(tin.centers.clone(), loop.step.world, loop.Q0,
-                    tin.theta0.clone(), loop.QN, loop.state), held=held)
+                    tin.theta0.clone(), loop.QN, loop.state))
     used = NOISE_DRAWS["used"]
-    count = graph._first_solve(loop, step, tin.state, cfg.max_iterations)
-    if isinstance(source, _TickDraws) and how == "chunk":
+    _, count, over = graph.ready(tick, True, step, tin.state,
+                                 cfg.max_iterations, keep=True)
+    if not over:
+        count = graph.Handle(step, entry=tick).run(cfg.max_iterations, count)
+    if isinstance(source, _TickDraws) and loop.route == "chunk":
         # the chunks' draws came from the graph: tick 0 drew `count`
         NOISE_DRAWS["used"] = used + count
         source.drawn = count
-    graph._on(graph._stream(dev), lambda: tick.tick_out() or ())
-    graph._captured(tick.enter, dev, tick.tick_in)
-    graph._captured(tick.leave, dev, tick.tick_out)
-    graph._CACHE[key] = tick
+    graph.eagerly(dev, lambda: tick.tick_out() or ())
+    graph.capture(tick.parts["tick_in"], dev, tick.tick_in)
+    graph.capture(tick.parts["tick_out"], dev, tick.tick_out)
     return tick
 
 
 def _chunk_ticks(tick: _Tick, first: int, num_ticks: int, draws) -> None:
     """Ticks first..num_ticks-1 on the chunk route: per tick one replay of
-    `enter`, `n` chunk replays and one of `leave`, and no host read. The
+    tick-in, `n` chunk replays and one of tick-out, and no host read. The
     loop's generator starts at tick `first`'s first draw of the default
     noise `draws`, and moves exactly max_iterations draws a tick."""
     g, per_tick = tick.loop, draws.per_tick
@@ -436,7 +408,7 @@ def _chunk_ticks(tick: _Tick, first: int, num_ticks: int, draws) -> None:
     tick.total.zero_()
     for t in range(first, num_ticks):
         with tracing.span("mpc.tick", device=True, tick=t):
-            tick.enter.replay()
+            tick.parts["tick_in"].replay()
             for _ in range(tick.n):
                 g.replay()
             # the chunks moved the generator n·k draws; a tick moves
@@ -445,10 +417,10 @@ def _chunk_ticks(tick: _Tick, first: int, num_ticks: int, draws) -> None:
                 _skip(g, per_tick - tick.n * g.k)
             else:
                 _skip(g, per_tick - int(g.ctl[1]))
-            tick.leave.replay()
+            tick.parts["tick_out"].replay()
 
 
-def _skip(g: graph._Graph, n: int) -> None:
+def _skip(g: graph.Loop, n: int) -> None:
     """g's generator moved by n iterations' draws (back where n < 0): its
     offset on the card; on the CPU, where a graph is only emulated and a
     skipped body draws nothing, by n draws made and dropped."""
@@ -458,70 +430,53 @@ def _skip(g: graph._Graph, n: int) -> None:
         g.gen.set_offset(g.gen.get_offset() + n * g.inc)
         return
     for _ in range(n):
-        g._draw()
+        g.draw()
 
 
 def _graphed_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
                    goal_eps, goal_flush, num_ticks, source) -> MPCState:
-    """num_ticks ticks on the cached _Tick of these inputs (captured in
-    tick 0 on a miss): the state loaded once, then per tick one replay of
-    `enter`, the solve's chunk replays (the default noise: no host read)
+    """num_ticks ticks on the cached _Tick of these inputs (built in tick
+    0 on a miss): the state loaded once, then per tick one replay of
+    tick-in, the solve's chunk replays (the default noise: no host read)
     or its draws, replays and flag reads (a caller's noise_fn), one replay
-    of `leave`; the state copied out once, with one read of the
+    of tick-out; the state copied out once, with one read of the
     iterations the ticks ran."""
-    how = graph.route(SimpleNamespace(kind="stomp",
-                                      noise_fn=_TickNoise(source, 0)))
-    plan = draw_plan(_TickNoise(source, 0)) if how == "chunk" else None
-    tensors = []
-    skeleton = (graph._skeleton((robot, ops), tensors),
-                graph._skeleton(static_world, []))
-    shapes = tuple((tuple(v.shape), v.dtype)
-                   for v in (*graph._fields(state), radius))
-    key = ("mpc_tick", cfg, state.q.device, shapes, skeleton,
-           tuple(map(id, tensors)), world_dt, goal_eps, goal_flush, how,
-           None if plan is None else plan.key())
     dev = state.q.device
     solver._check_fp32_matmul(dev)
-    with graph._LOCK:
-        graph._purge()
-        tick = graph._lookup(key, tensors)
-        done = 0
-        if tick is None:
-            tick = _first_tick(key, tensors, robot, cfg, ops, state, radius,
-                               world_dt, static_world, goal_eps, goal_flush,
-                               source, how)
-            done = 1
-        else:
-            with tracing.span("mpc.load") as s:
-                graph._wait(tick, dev)
-                _copy(tick.state, state)
-                tick.radius.copy_(radius)
-                n, updates = graph._load_inputs(
-                    tick, graph._inputs(tick.static_world),
-                    graph._inputs(static_world))
-                if tick.loop.rows is not None:      # this shard's rows
-                    tick.loop.rows.copy_(plan.index(dev))
-                s.set(inputs=n, node_updates=updates)
-        if how == "chunk":
+    shapes = tuple((tuple(v.shape), v.dtype)
+                   for v in (*fields(state), radius))
+    with graph.entry(
+            "mpc_tick", cfg, dev, shapes, world_dt, goal_eps, goal_flush,
+            robot=robot, ops=ops, world=static_world,
+            draws=("stomp", _TickNoise(source, 0)), span=None,
+            build=lambda: _first_tick(robot, cfg, ops, state, radius,
+                                      world_dt, static_world, goal_eps,
+                                      goal_flush, source)) as (tick, new):
+        g = tick.loop
+        if not new:
+            pairs = [*zip(fields(tick.state), fields(state)),
+                     (tick.radius, radius)]
+            if g.rows is not None:                  # this shard's rows
+                pairs.append((g.rows, draw_plan(source).index(dev)))
+            graph.load(tick, pairs, static_world, span="mpc.load")
+        done = 1 if new else 0
+        if g.route == "chunk":
             if done < num_ticks:
                 _chunk_ticks(tick, done, num_ticks, source)
                 ran = _read_total(tick)
-                graph._add_counts(tick.loop.per_it, ran)
-                graph.GRAPHS["chunk"] += ran
-                _skip_source(tick.loop, source, num_ticks, ran)
+                g.tally(ran)
+                _skip_source(g, source, num_ticks, ran)
         else:
             for t in range(done, num_ticks):
                 with tracing.span("mpc.tick", device=True, tick=t):
-                    tick.enter.replay()
+                    tick.parts["tick_in"].replay()
                     if cfg.max_iterations > 0:
-                        graph._iterate(tick.loop, dataclasses.replace(
-                            tick.loop.step, noise_fn=_TickNoise(source, t)),
+                        g.iterate(dataclasses.replace(
+                            g.step, noise_fn=_TickNoise(source, t)),
                             cfg.max_iterations, 0)
-                    tick.leave.replay()
+                    tick.parts["tick_out"].replay()
         with tracing.span("mpc.copy_out"):
-            out = map_tensors(tick.state, torch.clone)
-        graph._release(tick, dev)
-        return out
+            return map_tensors(tick.state, torch.clone)
 
 
 def _read_total(tick: _Tick) -> int:
@@ -538,7 +493,7 @@ def _read_total(tick: _Tick) -> int:
         return int(host)
 
 
-def _skip_source(g: graph._Graph, draws, num_ticks: int, ran: int) -> None:
+def _skip_source(g: graph.Loop, draws, num_ticks: int, ran: int) -> None:
     """The default noise after chunk ticks up to num_ticks, in which `ran`
     iterations drew: its generator at tick num_ticks's first draw (where
     the eager episode's padding leaves it), the draws since its last
@@ -562,9 +517,7 @@ def _run_ticks(robot, cfg, ops, state, radius, world_dt, static_world,
     graph.eager_reason's cases for the robot, the static world and
     DeviceOps (the CPU, debug_mode, graph.eager(), ...), where every tick
     runs _eager_tick."""
-    why = graph.eager_reason(SimpleNamespace(
-        robot=robot, world=static_world, world_batched=False,
-        constraints=(), ops=ops, Q0=state.q))
+    why = graph.eager_reason(state.q.device, robot, ops, static_world)
     if why is None and num_ticks > 0:
         return _graphed_ticks(robot, cfg, ops, state, radius, world_dt,
                               static_world, goal_eps, goal_flush, num_ticks,

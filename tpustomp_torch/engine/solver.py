@@ -518,28 +518,14 @@ def run_until(step: Step, state: SolverState, it_limit: int, count: int = 0):
     iterations run so far; it is handed on to noise_fn, so a resumed run
     draws what one uninterrupted run would. Returns (state, count).
 
-    On the card the loop replays cached CUDA graphs (engine/graph.py, the
-    counterpart of JAX's jitted while_loop): chunks of iterations, the draw
-    in the graph and the loop's condition read on the device, or, for a
-    noise_fn that cannot be captured, one replay of step.advance an
-    iteration, the draw on the host and the done test. The eager loop, one
-    step(state, count) an iteration and one host sync, runs in the cases
-    engine/graph.eager_reason names: on the CPU; under
-    utils.tracing.debug_mode, which checks the state after every iteration
-    (a second sync); for tensors moved under inference_mode; and inside
-    graph.eager(), for comparisons. A world with a row axis replays too:
-    its rows are the graph's inputs, loaded with the state."""
-    reason = graph.eager_reason(step)
-    if reason is None:
-        return graph.run(step, state, it_limit, count)
-    check = tracing.debug_enabled()
-    while count < it_limit and not bool(state.done.all()):
-        state = step(state, count)
-        graph.GRAPHS["eager:" + reason] += 1
-        if check:
-            tracing.check_state(state, count)
-        count += 1
-    return state, count
+    engine/graph.run: on the card the loop replays cached CUDA graphs (the
+    counterpart of JAX's jitted while_loop), in chunks of iterations with
+    the draw in the graph and the loop's condition read on the device, or,
+    for a noise_fn that cannot be captured, one replay an iteration; in
+    graph.eager_reason's cases (the CPU, utils.tracing.debug_mode,
+    tensors moved under inference_mode, graph.eager()) one step(state,
+    count) an iteration and one host sync."""
+    return graph.run(step, state, it_limit, count)
 
 
 def _evaluate(robot: RobotSpec, world, constraints, cfg: PlannerConfig,
@@ -809,14 +795,8 @@ def solve_batch(robot: RobotSpec, world, cfg: PlannerConfig, ops: DeviceOps,
     _check_batch(cfg, constraints, Q0, world, world_batched, hyper)
     step = make_step(robot, world, cfg, ops, Q0, QN, noise_fn,
                      world_batched, constraints, hyper)
-    if graph.eager_reason(step) is None:
-        return graph.solve(step, theta0, restarts,
-                           state_layout(cfg, *Q0.shape), _init_batch,
-                           _finish)[0]
-    QN, state = _init_batch(robot, cfg, Q0, QN, theta0)
-    step = step.over(QN=QN)
-    state, _ = run_until(step, state, cfg.max_iterations)
-    return _finish(step, state, restarts)
+    return graph.solve(step, theta0, restarts, state_layout(cfg, *Q0.shape),
+                       _init_batch, _finish)[0]
 
 
 def _gather_world(world, idx: torch.Tensor, world_batched: bool):
@@ -828,28 +808,6 @@ def _gather_world(world, idx: torch.Tensor, world_batched: bool):
         return dataclasses.replace(
             world, overlay=map_tensors(world.overlay, lambda v: v[idx]))
     return map_tensors(world, lambda v: v[idx])
-
-
-def _put_rows(buf: SolverState, part: SolverState,
-              rows: torch.Tensor | None) -> SolverState:
-    """buf with its rows `rows` replaced by part's (None: part is the whole
-    batch)."""
-    if rows is None:
-        return part
-    return SolverState(**{
-        f.name: getattr(buf, f.name).index_copy(0, rows, getattr(part, f.name))
-        for f in dataclasses.fields(SolverState)})
-
-
-def _run_chunk(step: Step, state: SolverState, count: int, chunk: int):
-    """The compacted path's chunk: up to `chunk` more iterations and the
-    host's one read after them, of the done mask (with the count, on the
-    card). Returns (state, count, done mask as numpy)."""
-    if graph.eager_reason(step) is None:
-        return graph.run(step, state, count + chunk, count, k=chunk,
-                         mask=True)
-    state, count = run_until(step, state, count + chunk, count)
-    return state, count, state.done.cpu().numpy()
 
 
 def solve_batch_compacted(robot: RobotSpec, world, cfg: PlannerConfig,
@@ -887,17 +845,21 @@ def solve_batch_compacted(robot: RobotSpec, world, cfg: PlannerConfig,
     full = make_step_batch_tm(robot, world, cfg, ops, Q0, QN, noise_fn,
                               world_batched, constraints)
 
-    def compact(state, QN, chunk_of, put, count=0) -> int:
-        """The chunks from the full batch's `state` after `count`
+    def loop(h, count) -> int:
+        """The chunks from the full batch's state (h's) after `count`
         iterations, regrouped onto the active rows when their bucket is
-        smaller (QN: the wrapped goals).
-        chunk_of(step, state, count) -> (state, count, done mask) runs a
-        chunk; put(state, rows) writes the current rows back into the full
-        batch (rows None: the state is the full batch). Returns the
-        count."""
+        smaller: the full batch's chunks are h's, a bucket's run on an
+        entry of its own, and its rows go back into h's state when the
+        batch regroups again and at the end. Returns the count."""
         rows, step = None, full
         while True:
-            state, count, done = chunk_of(step, state, count)
+            if rows is None:
+                count, done = h.run(count + chunk, count, mask=True)
+                state = h.state
+            else:
+                h.hold()
+                state, count, done = graph.run(step, state, count + chunk,
+                                               count, k=chunk, mask=True)
             n_active = int((~done).sum())
             if n_active == 0:
                 break
@@ -905,51 +867,20 @@ def solve_batch_compacted(robot: RobotSpec, world, cfg: PlannerConfig,
             if bucket >= done.size:
                 continue            # no win at this size; run on as it is
             keep = torch.from_numpy(np.flatnonzero(~done)).to(Q0.device)
-            put(state, rows)
+            if rows is not None:
+                h.put(state, rows)
             rows = keep if rows is None else rows[keep]
             state = map_tensors(state, lambda v: v[keep])
             step = make_step_batch_tm(
                 robot, _gather_world(world, rows, world_batched), cfg, ops,
-                Q0[rows], QN[rows], RowNoise(noise_fn, rows, B),
+                Q0[rows], h.QN[rows], RowNoise(noise_fn, rows, B),
                 world_batched, constraints)
-        put(state, rows)
+        if rows is not None:
+            h.put(state, rows)
         return count
 
-    def bucket_chunk(step, state, count):
-        return _run_chunk(step, state, count, chunk)
-
-    if graph.eager_reason(full) is None:
-        # solve-in, chunks, solve-out on the full batch's entry (chunks of
-        # `chunk`); buckets run on their own entries and write their rows
-        # back into the entry's state, which solve-out reads
-        def loop(g, first):
-            def chunk_of(step, state, count):
-                if state is not g.state:
-                    graph.hold(g)
-                    return bucket_chunk(step, state, count)
-                count, done = graph._loop(g, full, count + chunk, count,
-                                          True)
-                return state, count, done
-
-            def put(state, rows):
-                if rows is not None:
-                    for a, b in zip(graph._fields(g.state),
-                                    graph._fields(state)):
-                        a.index_copy_(0, rows, b)
-
-            return compact(g.state, g.QN, chunk_of, put, first)
-
-        return graph.solve(full, theta0, 1, state_layout(cfg, *Q0.shape),
-                           _init_batch, _finish, loop=loop, k=chunk)[0]
-    QN, state = _init_batch(robot, cfg, Q0, QN, theta0)
-    full = full.over(QN=QN)
-    buf = [state]
-
-    def put(state, rows):
-        buf[0] = _put_rows(buf[0], state, rows)
-
-    compact(state, QN, bucket_chunk, put)
-    return _finish(full, buf[0])
+    return graph.solve(full, theta0, 1, state_layout(cfg, *Q0.shape),
+                       _init_batch, _finish, loop=loop, k=chunk)[0]
 
 
 def select_best(sols: Solution) -> Solution:
