@@ -172,6 +172,13 @@ and fails (non-zero exit, no result line) on any error:
      PyTorch version at the config-4 and config-5 shapes: bitwise, kernel
      and plain ms (CUDA events), its bytes bound; its launches over the
      config-4 plan_batch and config-5 MPC phases, asserted above 0.
+  2π. PI²'s tail (csrc/pi2.cu: the reverse cost-to-go, the per-timestep
+     softmax and the probability-weighted candidates in one pass) against
+     its plain PyTorch version and a float64 evaluation at the config-4
+     and config-5 shapes and at B = 1: max |Δ| to each, kernel and plain
+     ms (CUDA events over a captured graph of 10 calls), its bytes bound;
+     its launches over the config-4 plan_batch and config-5 MPC phases,
+     asserted equal to the propose kernel's.
   2c. the CHOMP gradient kernel (csrc/chomp_grad.cu: ∇U's point
      Jacobians, SDF gradient, curvature term, damped pseudo-inverse and
      Jᵀ sum in one pass) against its plain PyTorch version at config 3's
@@ -646,6 +653,8 @@ def chomp_grad_phase(robot, world, cfg, smi, B=1024, seed=0):
 
 # The propose kernel's launches over each plan_batch and MPC phase, by label
 PROPOSE_LAUNCHES = {}
+# PI²'s tail kernel's launches over the same phases, by label
+PI2_LAUNCHES = {}
 # The CHOMP gradient kernel's launches over each plan and plan_batch phase,
 # and the solver loop's iterations there (the most any row ran), by label
 # ("plan:<label>" for plan)
@@ -710,6 +719,64 @@ def propose_phase(label, robot, B, N, K, Kr, smi, seed=0):
         card=smi)
     assert bitwise and nan_in_place and max_err == 0.0, (max_err, bitwise)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms)
+
+
+def pi2_phase(label, B, N, K, smi, seed=0):
+    """Phase 2π: PI²'s tail kernel at one shape (d 7, costs ≥ 0 with about
+    60 % of them 0, one h a row, the cumulative cost) against its plain
+    version and a float64 evaluation of the formula: max |Δ| to each
+    over the finite entries, NaNs in place (a NaN cost in the last
+    scenario); kernel and plain ms (CUDA events over a captured graph of
+    10 calls, median of 20 replays) beside the bound of the bytes it must
+    move."""
+    from tpustomp_torch.kernels import pi2
+
+    dev = torch.device("cuda")
+    d, T = 7, N + 2
+    g = torch.Generator(dev).manual_seed(seed)
+    S_all = (2.0 * torch.rand(B, K + 1, T, generator=g, device=dev)
+             * (torch.rand(B, K + 1, T, generator=g, device=dev) < 0.4))
+    S_all[B - 1, 2, T // 2] = float("nan")
+    theta = torch.randn(B, N, d, generator=g, device=dev)
+    cand = (theta.permute(1, 2, 0)[..., None]
+            + 0.3 * torch.randn(N, d, B, K + 1, generator=g, device=dev))
+    h = 1.0 + 25.0 * torch.rand(B, generator=g, device=dev)
+    args = (S_all, None, 0.0, True, cand[..., 1:], theta.permute(1, 2, 0), h)
+    pi2.load(dev)
+    before = pi2.LAUNCHES["pi2"]
+    got = pi2.tail(*args)
+    plain = pi2.tail_plain(*args)
+    S = S_all.double()[:, 1:].flip(2).cumsum(2).flip(2)[:, :, 1:-1]
+    lo, hi = S.amin(1, keepdim=True), S.amax(1, keepdim=True)
+    e = torch.exp(-h.double()[:, None, None] * ((S - lo) / (hi - lo + 1e-8)))
+    P = e / e.sum(1, keepdim=True)
+    ref = (torch.einsum("bkn,ndbk->ndb", P, cand[..., 1:].double())
+           - theta.permute(1, 2, 0).double() * P.sum(1).t()[:, None, :])
+    torch.cuda.synchronize()
+    assert pi2.LAUNCHES["pi2"] == before + 1
+    finite = ~ref.isnan()
+    nan_in_place = (torch.equal(got.isnan(), ref.isnan())
+                    and torch.equal(got.isnan(), plain.isnan()))
+    err = float((got.double() - ref)[finite].abs().max())
+    plain_err = float((plain.double() - ref)[finite].abs().max())
+    to_plain = float((got - plain)[finite].abs().max())
+    ms = graph_time_ms(lambda: pi2.tail(*args), 20)
+    plain_ms = graph_time_ms(lambda: pi2.tail_plain(*args), 20)
+    # each byte once: S's noisy rows, the noisy slots, θ and h read, the
+    # output written
+    nbytes = 4 * (B * K * T + N * d * B * K + 2 * N * d * B + B)
+    bound_ms = 1e3 * nbytes / PEAK_BYTES
+    say(f"pi2:{label}", B=B, N=N, K=K, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by="bytes", mbytes=nbytes / 1e6,
+        pct_of_bound=100 * bound_ms / ms, max_abs_err_float64=err,
+        plain_max_abs_err_float64=plain_err, max_abs_to_plain=to_plain,
+        nan_in_place=nan_in_place, plan=pi2._plan(
+            B, K, T, d, torch.cuda.get_device_properties(0)
+            .multi_processor_count), card=smi)
+    assert nan_in_place and err <= max(2 * plain_err, 1e-4), (err,
+                                                              plain_err)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=err)
 
 
 def kernel_phase(name, rollout, robot, world, fulls, dt, clearance, smi,
@@ -979,11 +1046,12 @@ def plan_batch_phase(label, kernel, rollout, robot, world, cfg4, q0b, qNb,
     B, d = q0b.shape
     T = cfg4.num_timesteps + 2
     dt, clearance = cfg4.dt, cfg4.collision_clearance
-    from tpustomp_torch.kernels import chomp_grad, propose
+    from tpustomp_torch.kernels import chomp_grad, pi2, propose
 
     sol, wall, launches = timed_plan_batch(rollout, robot, world, cfg4, q0b,
                                            qNb)
     PROPOSE_LAUNCHES[label] = propose.LAUNCHES["propose"]
+    PI2_LAUNCHES[label] = pi2.LAUNCHES["pi2"]
     CHOMP_GRAD_LAUNCHES[label] = chomp_grad.LAUNCHES["chomp_grad"]
     LOOP_ITERATIONS[label] = int(sol.iterations.max())
     # the robot and world came to the card by .to(): every launch takes the
@@ -1234,7 +1302,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
     from tpustomp_torch._tensors import map_tensors
     from tpustomp_torch.engine import graph, mpc
     from tpustomp_torch.engine.mpc import run_mpc_batch
-    from tpustomp_torch.kernels import propose
+    from tpustomp_torch.kernels import pi2, propose
 
     dev = robot.joint_axis.device
     B = states.q.shape[0]
@@ -1255,6 +1323,7 @@ def mpc_phase(label, variant, rollout, robot, cfg5, spec, static, states,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     PROPOSE_LAUNCHES[label] = propose.LAUNCHES["propose"]
+    PI2_LAUNCHES[label] = pi2.LAUNCHES["pi2"]
     # the episode replayed its tick's graphs, captured in its first tick
     replayed(graph)
     graphs = dict(graph.GRAPHS)
@@ -3250,7 +3319,7 @@ def main():
               "torso_arm_urdf": rollout.chain_of(urdf_robot)}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:     # the IF-node helper beside them
-        helper = pool.submit(rollout.build, ("graph_if", "propose"))
+        helper = pool.submit(rollout.build, ("graph_if", "propose", "pi2"))
         rollout.build(chains=tuple(chains.values()))
         helper.result()
     from tpustomp_torch.kernels import graph_if
@@ -3260,6 +3329,7 @@ def main():
         libraries=len(rollout.BUILD_SECONDS),
         graph_if_build_seconds=rollout.BUILD_SECONDS.get(("graph_if", None)),
         propose_build_seconds=rollout.BUILD_SECONDS.get(("propose", None)),
+        pi2_build_seconds=rollout.BUILD_SECONDS.get(("pi2", None)),
         first_build_seconds={
             f"{src}:{label}": rollout.BUILD_SECONDS.get((src, c))
             for label, c in chains.items() for src in rollout._SOURCES},
@@ -3310,6 +3380,18 @@ def main():
         "config4:B1": propose_phase(
             "config4:B1", robot, 1, cfg4.num_timesteps, cfg4.num_rollouts,
             cfg4.noise.num_rollouts_reused, smi)}
+
+    # --- 2π. PI²'s tail at the config-4 and config-5 shapes and B = 1 -------
+    pi2_ms = {
+        "config4": pi2_phase("config4", B, cfg4.num_timesteps,
+                             cfg4.num_rollouts
+                             + cfg4.noise.num_rollouts_reused, smi),
+        "config5": pi2_phase("config5", B5, cfg5.num_timesteps,
+                             cfg5.num_rollouts
+                             + cfg5.noise.num_rollouts_reused, smi),
+        "single": pi2_phase("single", 1, cfg4.num_timesteps,
+                            cfg4.num_rollouts
+                            + cfg4.noise.num_rollouts_reused, smi)}
 
     # --- 2c. the CHOMP gradient kernel at config 3's shape ------------------
     cfg3 = from_dict(doc3["planner"])
@@ -3521,6 +3603,10 @@ def main():
                     ("config4", "config4_grid", "config5", "config5_grid")}
     say("propose:main_path", launches=main_propose, ms=propose_ms)
     assert all(n > 0 for n in main_propose.values()), main_propose
+    # ... and through PI²'s tail, once an iteration as the propose kernel
+    main_pi2 = {k: PI2_LAUNCHES[k] for k in main_propose}
+    say("pi2:main_path", launches=main_pi2, ms=pi2_ms)
+    assert main_pi2 == main_propose, (main_pi2, main_propose)
     eight = map_tensors(states5, lambda v: v[:8])
     mpc_cuda_vs_cpu_phase("config5", robot, cfg5, world, eight)
     mpc_cuda_vs_cpu_phase("config5_grid", robot, cfg5, grid, eight)

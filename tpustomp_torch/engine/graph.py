@@ -78,10 +78,10 @@ the graph.
 
 Counters: the kernel wrappers' host counts (``rollout.LAUNCHES``,
 ``PARAM_ROUTES``, ``LAYOUTS``, ``BODY_ORDER``, ``propose.LAUNCHES``,
-``chomp_grad.LAUNCHES``) that a capture added move to its region's
-replays, and a chunk adds one iteration's share per iteration run, so a
-graphed run counts what the eager loop counts. :data:`GRAPHS` counts the
-rest.
+``chomp_grad.LAUNCHES``, ``pi2.LAUNCHES``) that a capture added move to
+its region's replays, and a chunk adds one iteration's share per
+iteration run, so a graphed run counts what the eager loop counts.
+:data:`GRAPHS` counts the rest.
 
 Graphed programs of one process run one at a time (a lock); an entry's
 next load waits for the device work of its last call (an event), so calls
@@ -105,8 +105,8 @@ import torch
 from tpustomp_torch._tensors import (clone_with_mirrors, copy_with_mirror,
                                      fields, map_tensors)
 from tpustomp_torch.engine.sampling import draw_plan
-from tpustomp_torch.kernels import (chomp_grad, graph_if, graph_node, propose,
-                                    rollout)
+from tpustomp_torch.kernels import (chomp_grad, graph_if, graph_node, pi2,
+                                    propose, rollout)
 from tpustomp_torch.robot.model import joint_types_on_host
 from tpustomp_torch.utils import tracing
 from tpustomp_torch.world.sdf import CompositeWorld
@@ -142,7 +142,8 @@ _DEAD: list = []        # keys of graphs a tensor of which is gone
 _STREAMS: dict = {}
 _LOCK = threading.RLock()
 _COUNTERS = (rollout.LAUNCHES, rollout.PARAM_ROUTES, rollout.LAYOUTS,
-             rollout.BODY_ORDER, propose.LAUNCHES, chomp_grad.LAUNCHES)
+             rollout.BODY_ORDER, propose.LAUNCHES, chomp_grad.LAUNCHES,
+             pi2.LAUNCHES)
 
 
 @contextlib.contextmanager

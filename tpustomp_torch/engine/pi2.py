@@ -46,19 +46,34 @@ def update_tm(eps_tm: torch.Tensor, S: torch.Tensor, M: torch.Tensor,
     return delta.permute(2, 0, 1)
 
 
-def update_tm_cand(cand_tm: torch.Tensor, theta_tm: torch.Tensor,
-                   S: torch.Tensor, M: torch.Tensor, h) -> torch.Tensor:
-    """`update_tm` without materializing the re-centered noise:
-    Σ_k P_k·ε_k = Σ_k P_k·cand_k − θ·Σ_k P_k.
+def weighted_candidates(cand_tm: torch.Tensor, theta_tm: torch.Tensor,
+                        S: torch.Tensor, h) -> torch.Tensor:
+    """Σ_k P_k·ε_k without materializing the re-centered noise:
+    Σ_k P_k·cand_k − θ·Σ_k P_k.
 
     cand_tm [N, d, B, K] (noisy candidate slots only), theta_tm [N, d, B],
-    S [B, K, N] -> δθ [B, N, d]. h: scalar or [B].
+    S [B, K, N] -> [N, d, B], before the smoothing by M. h: scalar or [B].
+    On the card kernels/pi2.py computes it in one kernel.
     """
     h_arr = torch.as_tensor(h, dtype=torch.float32, device=S.device)
     h_arr = h_arr.expand(S.shape[0])[:, None, None]
     P = probabilities(S, h_arr)                                # [B, K, N]
     wavg = torch.einsum("bkn,ndbk->ndb", P, cand_tm)
     psum = torch.sum(P, dim=1).t()                             # [N, B]
-    delta = wavg - theta_tm * psum[:, None, :]
-    delta = torch.einsum("nm,mdb->ndb", M, delta)
-    return delta.permute(2, 0, 1)
+    return wavg - theta_tm * psum[:, None, :]
+
+
+def smooth_tm(delta: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """M·delta over the waypoints: delta [N, d, B] -> δθ [B, N, d]."""
+    return torch.einsum("nm,mdb->ndb", M, delta).permute(2, 0, 1)
+
+
+def update_tm_cand(cand_tm: torch.Tensor, theta_tm: torch.Tensor,
+                   S: torch.Tensor, M: torch.Tensor, h) -> torch.Tensor:
+    """`update_tm` without materializing the re-centered noise
+    (:func:`weighted_candidates`, then M).
+
+    cand_tm [N, d, B, K] (noisy candidate slots only), theta_tm [N, d, B],
+    S [B, K, N] -> δθ [B, N, d]. h: scalar or [B].
+    """
+    return smooth_tm(weighted_candidates(cand_tm, theta_tm, S, h), M)

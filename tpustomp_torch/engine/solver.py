@@ -71,6 +71,7 @@ from tpustomp_torch.engine.sampling import (RowNoise, noise_product_tm,
 from tpustomp_torch.engine.trajectory import (full_trajectory, min_jerk_init,
                                               wrap_goal)
 from tpustomp_torch.kernels import chomp_grad, propose
+from tpustomp_torch.kernels import pi2 as pi2_tail
 from tpustomp_torch.kernels.rollout import obstacle_cost_batch
 from tpustomp_torch.robot.model import RobotSpec
 from tpustomp_torch.utils import tracing
@@ -402,8 +403,10 @@ def _stomp_advance(s: Step):
     rows = torch.arange(B, device=dev)[:, None]
     project = _projector(robot, cfg, ops)
     smooth = cfg.rollout_limit_projection == "smooth"
-    if dev.type == "cuda" and not smooth:
-        propose.load(dev)
+    if dev.type == "cuda":
+        pi2_tail.load(dev)
+        if not smooth:
+            propose.load(dev)
     decay_base = cfg.noise.decay if hyper is None else hyper.decay
     # PI²'s h as a device scalar made here, not a host value copied to the
     # device every iteration (no copy may run inside a captured graph)
@@ -452,15 +455,12 @@ def _stomp_advance(s: Step):
         ctrl_sums = torch.sum(ctrl_all, dim=2)
         totals = torch.sum(S_all, dim=2) + w_smooth * ctrl_sums   # [B, C]
 
-        # --- update (A.9/A.10), time-major ---------------------------------
-        S_used = S_all[:, 1:, :]
-        if cfg.pi2_include_control_cost:
-            S_used = S_used + w_smooth * ctrl_all[:, 1:, :]
-        if cfg.pi2_cost_mode == "cumulative":
-            S_used = torch.flip(torch.cumsum(torch.flip(S_used, [2]), dim=2),
-                                [2])
-        delta = pi2.update_tm_cand(cand_tm[..., 1:], theta_tm,
-                                   S_used[:, :, 1:-1], ops.M, pi2_h)
+        # --- update (A.9/A.10), time-major: the cost-to-go, P and the
+        # probability-weighted candidates in one kernel on the card -------
+        delta = pi2.smooth_tm(pi2_tail.tail(
+            S_all, ctrl_all if cfg.pi2_include_control_cost else None,
+            w_smooth, cfg.pi2_cost_mode == "cumulative", cand_tm[..., 1:],
+            theta_tm, pi2_h), ops.M)
         theta_new = project(state.theta + delta)
 
         # rollout reuse: the lowest-total-cost noisy candidates (A.3); a

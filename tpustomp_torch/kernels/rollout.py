@@ -210,12 +210,13 @@ _LAUNCH_PARAMS: dict[tuple, tuple] = {}
 
 
 def reset_launches() -> None:
-    """Every kernel counter to 0: these, the propose kernel's and the CHOMP
-    gradient kernel's (kernels/propose.py, kernels/chomp_grad.py, which
-    import this module)."""
-    from tpustomp_torch.kernels import chomp_grad, propose
+    """Every kernel counter to 0: these, the propose kernel's, the CHOMP
+    gradient kernel's and PI²'s tail's (kernels/propose.py,
+    kernels/chomp_grad.py, kernels/pi2.py, which import this module)."""
+    from tpustomp_torch.kernels import chomp_grad, pi2, propose
     for counts in (LAUNCHES, PARAM_ROUTES, PARAM_READS, LAYOUTS,
-                   BODY_ORDER, propose.LAUNCHES, chomp_grad.LAUNCHES):
+                   BODY_ORDER, propose.LAUNCHES, chomp_grad.LAUNCHES,
+                   pi2.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
