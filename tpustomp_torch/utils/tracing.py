@@ -9,7 +9,8 @@
     and copies, a graph's lookup, load, replays and loop, a read of the
     loop's condition, an MPC episode's ticks, the gradient of a CHOMP
     iteration on a loop of one iteration a replay or an eager loop,
-    `chomp.grad`): its name, its host start
+    `chomp.grad`, a voxel field's build and its copy to a device,
+    `world.*`): its name, its host start
     and end on the profiler trace's clock (`trace_us`), its parent, the
     request it belongs to (one public call: every span under one root)
     and its attributes. A span opened with ``device=True`` also records a

@@ -12,6 +12,10 @@ ever sees the finished [X, Y, Z] float32 grid (world/sdf.GridSDF).
   - `IncrementalSDF`: a clamped signed EDT that structural edits patch in
     place of a rebuild (bounded re-propagation, host numpy), with only the
     changed region copied to the device.
+
+A field's build is a span, `world.sdf` (utils/tracing.py; attributes
+`voxels`, `occupied`, `packed`), over its two EDT passes (`world.edt`) and
+the corner table (`world.pack`, in GridSDF.make).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpustomp_torch.utils import tracing
 from tpustomp_torch.world import native_edt
 from tpustomp_torch.world.sdf import AnalyticWorld, GridSDF
 
@@ -100,14 +105,20 @@ def edt_voxels(seed: np.ndarray) -> np.ndarray:
 def signed_edt(occ: np.ndarray, resolution: float, origin) -> GridSDF:
     """Signed EDT grid: positive outside (distance to the nearest occupied
     voxel), negative inside (minus the distance to the nearest free voxel);
-    a grid with no seed on one side holds ±1e6 there."""
+    a grid with no seed on one side holds ±1e6 there. With the packed
+    corner table (GridSDF.make)."""
     occ = np.asarray(occ, bool)
-    d_out = edt_voxels(occ)
-    d_in = edt_voxels(~occ)
-    signed = np.where(occ, -d_in, d_out) * resolution
-    signed = np.where(np.isfinite(signed), signed,
-                      np.sign(signed) * 1e6).astype(np.float32)
-    return GridSDF.make(signed, origin, resolution)
+    with tracing.span("world.sdf") as s:
+        if s is not tracing.OFF:        # a count costs a pass over occ
+            s.set(voxels=int(occ.size), occupied=int(np.count_nonzero(occ)),
+                  packed=True)
+        with tracing.span("world.edt"):
+            d_out = edt_voxels(occ)
+            d_in = edt_voxels(~occ)
+        signed = np.where(occ, -d_in, d_out) * resolution
+        signed = np.where(np.isfinite(signed), signed,
+                          np.sign(signed) * 1e6).astype(np.float32)
+        return GridSDF.make(signed, origin, resolution)
 
 
 class IncrementalSDF:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from tpustomp_torch._tensors import to_device
+from tpustomp_torch.utils import tracing
 
 
 def _f32(x, shape=None) -> torch.Tensor:
@@ -79,15 +80,22 @@ class GridSDF:
         if pack:
             # roll wraps at the far edges, but sample cells are clipped to
             # [0, dim-2], so wrapped rows are never read
-            packed = torch.as_tensor(np.stack(
-                [np.roll(g, (-dx, -dy, -dz), (0, 1, 2))
-                 for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
-                axis=-1).reshape(-1, 8))
+            with tracing.span("world.pack", rows=g.size):
+                packed = torch.as_tensor(np.stack(
+                    [np.roll(g, (-dx, -dy, -dz), (0, 1, 2))
+                     for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
+                    axis=-1).reshape(-1, 8))
         return GridSDF(grid=torch.as_tensor(g), origin=_f32(origin, (3,)),
                        resolution=_f32(resolution, ()), packed=packed)
 
     def to(self, device) -> "GridSDF":
-        return to_device(self, device)
+        """The grid (and its corner table) on `device`, as a span
+        `world.copy` (utils/tracing.py) with the bytes it holds."""
+        with tracing.span("world.copy", to=str(device)) as s:
+            if s is not tracing.OFF:
+                s.set(bytes=sum(t.numel() * t.element_size() for t in (
+                    self.grid, self.packed) if t is not None))
+            return to_device(self, device)
 
 
 @dataclass(frozen=True)
